@@ -1,0 +1,158 @@
+"""The PyTorch port's configuration, state and kernel gate against the JAX
+package: same config fields and defaults, the same initial state, and a
+state that crosses between the two packages through numpy."""
+
+import dataclasses
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_fluid.core.config import FluidConfig as JaxConfig
+from tpu_fluid.core.state import initial_state as jax_initial_state
+from tpu_fluid.core.types import CellType as JaxCellType
+from tpu_fluid_torch import CellType, FluidConfig, initial_state
+from tpu_fluid_torch.core.config import deep_tuple
+from tpu_fluid_torch.core.state import state_from_numpy, state_to_numpy
+from tpu_fluid_torch.kernels import fuse_grid_choice, kernel_choice
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parent.parent
+
+SMALL = dict(grid_size=(10, 12, 8), particle_count=700,
+             particle_init_cube_resolution=(9, 8, 7),
+             particle_init_cube_offset=(2.0, 1.5, 1.25),
+             particle_init_cube_size=(5.0, 6.0, 4.5),
+             surface_render_resolution=2)
+MULTI = dict(SMALL, particle_count=900,
+             extra_particle_cubes=(((4, 4, 4), (6.0, 7.0, 3.0),
+                                    (2.0, 2.0, 2.0)),))
+
+
+def test_config_fields_and_defaults_match_jax():
+    jf = {f.name: f for f in dataclasses.fields(JaxConfig)}
+    tf = {f.name: f for f in dataclasses.fields(FluidConfig)}
+    assert list(jf) == list(tf)
+    for name, f in jf.items():
+        assert tf[name].default == f.default, name
+        assert tf[name].default_factory == f.default_factory, name
+
+
+@pytest.mark.parametrize("factory", [
+    lambda m: m.reference_scene(),
+    lambda m: m.scaled_scene(16, particle_count=1000, jacobi_iters=2),
+    lambda m: m.scaled_scene(256),
+    lambda m: m(**MULTI).replace(max_inertia=300, fountain_position=(1, 2, 3),
+                                 levelset_iso=1.5),
+])
+def test_config_factories_and_properties_match_jax(factory):
+    j, t = factory(JaxConfig), factory(FluidConfig)
+    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    for prop in ("fountain", "detailed_size", "surface_cells",
+                 "volume_target_density_value", "levelset_iso_value",
+                 "levelset_sweeps_value"):
+        assert getattr(j, prop) == getattr(t, prop), prop
+    assert t.torch_dtype == torch.float32
+    want = torch.uint8 if j.inertia_dtype == jnp.uint8 else torch.int32
+    assert t.inertia_dtype == want
+
+
+def test_config_json_interchange():
+    """A JAX config's JSON form (lists for tuples) builds the same port
+    config and back."""
+    j = JaxConfig(**MULTI).replace(solid_boxes=(((1, 1, 1), (3, 3, 3)),),
+                                   extra_forces=(((2, 2, 2), (0, -5.0, 0)),))
+    data = json.loads(json.dumps(dataclasses.asdict(j)))
+    t = FluidConfig(**{k: deep_tuple(v) for k, v in data.items()})
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert JaxConfig(**dataclasses.asdict(t)) == j
+    hash(t)
+
+
+def test_cell_type_codes_match_jax():
+    for name in ("INACTIVE", "AIR", "WATER", "SOLID"):
+        assert getattr(CellType, name) == getattr(JaxCellType, name)
+
+
+def _assert_state_matches(port, jax_state):
+    got = state_to_numpy(port)
+    for name, value in jax_state._asdict().items():
+        want = np.asarray(value)
+        assert got[name].dtype == want.dtype, name
+        assert got[name].shape == want.shape, name
+        if name == "positions":
+            # XLA:CPU may contract off + (idx / res) * size into one FMA;
+            # the port rounds the product and the sum separately (1 ULP)
+            np.testing.assert_array_max_ulp(got[name], want, maxulp=1)
+        else:
+            np.testing.assert_array_equal(got[name], want, err_msg=name)
+
+
+@pytest.mark.parametrize("kw", [SMALL, MULTI,
+                                dict(SMALL, max_inertia=300)])
+def test_initial_state_matches_jax(kw):
+    _assert_state_matches(initial_state(FluidConfig(**kw)),
+                          jax_initial_state(JaxConfig(**kw)))
+
+
+def test_initial_state_reference_cube_prefix():
+    """The reference scene's spawn math on a prefix of its ids: the id
+    arithmetic (int64 here, uint32 in JAX) places the same particles."""
+    kw = dict(particle_count=20_000, surface_render_resolution=1)
+    _assert_state_matches(initial_state(FluidConfig(**kw)),
+                          jax_initial_state(JaxConfig(**kw)))
+
+
+def test_state_numpy_round_trip_from_jax():
+    jax_state = jax_initial_state(JaxConfig(**SMALL))
+    arrays = {k: np.asarray(v) for k, v in jax_state._asdict().items()}
+    port = state_from_numpy(arrays)
+    assert port.positions.is_contiguous() and port.active.dtype == torch.bool
+    back = state_to_numpy(port)
+    for name, value in arrays.items():
+        np.testing.assert_array_equal(back[name], value, err_msg=name)
+
+
+def test_import_keeps_jax_out():
+    code = ("import sys, tpu_fluid_torch, tpu_fluid_torch.solver.step, "
+            "tpu_fluid_torch.kernels.build; "
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'tpu_fluid.'))] + "
+            "[m for m in sys.modules if m == 'tpu_fluid']; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_kernel_choice_gate():
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    cfg = FluidConfig()
+    assert kernel_choice(cfg, cpu) is False
+    assert kernel_choice(cfg, cuda) is True
+    for mode in ("off", "interpret"):
+        assert kernel_choice(cfg.replace(pallas_mode=mode), cuda) is False
+    assert kernel_choice(cfg.replace(pallas_mode="on"), cuda) is True
+    with pytest.raises(RuntimeError):
+        kernel_choice(cfg.replace(pallas_mode="on"), cpu)
+    with pytest.raises(ValueError):
+        kernel_choice(cfg.replace(pallas_mode="sometimes"), cpu)
+
+
+def test_fuse_grid_gate_raises_where_jax_would_fuse():
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    big = FluidConfig.scaled_scene(256)
+    assert big.grid_fused
+    assert fuse_grid_choice(big, cpu) is False
+    with pytest.raises(NotImplementedError):
+        fuse_grid_choice(big, cuda)
+    assert fuse_grid_choice(big.replace(grid_fused=False), cuda) is False
+    assert fuse_grid_choice(big.replace(reference_diffuse_noop=False),
+                            cuda) is False
+    assert fuse_grid_choice(FluidConfig.scaled_scene(128), cuda) is False

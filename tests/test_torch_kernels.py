@@ -1,0 +1,293 @@
+"""The port's four kernels: each plain PyTorch version against the JAX
+package's Pallas kernel run in the Pallas interpreter (as
+tests/test_fast_paths.py and tests/test_surface_fused.py run them), the
+wrappers' checks and CPU routing, and, on a CUDA card only, each CUDA kernel
+against its plain version (marked `cuda`; they skip without a card).
+
+Integer results must be equal.  f32 results allow 1-2 ULP of the field's
+scale where stated: XLA:CPU may contract a*b+c into one fused multiply-add
+inside the interpreted kernel, where the plain version rounds twice (the
+allowance of commit 5687bef).  On the card the CUDA kernels are built with
+-fmad=false and must match their plain versions bitwise."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_fluid.kernels.advect import advect_all_pallas
+from tpu_fluid.kernels.jacobi import jacobi_sweeps_pallas
+from tpu_fluid.kernels.pack_table import (build_packed_table_pallas,
+                                          build_packed_table_pallas2)
+from tpu_fluid.kernels.particle_sample import sample_and_move
+from tpu_fluid.kernels.surface_fused import surface_fused_pallas
+from tpu_fluid.ops.packed_sampler import (packed_row_indices,
+                                          packed_row_indices2)
+from tpu_fluid_torch.core.config import FluidConfig
+from tpu_fluid_torch.kernels import build
+from tpu_fluid_torch.kernels.advect import advect_all_cuda, advect_all_plain
+from tpu_fluid_torch.kernels.jacobi import (jacobi_sweeps_cuda,
+                                            jacobi_sweeps_plain)
+from tpu_fluid_torch.kernels.particle_move import (particle_move_cuda,
+                                                   particle_move_plain)
+from tpu_fluid_torch.kernels.surface_fused import (surface_fused_cuda,
+                                                   surface_fused_plain)
+from tpu_fluid_torch.ops.packed_sampler import build_packed_table
+from tpu_fluid_torch.stages.pressure import jacobi_fold
+from tpu_fluid_torch.stages.surface_fields import solid_parent_mask
+
+torch.set_num_threads(2)
+EPS = np.finfo(np.float32).eps
+
+
+def T(a):
+    return torch.from_numpy(np.array(a))
+
+
+def same(got, want, ulp=0):
+    g = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    w = np.asarray(want)
+    assert g.shape == w.shape and g.dtype == w.dtype
+    if ulp == 0:
+        np.testing.assert_array_equal(g, w)
+    else:
+        scale = float(np.abs(w).max())
+        np.testing.assert_allclose(g, w, rtol=ulp * EPS,
+                                   atol=ulp * EPS * scale)
+
+
+def random_types(r, shape):
+    t = np.where(r.random(shape) < 0.4, 2, 0).astype(np.uint8)
+    t[0], t[-1], t[:, 0], t[:, -1], t[:, :, 0], t[:, :, -1] = (3,) * 6
+    t[(t == 0) & (r.random(shape) < 0.3)] = 1
+    return t
+
+
+# ------------------------------------------------------------------ inputs
+def advect_inputs(shape, seed):
+    r = np.random.default_rng(seed)
+    vel = (r.standard_normal((3,) + shape) * 80).astype(np.float32)
+    cond3 = (r.random((3,) + shape) < 0.6).astype(np.uint8)
+    return vel, cond3
+
+
+def jacobi_inputs(n, seed):
+    r = np.random.default_rng(seed)
+    types = T(random_types(r, (n, n, n)))
+    rhs = T((r.standard_normal((n, n, n)) * 50).astype(np.float32))
+    _, q0, code, c2 = jacobi_fold(types, rhs, FluidConfig(), 1.0)
+    return q0, code, c2
+
+
+def particle_inputs(shape, p, seed):
+    r = np.random.default_rng(seed)
+    vel = (r.standard_normal((3,) + shape) * 4).astype(np.float32)
+    pos = (r.random((p, 3)) * (np.array(shape) + 2) - 1).astype(np.float32)
+    act = r.random(p) < 0.9
+    return vel, pos, act
+
+
+def surface_inputs(cfg, seed, inertia_dtype=np.uint8):
+    r = np.random.default_rng(seed)
+    d = cfg.detailed_size
+    occ = (r.random(d) < 0.3).astype(np.uint8)
+    inertia = r.integers(0, cfg.max_inertia + 1, d).astype(inertia_dtype)
+    f2 = r.normal(size=d).astype(np.float32)
+    types = r.integers(0, 4, cfg.grid_size).astype(np.uint8)
+    skip = solid_parent_mask(T(types), cfg).to(torch.uint8).numpy()
+    return occ, inertia, f2, skip
+
+
+def surface_kw(cfg):
+    return dict(steps=cfg.float_density_diffuse_steps,
+                k=cfg.float_density_diffuse_coefficient,
+                inc_filled=cfg.inertia_increase_filled,
+                inc_neigh=cfg.inertia_increase_neighbour,
+                required_hits=cfg.inertia_required_neighbour_hits,
+                dec=cfg.inertia_decrease, max_inertia=cfg.max_inertia,
+                div_coef=cfg.float_density_division_coefficient)
+
+
+# ------------------------------------------------------------------ K1
+@pytest.mark.parametrize("shape", [(10, 10, 10), (8, 12, 16)])
+def test_advect_plain_matches_pallas_interpret(shape):
+    vel, cond3 = advect_inputs(shape, 0)
+    got = advect_all_plain(T(vel), T(cond3), 2, 0.01)
+    want = advect_all_pallas(jnp.asarray(vel), jnp.asarray(cond3), 2, 0.01,
+                             interpret=True)
+    same(got, want, ulp=1)
+
+
+# ------------------------------------------------------------------ K2
+@pytest.mark.parametrize("n,iters", [(12, 17), (16, 9)])
+def test_jacobi_plain_matches_pallas_interpret(n, iters):
+    q0, code, c2 = jacobi_inputs(n, 1)
+    got = jacobi_sweeps_plain(q0, code, c2, iters)
+    want = jacobi_sweeps_pallas(jnp.asarray(q0.numpy()),
+                                jnp.asarray(code.numpy()),
+                                jnp.asarray(c2.numpy()), iters,
+                                interpret=True, whole_grid=True)
+    same(got, want, ulp=1)
+
+
+def test_jacobi_zero_iterations_is_identity():
+    q0, code, c2 = jacobi_inputs(6, 2)
+    same(jacobi_sweeps_plain(q0, code, c2, 0), q0.numpy())
+
+
+# ------------------------------------------------------------------ K3+K4
+@pytest.mark.parametrize("shape", [(10, 10, 10), (6, 9, 12)])
+def test_particle_move_plain_matches_pallas_interpret(shape):
+    vel, pos, act = particle_inputs(shape, 2048, 3)
+    table = build_packed_table_pallas(jnp.asarray(vel), interpret=True)
+    same(build_packed_table(T(vel)), table)
+    rows = jnp.take(table, packed_row_indices(jnp.asarray(pos), shape),
+                    axis=0, mode="clip")
+    want = sample_and_move(rows, jnp.asarray(pos).T, jnp.asarray(act),
+                           shape, 0.01, interpret=True).T
+    got = particle_move_plain(T(vel), T(pos), T(act), 0.01)
+    same(got, want, ulp=1)
+
+
+def test_particle_move_plain_matches_paired_table_interpret():
+    """At z >= 128 the TPU path pairs cells z and z+Z/2 in 128-lane rows
+    (tests/test_fast_paths.py:156); the fused kernel has one formulation
+    for both tables."""
+    shape = (4, 8, 128)
+    vel, pos, act = particle_inputs(shape, 512, 4)
+    table2 = build_packed_table_pallas2(jnp.asarray(vel), interpret=True)
+    rows = jnp.take(table2, packed_row_indices2(jnp.asarray(pos), shape),
+                    axis=0, mode="clip")
+    want = sample_and_move(rows, jnp.asarray(pos).T, jnp.asarray(act),
+                           shape, 0.01, interpret=True).T
+    got = particle_move_plain(T(vel), T(pos), T(act), 0.01)
+    same(got, want, ulp=1)
+
+
+# ------------------------------------------------------------------ K5
+@pytest.mark.parametrize("steps", [0, 1, 3, 4])
+def test_surface_plain_matches_pallas_interpret(steps):
+    cfg = FluidConfig.scaled_scene(16, particle_count=1000, jacobi_iters=2
+                                   ).replace(float_density_diffuse_steps=steps)
+    occ, inertia, f2, skip = surface_inputs(cfg, 5)
+    got = surface_fused_plain(T(occ), T(inertia), T(f2), T(skip),
+                              **surface_kw(cfg))
+    want = surface_fused_pallas(*map(jnp.asarray, (occ, inertia, f2, skip)),
+                                interpret=True, **surface_kw(cfg))
+    same(got[0], want[0])
+    same(got[1], want[1], ulp=2)
+    same(got[2], want[2], ulp=2)
+
+
+@pytest.mark.parametrize("inertia_dtype", [np.uint8, np.int32])
+def test_surface_plain_noncubic_obstacles(inertia_dtype):
+    kw = dict(grid_size=(8, 12, 16), particle_count=100,
+              particle_init_cube_resolution=(4, 5, 5), jacobi_iters=2,
+              surface_render_resolution=2,
+              solid_boxes=(((2, 2, 2), (4, 4, 4)),))
+    cfg = FluidConfig(**kw)
+    if inertia_dtype == np.int32:
+        cfg = cfg.replace(max_inertia=300)
+    occ, inertia, f2, skip = surface_inputs(cfg, 6, inertia_dtype)
+    got = surface_fused_plain(T(occ), T(inertia), T(f2), T(skip),
+                              **surface_kw(cfg))
+    want = surface_fused_pallas(*map(jnp.asarray, (occ, inertia, f2, skip)),
+                                interpret=True, **surface_kw(cfg))
+    for g, w, ulp in zip(got, want, (0, 2, 2)):
+        same(g, w, ulp=ulp)
+
+
+# ------------------------------------------------------------------ wrappers
+def _wrapper_calls(device="cpu"):
+    """(wrapper, plain, args, kwargs) at small shapes."""
+    vel, cond3 = advect_inputs((6, 7, 8), 7)
+    q0, code, c2 = jacobi_inputs(6, 8)
+    pvel, pos, act = particle_inputs((6, 7, 8), 300, 9)
+    cfg = FluidConfig(grid_size=(4, 5, 6), surface_render_resolution=2)
+    occ, inertia, f2, skip = surface_inputs(cfg, 10)
+
+    def dev(*a):
+        return tuple(T(x).to(device) if isinstance(x, np.ndarray)
+                     else x.to(device) for x in a)
+
+    return [
+        (advect_all_cuda, advect_all_plain, dev(vel, cond3) + (2, 0.01), {}),
+        (jacobi_sweeps_cuda, jacobi_sweeps_plain, dev(q0, code, c2) + (5,),
+         {}),
+        (particle_move_cuda, particle_move_plain, dev(pvel, pos, act)
+         + (0.01,), {}),
+        (surface_fused_cuda, surface_fused_plain,
+         dev(occ, inertia, f2, skip), surface_kw(cfg)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_wrapper_on_cpu_runs_plain_version_without_launch(case):
+    wrapper, plain, args, kw = _wrapper_calls()[case]
+    before = wrapper.launches
+    got, want = wrapper(*args, **kw), plain(*args, **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert wrapper.launches == before
+
+
+def test_wrappers_reject_bad_inputs():
+    vel, cond3 = map(T, advect_inputs((4, 4, 4), 11))
+    with pytest.raises(TypeError):
+        advect_all_cuda(vel.double(), cond3, 2, 0.01)
+    with pytest.raises(ValueError):
+        advect_all_cuda(vel, cond3[:, :3], 2, 0.01)
+    with pytest.raises(ValueError):
+        advect_all_cuda(vel.transpose(1, 3), cond3, 2, 0.01)
+    q0, code, c2 = jacobi_inputs(4, 12)
+    with pytest.raises(TypeError):
+        jacobi_sweeps_cuda(q0, code.to(torch.int32), c2, 3)
+    pvel, pos, act = map(T, particle_inputs((4, 4, 4), 10, 13))
+    with pytest.raises(ValueError):
+        particle_move_cuda(pvel, pos.T.contiguous(), act, 0.01)
+    with pytest.raises(TypeError):
+        particle_move_cuda(pvel, pos, act.to(torch.uint8), 0.01)
+    cfg = FluidConfig(grid_size=(2, 2, 2), surface_render_resolution=2)
+    occ, inertia, f2, skip = map(T, surface_inputs(cfg, 14))
+    with pytest.raises(TypeError):
+        surface_fused_cuda(occ, inertia.to(torch.int16), f2, skip,
+                           **surface_kw(cfg))
+    with pytest.raises(ValueError):
+        surface_fused_cuda(occ, inertia, f2[:3], skip, **surface_kw(cfg))
+
+
+def test_build_flags_and_sources():
+    flags = build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "-fmad=false" in flags
+    assert not any("fast_math" in f or "fast-math" in f for f in flags)
+    names = [p.name for p in build.sources()]
+    assert names == sorted(["advect.cu", "errors.cu", "jacobi.cu",
+                            "particle_move.cu", "surface_fused.cu"])
+    assert build.LIBRARY.parent == build.BUILD_DIR
+    assert build.BUILD_DIR.parts[-2:] == ("build", "tpu_fluid_torch")
+
+
+# ------------------------------------------------------------------ on card
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are compiled and run "
+                    "only there")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(4))
+def test_cuda_kernel_matches_plain_bitwise(cuda_device, case):
+    wrapper, plain, args, kw = _wrapper_calls(cuda_device)[case]
+    before = wrapper.launches
+    got, want = wrapper(*args, **kw), plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert g.device == cuda_device and torch.equal(g, w)

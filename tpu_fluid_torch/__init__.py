@@ -1,0 +1,27 @@
+"""tpu_fluid_torch — the MAC-grid + marker-particle fluid simulation of
+`tpu_fluid`, ported to PyTorch, with hand-written CUDA kernels for NVIDIA
+Hopper on its hot stages.
+
+Quick start:
+
+    from tpu_fluid_torch import FluidConfig, initial_state, step
+    cfg = FluidConfig.reference_scene()
+    state = initial_state(cfg, "cuda")
+    for _ in range(100):
+        state = step(state, cfg)
+"""
+
+from tpu_fluid_torch.core.config import FluidConfig
+from tpu_fluid_torch.core.state import FluidState, initial_state
+from tpu_fluid_torch.core.types import CellType
+from tpu_fluid_torch.solver.step import simulation_step, step
+
+__all__ = [
+    "FluidConfig",
+    "FluidState",
+    "CellType",
+    "initial_state",
+    "simulation_step",
+    "step",
+]
+__version__ = "0.1.0"

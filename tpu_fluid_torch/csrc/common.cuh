@@ -1,0 +1,26 @@
+// Helpers shared by the port's kernels.  Built with -fmad=false (see
+// kernels/build.py): every a*b+c below rounds twice, as the plain PyTorch
+// versions do.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace tf {
+
+constexpr int kThreads = 256;
+
+inline unsigned int blocks_for(long long n) {
+  return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
+}
+
+__device__ __forceinline__ int clamp_index(int i, int n) {
+  return i < 0 ? 0 : (i >= n ? n - 1 : i);
+}
+
+// jnp.clip / torch.clamp on finite values: min(max(x, lo), hi)
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+}  // namespace tf

@@ -1,0 +1,93 @@
+"""K3+K4: stage-14 particle move, sampling the staggered velocity with the
+packed-table weights and taking the Euler step.
+
+Replaces `tpu_fluid/kernels/pack_table.py:build_packed_table_pallas` and
+`build_packed_table_pallas2` (the 64-lane and z-paired 128-lane tables),
+the XLA row gather of `tpu_fluid/stages/particles.py:move_particles`, and
+`tpu_fluid/kernels/particle_sample.py:sample_and_move`; CUDA source
+`csrc/particle_move.cu`.  The table exists because the TPU has no fast
+element gather; the card has one, so one thread per particle reads the 8
+nonzero taps of each component straight from the velocity field and
+accumulates them in the table's lane order.  It is bound by those 24
+scattered reads per particle; no table (537 MB at 128^3) and no row buffer
+are written.
+
+`particle_move_plain` keeps the TPU formulation in plain PyTorch: build
+the 64-lane table, gather one row per particle, and accumulate the 18 lanes
+of each component one by one in the loop order of `_sample_update_kernel`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpu_fluid_torch.kernels import build, on_cuda, require
+from tpu_fluid_torch.ops.packed_sampler import (_OTHER, _lane,
+                                                build_packed_table,
+                                                packed_row_indices)
+
+_ARGTYPES = (build.POINTER,) * 4 + (build.INT64, build.INT, build.INT,
+                                    build.INT, build.FLOAT, build.POINTER)
+
+
+def particle_move_plain(vel: torch.Tensor, pos: torch.Tensor,
+                        active: torch.Tensor, dt: float) -> torch.Tensor:
+    grid = tuple(vel.shape[1:])
+    table = build_packed_table(vel)
+    rows = table.index_select(0, packed_row_indices(pos, grid))
+    top = [float(g) - 1.0 for g in grid]
+    jf = [torch.clamp(torch.floor(pos[:, d]), 0.0, top[d]) for d in range(3)]
+    v = []
+    for c in range(3):
+        os_, fs = [], []
+        for d in range(3):
+            t = torch.clamp(pos[:, d] - 0.5 + (0.5 if d == c else 0.0),
+                            0.0, top[d])
+            i0 = torch.floor(t)
+            os_.append(i0 - jf[d])
+            fs.append(t - i0)
+        a1, a2 = _OTHER[c]
+
+        def axw(d, delta):
+            return ((os_[d] == delta) * (1.0 - fs[d])
+                    + (os_[d] == delta - 1) * fs[d])
+
+        acc = torch.zeros_like(pos[:, 0])
+        for dc in (0, 1):
+            wc = (1.0 - fs[c]) if dc == 0 else fs[c]
+            for d1 in (-1, 0, 1):
+                w1 = axw(a1, d1)
+                for d2 in (-1, 0, 1):
+                    lane = rows[:, _lane(c, dc, d1, d2)]
+                    acc = acc + (wc * w1 * axw(a2, d2)) * lane
+        v.append(acc)
+    return torch.stack([pos[:, d] + torch.where(active, v[d] * dt, 0.0)
+                        for d in range(3)], dim=1)
+
+
+def particle_move_cuda(vel: torch.Tensor, pos: torch.Tensor,
+                       active: torch.Tensor, dt: float) -> torch.Tensor:
+    """K3+K4 wrapper: vel (3,X,Y,Z) f32, pos (P,3) f32, active (P,) bool ->
+    moved positions (P,3); the CUDA kernel for CUDA tensors,
+    `particle_move_plain` for CPU tensors."""
+    require(vel, "vel", torch.float32)
+    if vel.ndim != 4 or vel.shape[0] != 3:
+        raise ValueError(f"vel: shape {tuple(vel.shape)}, expected (3,X,Y,Z)")
+    require(pos, "pos", torch.float32, device=vel.device)
+    if pos.ndim != 2 or pos.shape[1] != 3:
+        raise ValueError(f"pos: shape {tuple(pos.shape)}, expected (P,3)")
+    require(active, "active", torch.bool, (pos.shape[0],), vel.device)
+    if not on_cuda(vel):
+        return particle_move_plain(vel, pos, active, dt)
+    out = torch.empty_like(pos)
+    _, gx, gy, gz = vel.shape
+    with torch.cuda.device(vel.device):
+        stream = torch.cuda.current_stream(vel.device).cuda_stream
+        build.call("tf_particle_move", _ARGTYPES, vel.data_ptr(),
+                   pos.data_ptr(), active.data_ptr(), out.data_ptr(),
+                   pos.shape[0], gx, gy, gz, dt, stream)
+    particle_move_cuda.launches += 1
+    return out
+
+
+particle_move_cuda.launches = 0

@@ -1,0 +1,90 @@
+"""Full simulation step (`tpu_fluid.solver.step`): the reference's 19-stage
+per-frame compute graph (`fluid_flow_sections.h:159-391`) as one function
+over the state, run eagerly.  The kernel-bearing stages (07, 12, 14, 16-18)
+pick their CUDA kernel or its plain version through `kernel_choice`."""
+
+from __future__ import annotations
+
+import torch
+
+from tpu_fluid_torch.core.config import FluidConfig
+from tpu_fluid_torch.core.state import FluidState
+from tpu_fluid_torch.kernels import fuse_grid_choice
+from tpu_fluid_torch.stages import celltypes, particles, pressure
+from tpu_fluid_torch.stages import surface_fields
+from tpu_fluid_torch.stages import velocity as vstages
+
+
+def simulation_step(state: FluidState, cfg: FluidConfig,
+                    scene=None) -> FluidState:
+    """One frame, stage order exactly as the reference's step section list:
+
+      01 histogram -> 02 water -> 03 air/solid -> 04/05 extrapolate ->
+      06 commit types -> 07 advect -> 08 forces -> 09 diffuse -> 10 solids ->
+      11 divergence -> 12 Jacobi xN -> 13 project -> 14 move particles ->
+      15 detail histogram -> 16 inertia -> 17 signed field -> 18 blur xM
+    """
+    if scene is not None:
+        raise NotImplementedError("scene fields are not ported")
+    if cfg.volume_correction > 0.0:
+        raise NotImplementedError("volume_correction is not ported")
+    fuse_grid_choice(cfg, state.velocity.device, scene)
+
+    old_types = state.cell_types
+    vel = state.velocity
+
+    # 01-03: classify cells from the occupancy of the current positions,
+    # scattered at the end of the previous step
+    occ_sim = particles.occupancy_to_sim_grid(state.detailed_occ, cfg)
+    new_types = celltypes.update_water(occ_sim)
+    new_types = celltypes.update_air(new_types, cfg)
+    # 04-05: velocity extrapolation into newly active faces
+    extrapolated = vstages.compute_extrapolated_velocities(old_types, vel)
+    vel = vstages.set_extrapolated_velocities(old_types, new_types, vel,
+                                              extrapolated)
+    # 06: the new classification becomes current
+    types = celltypes.commit_cell_types(new_types)
+
+    # 07
+    vel = vstages.advect(types, vel, cfg)
+    # 08-10: force, diffuse, solid clamp
+    vel = vstages.apply_forces(types, vel, cfg)
+    vel = vstages.diffuse(types, vel, cfg)
+    vel = vstages.apply_solids(types, vel, cfg)
+    # 11-13: divergence, pressure solve, projection
+    div = pressure.compute_divergence(vel)
+    p = pressure.jacobi_solve(types, div, cfg)
+    vel = pressure.pressure_project(types, p, vel, cfg)
+
+    # 14: move particles through the projected field
+    pos = particles.move_particles(vel, state.positions, state.active, cfg)
+
+    # 15-18: occupancy of the moved particles (also the next frame's
+    # stage 01) and the surface fields
+    occ = particles.detailed_occupancy(pos, state.active, cfg)
+    if cfg.surface_enabled:
+        inertia, f1, f2 = surface_fields.update_surface_fields(
+            types, occ, state.inertia, state.float_dens_2, cfg)
+    else:
+        inertia, f1, f2 = (state.inertia, state.float_dens_1,
+                           state.float_dens_2)
+
+    return FluidState(
+        velocity=vel,
+        cell_types=types,
+        inertia=inertia,
+        float_dens_1=f1,
+        float_dens_2=f2,
+        positions=pos,
+        active=state.active,
+        detailed_occ=occ,
+        step=state.step + 1,
+        dropped=state.dropped,
+    )
+
+
+@torch.no_grad()
+def step(state: FluidState, cfg: FluidConfig, scene=None) -> FluidState:
+    """One eager step with autograd off: the counterpart of the JAX
+    package's `jit_step`."""
+    return simulation_step(state, cfg, scene)

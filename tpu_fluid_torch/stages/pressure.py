@@ -1,0 +1,110 @@
+"""Pressure stages: divergence (11), Jacobi iteration (12), projection (13)
+(`tpu_fluid.stages.pressure`).
+
+The solve always takes the JAX package's kernel formulation: the per-cell
+constants fold into (rd code, c2, q0) and the sweeps run in the K2 kernel,
+or in its plain version where `kernel_choice` does not pick the kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpu_fluid_torch.core.config import FluidConfig
+from tpu_fluid_torch.core.types import CellType
+from tpu_fluid_torch.kernels import kernel_choice
+from tpu_fluid_torch.kernels.jacobi import (jacobi_sweeps_cuda,
+                                            jacobi_sweeps_plain)
+from tpu_fluid_torch.ops.stencil import MOVES, axis_nonzero, shifted
+
+
+def compute_divergence(vel: torch.Tensor) -> torch.Tensor:
+    """Stage 11: div(i) = sum_c v_c(i + e_c) - v_c(i), zero outside."""
+    div = torch.zeros(vel.shape[1:], dtype=vel.dtype, device=vel.device)
+    for c in range(3):
+        up = tuple(1 if k == c else 0 for k in range(3))
+        div = div + shifted(vel[c], up) - vel[c]
+    return div
+
+
+def jacobi_stats(types: torch.Tensor, cfg: FluidConfig):
+    """Per-frame constants of the sweep: water mask, the diagonal count aii
+    (non-solid neighbours) and the number of non-solid, non-water
+    neighbours, each contributing the constant air pressure."""
+    water = types == CellType.WATER
+    solid = types == CellType.SOLID
+    aii = torch.zeros(types.shape, dtype=torch.float32, device=types.device)
+    n_air = torch.zeros_like(aii)
+    for mv in MOVES:
+        nb_solid = shifted(solid, mv, fill=False)
+        nb_water = shifted(water, mv, fill=False)
+        aii = aii + (~nb_solid)
+        n_air = n_air + (~nb_solid & ~nb_water)
+    return water, aii, n_air
+
+
+def jacobi_solve(types: torch.Tensor, div: torch.Tensor,
+                 cfg: FluidConfig) -> torch.Tensor:
+    """Stage 12: Jacobi pressure iteration on WATER cells with
+    b = div * rho * dx / dt.  With `cfg.reference_pressure_parity` it runs
+    jacobi_iters - 1 sweeps: the reference's projection reads the 199th of
+    its 200 alternating iterates."""
+    b = div.to(torch.float32) * (cfg.fluid_density * cfg.cell_width / cfg.dt)
+    iters = cfg.jacobi_iters - (1 if cfg.reference_pressure_parity else 0)
+    return poisson_solve(types, b, cfg, iters=iters,
+                         boundary_value=cfg.air_pressure)
+
+
+def jacobi_fold(types: torch.Tensor, rhs: torch.Tensor, cfg: FluidConfig,
+                boundary_value: float):
+    """The K2 kernel's inputs: (water, q0, code, c2) with q0 the
+    water-masked start pressure, code the u8 aii where the cell updates
+    (WATER, aii > 0) and 0 elsewhere, and c2 = (n_air * boundary_value -
+    rhs) / max(aii, 1)."""
+    water, aii, n_air = jacobi_stats(types, cfg)
+    const = n_air * boundary_value - rhs.to(torch.float32)
+    denom = torch.clamp(aii, min=1.0)
+    code = torch.where(water & (aii > 0), aii, 0.0).to(torch.uint8)
+    q0 = torch.where(water, boundary_value, 0.0).to(torch.float32)
+    return water, q0, code, const / denom
+
+
+def poisson_solve(types: torch.Tensor, rhs: torch.Tensor, cfg: FluidConfig,
+                  iters: int, boundary_value: float) -> torch.Tensor:
+    """On WATER cells with aii > 0, iterate
+        p = (sum_{water nbrs} p + n_air * boundary_value - rhs) / aii
+    `iters` times from p0 = boundary_value, in the folded form
+        q' = rd * sum_6(q) + c2e,  q = where(water, p, 0)
+    with rd shipped as the u8 aii code; non-water cells read back as
+    boundary_value."""
+    if cfg.pressure_solver == "redblack":
+        raise NotImplementedError("pressure_solver='redblack' is not ported")
+    if cfg.pressure_solver != "jacobi":
+        raise ValueError(f"unknown pressure_solver {cfg.pressure_solver!r}")
+    water, q0, code, c2 = jacobi_fold(types, rhs, cfg, boundary_value)
+    if kernel_choice(cfg, types.device):
+        q = jacobi_sweeps_cuda(q0, code, c2, iters)
+    else:
+        q = jacobi_sweeps_plain(q0, code, c2, iters)
+    return torch.where(water, q, boundary_value)
+
+
+def pressure_project(types: torch.Tensor, pressure: torch.Tensor,
+                     vel: torch.Tensor, cfg: FluidConfig) -> torch.Tensor:
+    """Stage 13: component c of cell i changes by -dt/(rho*dx) *
+    (p(i) - p(i - e_c)) iff i_c != 0, one of the two cells is WATER and
+    neither is SOLID."""
+    water = types == CellType.WATER
+    solid = types == CellType.SOLID
+    scale = cfg.dt / (cfg.fluid_density * cfg.cell_width)
+    out = []
+    for c in range(3):
+        mv = tuple(-1 if k == c else 0 for k in range(3))
+        lo_water = shifted(water, mv, fill=False)
+        lo_solid = shifted(solid, mv, fill=False)
+        cond = (axis_nonzero(types.shape, c, types.device)
+                & (water | lo_water) & ~solid & ~lo_solid)
+        grad = pressure - shifted(pressure, mv)
+        dv = torch.where(cond, grad, 0.0).to(vel.dtype)
+        out.append(vel[c] - scale * dv)
+    return torch.stack(out)
