@@ -7,17 +7,24 @@ Phases, one line each (more for the parity and scene phases):
   1 device    the card's name and power limit, as nvidia-smi gives them
   2 build     compile the CUDA kernels from tpu_fluid_torch/csrc
   3 parity    each kernel against its plain PyTorch version on the card, at
-              the shapes of both scenes, on numpy-seeded inputs: every
-              output must match bitwise (tolerance 0); times by CUDA events
+              the shapes of the three scenes (K6 at the large one only), on
+              numpy-seeded inputs: every output must match bitwise
+              (tolerance 0); times by CUDA events
   4 reference FluidConfig.reference_scene() (20^3, 1M particles), 20 steps,
               invariants; then 3 steps with the kernels and 3 with
               pallas_mode="off" from the same state must agree
   5 bench     FluidConfig.scaled_scene(128) (1M particles), 1 warm-up and
               10 timed steps, invariants, steps/s
   6 launches  every kernel ran during phases 4 and 5
-The line before the last is a JSON object with the kernels' numbers; the
-last line is {"ok": true, "device": {...}}.  Any failed check raises, so
-the script then exits nonzero without that line; without CUDA it exits 2.
+  7 large     FluidConfig.scaled_scene(256) (1M particles, 512^3 detailed
+              grid, grid_fused on), 1 warm-up and 5 timed steps,
+              invariants, steps/s, and every kernel, K6 included, launched
+              in it; then 2 steps with the kernels and 2 with
+              pallas_mode="off" (the unfused stage path) must agree
+The line before the last is a JSON object with the kernels' numbers (times
+at the large scene); the last line is {"ok": true, "device": {...}}.  Any
+failed check raises, so the script then exits nonzero without that line;
+without CUDA it exits 2.
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ SEED = 0
 REF_STEPS = 20
 BENCH_STEPS = 10
 COMPARE_STEPS = 3
+LARGE_STEPS = 5
+LARGE_COMPARE_STEPS = 2
 # f32 tolerances of the kernel path against pallas_mode="off" where the two
 # are not bitwise equal (tests/test_full_step_oracle.py)
 STEP_TOLERANCES = {"velocity": (2e-4, 2e-5), "positions": (1e-4, 1e-5),
@@ -80,9 +89,38 @@ def random_types(rng, n: int) -> np.ndarray:
     return t
 
 
-def kernel_cases(device, ref_cfg, bench_cfg):
+def grid_fused_cases(t, rng, cfg):
+    """K6 cases at the grid of `cfg`, with a solid box and an extra force
+    added so that every branch of the kernels runs; the fountain and the
+    extra-force cells are WATER so that their forces land."""
+    from tpu_fluid_torch.kernels.grid_fused import (
+        classify_extrap_cuda, classify_extrap_plain, forces_solids_div_cuda,
+        forces_solids_div_plain, project_cuda, project_plain)
+    n = cfg.grid_size[0]
+    box = ((n // 4, n // 4, n // 4), (n // 2, n // 3, n // 2))
+    force_cell = (n // 3, n // 2, n // 3)
+    cfg = cfg.replace(solid_boxes=(box,),
+                      extra_forces=((force_cell, (40.0, 0.0, -25.0)),))
+    occ = t((rng.random((n, n, n)) < 0.35).astype(np.uint8))
+    old = t(rng.integers(0, 4, (n, n, n)).astype(np.uint8))
+    vel = t((rng.standard_normal((3, n, n, n)) * 3).astype(np.float32))
+    types_np = random_types(rng, n)
+    fx, fy, fz = cfg.fountain
+    types_np[fx, fy - 1:fy + 1, fz] = 2
+    types_np[force_cell] = 2
+    types = t(types_np)
+    p = t((rng.standard_normal((n, n, n)) * 50).astype(np.float32))
+    return [(classify_extrap_cuda, classify_extrap_plain,
+             (occ, old, vel, cfg), {}),
+            (forces_solids_div_cuda, forces_solids_div_plain,
+             (types, vel, cfg), {}),
+            (project_cuda, project_plain, (types, p, vel, cfg), {})]
+
+
+def kernel_cases(device, scenes):
     """(scene, kernel wrapper, plain version, args, kwargs) per kernel and
-    scene, on numpy-seeded inputs at the shapes the main path gives."""
+    scene, on numpy-seeded inputs at the shapes the main path gives; the
+    K6 cases at the scenes whose config turns grid_fused on."""
     from tpu_fluid_torch.kernels.advect import (advect_all_cuda,
                                                 advect_all_plain)
     from tpu_fluid_torch.kernels.jacobi import (jacobi_sweeps_cuda,
@@ -98,7 +136,7 @@ def kernel_cases(device, ref_cfg, bench_cfg):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     cases = []
-    for scene, cfg in (("reference", ref_cfg), ("bench", bench_cfg)):
+    for scene, cfg in scenes:
         rng = np.random.default_rng(SEED)
         n = cfg.grid_size[0]
         # K1: |v| * dt up to a few cells, so the R clamp is exercised
@@ -137,13 +175,15 @@ def kernel_cases(device, ref_cfg, bench_cfg):
                   div_coef=cfg.float_density_division_coefficient)
         cases.append((scene, surface_fused_cuda, surface_fused_plain,
                       (occ, inertia, f2, skip), kw))
+        if cfg.grid_fused:
+            cases += [(scene,) + case
+                      for case in grid_fused_cases(t, rng, cfg)]
     return cases
 
 
-def phase_parity(device, ref_cfg, bench_cfg) -> dict:
+def phase_parity(device, scenes) -> dict:
     results = {}
-    for scene, kernel, plain, args, kw in kernel_cases(device, ref_cfg,
-                                                       bench_cfg):
+    for scene, kernel, plain, args, kw in kernel_cases(device, scenes):
         name = kernel.__name__
         got, want = kernel(*args, **kw), plain(*args, **kw)
         torch.cuda.synchronize()
@@ -248,22 +288,44 @@ def main() -> int:
     from tpu_fluid_torch import FluidConfig, initial_state
     from tpu_fluid_torch.kernels import build
     from tpu_fluid_torch.kernels.advect import advect_all_cuda
+    from tpu_fluid_torch.kernels.grid_fused import (classify_extrap_cuda,
+                                                    forces_solids_div_cuda,
+                                                    project_cuda)
     from tpu_fluid_torch.kernels.jacobi import jacobi_sweeps_cuda
     from tpu_fluid_torch.kernels.particle_move import particle_move_cuda
     from tpu_fluid_torch.kernels.surface_fused import surface_fused_cuda
     wrappers = (advect_all_cuda, jacobi_sweeps_cuda, particle_move_cuda,
                 surface_fused_cuda)
+    fused_wrappers = (classify_extrap_cuda, forces_solids_div_cuda,
+                      project_cuda)
     sources = {
         "advect_all_cuda": ("tpu_fluid_torch/csrc/advect.cu",
-                            "tpu_fluid/kernels/advect.py:321"),
+                            "tpu_fluid/kernels/advect.py:321, "
+                            "tpu_fluid/kernels/advect.py:244 "
+                            "(advect_one_pallas, covered), "
+                            "tpu_fluid/kernels/advect.py:369 "
+                            "(advect_component_pallas, covered)"),
         "jacobi_sweeps_cuda": ("tpu_fluid_torch/csrc/jacobi.cu",
-                               "tpu_fluid/kernels/jacobi.py:192"),
+                               "tpu_fluid/kernels/jacobi.py:192, "
+                               "tpu_fluid/kernels/jacobi.py:263 "
+                               "(_one_pass, slab branch, covered)"),
         "particle_move_cuda": ("tpu_fluid_torch/csrc/particle_move.cu",
                                "tpu_fluid/kernels/pack_table.py:75, "
                                "tpu_fluid/kernels/pack_table.py:111, "
                                "tpu_fluid/kernels/particle_sample.py:77"),
         "surface_fused_cuda": ("tpu_fluid_torch/csrc/surface_fused.cu",
-                               "tpu_fluid/kernels/surface_fused.py:345"),
+                               "tpu_fluid/kernels/surface_fused.py:345, "
+                               "tpu_fluid/kernels/surface_fused.py:266 "
+                               "(surface_fused_2d, covered)"),
+        "classify_extrap_cuda": ("tpu_fluid_torch/csrc/grid_fused.cu",
+                                 "tpu_fluid/kernels/grid_fused.py:411 "
+                                 "(body :143, pallas_call in _call :340)"),
+        "forces_solids_div_cuda": ("tpu_fluid_torch/csrc/grid_fused.cu",
+                                   "tpu_fluid/kernels/grid_fused.py:443 "
+                                   "(body :209, pallas_call in _call :340)"),
+        "project_cuda": ("tpu_fluid_torch/csrc/grid_fused.cu",
+                         "tpu_fluid/kernels/grid_fused.py:473 "
+                         "(body :277, pallas_call in _call :340)"),
     }
 
     t0 = time.perf_counter()
@@ -274,7 +336,11 @@ def main() -> int:
 
     ref_cfg = FluidConfig.reference_scene()
     bench_cfg = FluidConfig.scaled_scene(128)
-    parity = phase_parity(device, ref_cfg, bench_cfg)
+    large_cfg = FluidConfig.scaled_scene(256)
+    check(large_cfg.grid_fused, "scaled_scene(256) must turn grid_fused on")
+    parity = phase_parity(device, (("reference", ref_cfg),
+                                   ("bench", bench_cfg),
+                                   ("large", large_cfg)))
 
     # 4: reference scene through the public entry points
     state = initial_state(ref_cfg, device)
@@ -313,15 +379,40 @@ def main() -> int:
     check_invariants(state, bench_cfg, ymax0, "5 bench")
 
     # 6: every kernel of the path launched in phases 4 and 5
-    print(f"[6 launches] {launches}", flush=True)
+    print(f"[6 launches] phases 4-5: {launches}", flush=True)
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path never launched: {launches}")
+    del state, with_kernels, plain
+
+    # 7: large scene, the grid_fused path of scaled_scene(256)
+    state = initial_state(large_cfg, device)
+    ymax0 = float(active_positions(state)[:, 1].max())
+    reset_launches(wrappers + fused_wrappers)
+    state = run_steps(state, large_cfg, 1)
+    start.record()
+    state = run_steps(state, large_cfg, LARGE_STEPS)
+    end.record()
+    torch.cuda.synchronize()
+    large_launches = read_launches(wrappers + fused_wrappers)
+    large_sps = LARGE_STEPS / (start.elapsed_time(end) / 1000.0)
+    print(f"[7 large] {LARGE_STEPS} timed steps of scaled_scene(256) after "
+          f"1 warm-up: {large_sps!r} steps/s on {card}", flush=True)
+    check_invariants(state, large_cfg, ymax0, "7 large")
+    print(f"[6 launches] phase 7: {large_launches}", flush=True)
+    check(all(v > 0 for v in large_launches.values()),
+          f"a kernel of the large path never launched: {large_launches}")
+    for name, count in large_launches.items():
+        launches[name] = launches.get(name, 0) + count
+    with_kernels = run_steps(state, large_cfg, LARGE_COMPARE_STEPS)
+    plain = run_steps(state, large_cfg.replace(pallas_mode="off"),
+                      LARGE_COMPARE_STEPS)
+    compare_states(with_kernels, plain, "7 kernels vs off")
 
     kernels = []
-    for w in wrappers:
+    for w in wrappers + fused_wrappers:
         name = w.__name__
         source, replaces = sources[name]
-        ms, plain_ms = parity[name]["bench"]
+        ms, plain_ms = parity[name]["large"]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": parity[name]["max_abs_err"],

@@ -146,13 +146,38 @@ def test_kernel_choice_gate():
 
 
 def test_fuse_grid_gate_raises_where_jax_would_fuse():
-    cpu, cuda = torch.device("cpu"), torch.device("cuda")
-    big = FluidConfig.scaled_scene(256)
-    assert big.grid_fused
-    assert fuse_grid_choice(big, cpu) is False
-    with pytest.raises(NotImplementedError):
-        fuse_grid_choice(big, cuda)
-    assert fuse_grid_choice(big.replace(grid_fused=False), cuda) is False
-    assert fuse_grid_choice(big.replace(reference_diffuse_noop=False),
-                            cuda) is False
-    assert fuse_grid_choice(FluidConfig.scaled_scene(128), cuda) is False
+    """The fused grid gate never raises now that K6 is ported: for every
+    case of tests/test_grid_fused.py:120-139 and every pallas mode it
+    answers as JAX's `fuse_grid_choice` does ("auto" on CUDA tensors where
+    JAX asks for a TPU)."""
+    from tpu_fluid.kernels import fuse_grid_choice as jax_fuse_grid_choice
+
+    class Scene:
+        solid = force = None
+
+    on = dict(grid_size=(24, 16, 12), grid_fused=True)
+    cases = [(on, None), (dict(on, grid_fused=False), None),
+             (dict(on, reference_diffuse_noop=False), None),
+             (on, Scene()), (dict(on, grid_size=(8, 256, 384)), None),
+             (dict(on, grid_size=(8, 256, 512)), None),
+             (dataclasses.asdict(FluidConfig.scaled_scene(256)), None),
+             (dataclasses.asdict(FluidConfig.scaled_scene(128)), None)]
+    answers = []
+    for kw, scene in cases:
+        for mode in ("on", "interpret", "off"):
+            jcfg = JaxConfig(**dict(kw, pallas_mode=mode))
+            cfg = FluidConfig(**dict(kw, pallas_mode=mode))
+            want = jax_fuse_grid_choice(jcfg, scene)
+            for device in ("cpu", "cuda"):
+                assert fuse_grid_choice(cfg, torch.device(device),
+                                        scene) is want, (kw, mode, device)
+            answers.append(want)
+        auto = FluidConfig(**dict(kw, pallas_mode="auto"))
+        assert fuse_grid_choice(auto, torch.device("cpu"), scene) is False
+        assert (fuse_grid_choice(auto, torch.device("cuda"), scene)
+                is jax_fuse_grid_choice(JaxConfig(**dict(kw,
+                                                         pallas_mode="on")),
+                                        scene))
+    assert True in answers and False in answers
+    assert fuse_grid_choice(FluidConfig.scaled_scene(256),
+                            torch.device("cuda"))

@@ -1,0 +1,156 @@
+"""K6, the fused sim-grid stage groups: each plain PyTorch version against
+the JAX package's Pallas kernel in the Pallas interpreter, at the grid of
+tests/test_grid_fused.py, with and without solid boxes and extra forces;
+the wrappers' checks.  The wrappers' CPU routing and the CUDA kernels
+against their plain versions are cases of tests/test_torch_kernels.py.
+
+Cell types must be equal.  f32 results must agree within 1 ULP of the
+field's scale: XLA:CPU may contract a*b+c into one fused multiply-add
+inside the interpreted kernel, where the plain version rounds twice (the
+allowance of commit 5687bef).  The largest differences seen on these
+inputs: 0 for K6a (types and velocity); 6.0e-8 for K6b's velocity and
+9.5e-7 for its divergence (scale 31); 4.8e-7 for K6c (scale 11)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_fluid.core.config import FluidConfig as JaxConfig
+from tpu_fluid.kernels.grid_fused import (classify_extrap_pallas,
+                                          forces_solids_div_pallas,
+                                          project_pallas)
+from tpu_fluid_torch.core.config import FluidConfig
+from tpu_fluid_torch.kernels.grid_fused import (classify_extrap_cuda,
+                                                classify_extrap_plain,
+                                                forces_solids_div_cuda,
+                                                forces_solids_div_plain,
+                                                project_cuda, project_plain)
+
+torch.set_num_threads(2)
+EPS = np.finfo(np.float32).eps
+GRID = (24, 16, 12)
+BOXES = [(), (((4, 3, 2), (9, 8, 6)),)]
+FORCES = [(), (((5, 4, 3), (100.0, 0.0, -50.0)),
+               ((11, 7, 6), (0.0, -30.0, 0.0)))]
+
+
+def configs(**kw):
+    """The same config in both packages."""
+    kw = dict(grid_size=GRID, **kw)
+    return JaxConfig(**kw), FluidConfig(**kw)
+
+
+def T(a):
+    return torch.from_numpy(np.array(a))
+
+
+def same(got, want, ulp=0):
+    g, w = got.numpy(), np.asarray(want)
+    assert g.shape == w.shape and g.dtype == w.dtype
+    if ulp == 0:
+        np.testing.assert_array_equal(g, w)
+    else:
+        scale = float(np.abs(w).max())
+        np.testing.assert_allclose(g, w, rtol=ulp * EPS,
+                                   atol=ulp * EPS * scale)
+
+
+def fields(seed):
+    """Occupancy, old types, velocity and pressure from a numpy seed; the
+    types carry the solid border as the step's types do."""
+    r = np.random.default_rng(seed)
+    occ = (r.random(GRID) < 0.35).astype(np.uint8)
+    types = r.integers(0, 3, GRID).astype(np.uint8)
+    types[0], types[-1], types[:, 0], types[:, -1] = (3,) * 4
+    types[:, :, 0], types[:, :, -1] = 3, 3
+    vel = (3.0 * r.standard_normal((3,) + GRID)).astype(np.float32)
+    p = r.standard_normal(GRID).astype(np.float32)
+    return occ, types, vel, p
+
+
+@pytest.mark.parametrize("boxes", BOXES)
+def test_classify_extrap_plain_matches_pallas_interpret(boxes):
+    jcfg, cfg = configs(solid_boxes=boxes)
+    occ, old, vel, _ = fields(0)
+    # old types with every code, as a step that changes classification
+    old = np.random.default_rng(1).integers(0, 4, GRID).astype(np.uint8)
+    want_t, want_v = classify_extrap_pallas(
+        jnp.asarray(occ), jnp.asarray(old), jnp.asarray(vel), jcfg,
+        interpret=True)
+    got_t, got_v = classify_extrap_plain(T(occ), T(old), T(vel), cfg)
+    same(got_t, want_t)
+    same(got_v, want_v, ulp=1)
+
+
+@pytest.mark.parametrize("extra", FORCES)
+@pytest.mark.parametrize("boxes", BOXES)
+def test_forces_solids_div_plain_matches_pallas_interpret(boxes, extra):
+    jcfg, cfg = configs(solid_boxes=boxes, extra_forces=extra,
+                        fountain_position=(12, 9, 6))
+    occ, types, vel, _ = fields(2)
+    # the fountain cell and the extra-force cells wet, so the forces land
+    types[12, 8:10, 6] = 2
+    types[5, 3:5, 3], types[11, 6:8, 6] = 2, 2
+    want_v, want_div = forces_solids_div_pallas(
+        jnp.asarray(types), jnp.asarray(vel), jcfg, interpret=True)
+    got_v, got_div = forces_solids_div_plain(T(types), T(vel), cfg)
+    same(got_v, want_v, ulp=1)
+    same(got_div, want_div, ulp=1)
+
+
+def test_forces_reach_the_wet_faces():
+    """With gravity off and no solid cells, the fountain and the extra
+    forces change exactly the lower faces of their own wet cells, so the
+    parity cases above exercise them."""
+    _, cfg = configs(extra_forces=FORCES[1], fountain_position=(12, 9, 6),
+                     gravity=0.0)
+    _, types, vel, _ = fields(2)
+    types[:] = 0
+    types[12, 9, 6] = types[5, 4, 3] = types[11, 7, 6] = 2
+    out, _ = forces_solids_div_plain(T(types), T(vel), cfg)
+    moved = (out != T(vel)).nonzero().tolist()
+    assert sorted(moved) == [[0, 5, 4, 3], [1, 11, 7, 6], [1, 12, 9, 6],
+                             [2, 5, 4, 3]]
+
+
+def test_project_plain_matches_pallas_interpret():
+    jcfg, cfg = configs(dt=0.013, fluid_density=0.7, cell_width=1.3)
+    _, types, vel, p = fields(3)
+    want = project_pallas(jnp.asarray(types), jnp.asarray(p),
+                          jnp.asarray(vel), jcfg, interpret=True)
+    got = project_plain(T(types), T(p), T(vel), cfg)
+    same(got, want, ulp=1)
+
+
+# ------------------------------------------------------------------ wrappers
+def wrapper_calls(device="cpu"):
+    """(wrapper, plain, args) for the three K6 wrappers at a small shape,
+    with a solid box and extra forces: cases of the wrapper tests in
+    tests/test_torch_kernels.py."""
+    cfg = FluidConfig(grid_size=GRID, solid_boxes=BOXES[1],
+                      extra_forces=FORCES[1], fountain_position=(12, 9, 6))
+    occ, types, vel, p = (T(a).to(device) for a in fields(4))
+    return [
+        (classify_extrap_cuda, classify_extrap_plain,
+         (occ, types, vel, cfg)),
+        (forces_solids_div_cuda, forces_solids_div_plain, (types, vel, cfg)),
+        (project_cuda, project_plain, (types, p, vel, cfg)),
+    ]
+
+
+def test_wrappers_reject_bad_inputs():
+    cfg = FluidConfig(grid_size=GRID)
+    occ, types, vel, p = map(T, fields(5))
+    with pytest.raises(TypeError):
+        classify_extrap_cuda(occ.to(torch.int32), types, vel, cfg)
+    with pytest.raises(ValueError):
+        classify_extrap_cuda(occ, types[:3], vel, cfg)
+    with pytest.raises(ValueError):
+        forces_solids_div_cuda(types, vel[:2], cfg)
+    with pytest.raises(TypeError):
+        forces_solids_div_cuda(types, vel.double(), cfg)
+    with pytest.raises(TypeError):
+        project_cuda(types, p.double(), vel, cfg)
+    with pytest.raises(ValueError):
+        project_cuda(types, p.transpose(0, 2), vel, cfg)

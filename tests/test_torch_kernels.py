@@ -1,8 +1,12 @@
-"""The port's four kernels: each plain PyTorch version against the JAX
+"""The port's kernels: each plain PyTorch version against the JAX
 package's Pallas kernel run in the Pallas interpreter (as
-tests/test_fast_paths.py and tests/test_surface_fused.py run them), the
-wrappers' checks and CPU routing, and, on a CUDA card only, each CUDA kernel
-against its plain version (marked `cuda`; they skip without a card).
+tests/test_fast_paths.py and tests/test_surface_fused.py run them), also
+against the TPU tiling variants that K1, K2 and K5 cover on the card
+(`advect_one_pallas`, `advect_component_pallas`, the slab branch of
+`jacobi_sweeps_pallas`, `surface_fused_2d`); the wrappers' checks and CPU
+routing; and, on a CUDA card only, each CUDA kernel, K6 of
+tests/test_torch_grid_fused.py included, against its plain version (marked
+`cuda`; they skip without a card).
 
 Integer results must be equal.  f32 results allow 1-2 ULP of the field's
 scale where stated: XLA:CPU may contract a*b+c into one fused multiply-add
@@ -15,17 +19,23 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_fluid.kernels.advect import advect_all_pallas
+from test_torch_grid_fused import wrapper_calls as grid_fused_calls
+from tpu_fluid.kernels.advect import (advect_all_pallas,
+                                      advect_component_pallas,
+                                      advect_one_pallas)
 from tpu_fluid.kernels.jacobi import jacobi_sweeps_pallas
 from tpu_fluid.kernels.pack_table import (build_packed_table_pallas,
                                           build_packed_table_pallas2)
 from tpu_fluid.kernels.particle_sample import sample_and_move
-from tpu_fluid.kernels.surface_fused import surface_fused_pallas
+from tpu_fluid.kernels.surface_fused import (surface_fused_2d,
+                                             surface_fused_pallas)
 from tpu_fluid.ops.packed_sampler import (packed_row_indices,
                                           packed_row_indices2)
 from tpu_fluid_torch.core.config import FluidConfig
 from tpu_fluid_torch.kernels import build
-from tpu_fluid_torch.kernels.advect import advect_all_cuda, advect_all_plain
+from tpu_fluid_torch.kernels.advect import (advect_all_cuda,
+                                            advect_all_plain,
+                                            face_center_velocity)
 from tpu_fluid_torch.kernels.jacobi import (jacobi_sweeps_cuda,
                                             jacobi_sweeps_plain)
 from tpu_fluid_torch.kernels.particle_move import (particle_move_cuda,
@@ -118,6 +128,33 @@ def test_advect_plain_matches_pallas_interpret(shape):
     same(got, want, ulp=1)
 
 
+@pytest.mark.parametrize("shape,tx", [((8, 12, 16), 2), ((4, 130, 132), 4)])
+def test_advect_one_pallas_is_covered_by_k1(shape, tx):
+    """advect_one_pallas, the one-component kernel JAX runs for y*z planes
+    above 128^2 (tx = 2 at 256^3), against K1's plain version component by
+    component; the second shape has such a plane."""
+    vel, cond3 = advect_inputs(shape, 15)
+    got = advect_all_plain(T(vel), T(cond3), 2, 0.01)
+    for c in range(3):
+        want = advect_one_pallas(jnp.asarray(vel), jnp.asarray(cond3[c]), c,
+                                 2, 0.01, tx=tx, interpret=True)
+        same(got[c], want, ulp=1)
+
+
+def test_advect_component_pallas_is_covered_by_k1():
+    """advect_component_pallas, called directly (the step cannot reach it
+    at R = 2), from JAX's precomputed displacement u = -v_face * dt."""
+    shape = (6, 12, 10)
+    vel, cond3 = advect_inputs(shape, 16)
+    got = advect_all_plain(T(vel), T(cond3), 2, 0.01)
+    for c in range(3):
+        u = -face_center_velocity(T(vel), c).numpy() * np.float32(0.01)
+        want = advect_component_pallas(jnp.asarray(vel[c]), jnp.asarray(u),
+                                       jnp.asarray(cond3[c]), 2, tx=2,
+                                       interpret=True)
+        same(got[c], want, ulp=1)
+
+
 # ------------------------------------------------------------------ K2
 @pytest.mark.parametrize("n,iters", [(12, 17), (16, 9)])
 def test_jacobi_plain_matches_pallas_interpret(n, iters):
@@ -127,6 +164,21 @@ def test_jacobi_plain_matches_pallas_interpret(n, iters):
                                 jnp.asarray(code.numpy()),
                                 jnp.asarray(c2.numpy()), iters,
                                 interpret=True, whole_grid=True)
+    same(got, want, ulp=1)
+
+
+@pytest.mark.parametrize("k,iters", [(4, 8), (3, 9), (4, 11)])
+def test_jacobi_slab_branch_is_covered_by_k2(k, iters):
+    """The slab branch (`_one_pass`), which JAX runs above 128^3 cells,
+    against K2's plain version on the u8 code: k = 4 reads its halos
+    directly (4 | tx), k = 3 materialises them, and 11 = 2 * 4 + 3 sweeps
+    end in a remainder pass of 3."""
+    q0, code, c2 = jacobi_inputs(16, 17)
+    got = jacobi_sweeps_plain(q0, code, c2, iters)
+    want = jacobi_sweeps_pallas(jnp.asarray(q0.numpy()),
+                                jnp.asarray(code.numpy()),
+                                jnp.asarray(c2.numpy()), iters, k=k, tx=16,
+                                interpret=True, whole_grid=False)
     same(got, want, ulp=1)
 
 
@@ -179,6 +231,25 @@ def test_surface_plain_matches_pallas_interpret(steps):
     same(got[2], want[2], ulp=2)
 
 
+@pytest.mark.parametrize("steps", [0, 2, 3])
+def test_surface_fused_2d_is_covered_by_k5(steps):
+    """surface_fused_2d, the (x, y)-tiled kernel JAX runs for detailed
+    planes above MAX_PLANE (512^3 at scaled_scene(256)), with 8 x 8 tiles
+    on a 32^3 detailed grid (tests/test_surface_fused.py:135-169)."""
+    cfg = FluidConfig.scaled_scene(16, particle_count=1000, jacobi_iters=2
+                                   ).replace(float_density_diffuse_steps=steps)
+    occ, inertia, f2, skip = surface_inputs(cfg, 18)
+    hh = next(d for d in range(steps + 1, 17)
+              if 32 % d == 0 and (2 * d) % 8 == 0)
+    got = surface_fused_plain(T(occ), T(inertia), T(f2), T(skip),
+                              **surface_kw(cfg))
+    want = surface_fused_2d(*map(jnp.asarray, (occ, inertia, f2, skip)),
+                            tile=(8, 8, hh, hh), interpret=True,
+                            **surface_kw(cfg))
+    for g, w, ulp in zip(got, want, (0, 2, 2)):
+        same(g, w, ulp=ulp)
+
+
 @pytest.mark.parametrize("inertia_dtype", [np.uint8, np.int32])
 def test_surface_plain_noncubic_obstacles(inertia_dtype):
     kw = dict(grid_size=(8, 12, 16), particle_count=100,
@@ -218,10 +289,11 @@ def _wrapper_calls(device="cpu"):
          + (0.01,), {}),
         (surface_fused_cuda, surface_fused_plain,
          dev(occ, inertia, f2, skip), surface_kw(cfg)),
-    ]
+    ] + [(wrapper, plain, args, {})
+         for wrapper, plain, args in grid_fused_calls(device)]
 
 
-@pytest.mark.parametrize("case", range(4))
+@pytest.mark.parametrize("case", range(7))
 def test_wrapper_on_cpu_runs_plain_version_without_launch(case):
     wrapper, plain, args, kw = _wrapper_calls()[case]
     before = wrapper.launches
@@ -264,8 +336,9 @@ def test_build_flags_and_sources():
     assert "-fmad=false" in flags
     assert not any("fast_math" in f or "fast-math" in f for f in flags)
     names = [p.name for p in build.sources()]
-    assert names == sorted(["advect.cu", "errors.cu", "jacobi.cu",
-                            "particle_move.cu", "surface_fused.cu"])
+    assert names == sorted(["advect.cu", "errors.cu", "grid_fused.cu",
+                            "jacobi.cu", "particle_move.cu",
+                            "surface_fused.cu"])
     assert build.LIBRARY.parent == build.BUILD_DIR
     assert build.BUILD_DIR.parts[-2:] == ("build", "tpu_fluid_torch")
 
@@ -280,7 +353,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", range(4))
+@pytest.mark.parametrize("case", range(7))
 def test_cuda_kernel_matches_plain_bitwise(cuda_device, case):
     wrapper, plain, args, kw = _wrapper_calls(cuda_device)[case]
     before = wrapper.launches

@@ -19,6 +19,10 @@ from tpu_fluid.solver.step import simulation_step as jax_step
 from tpu_fluid_torch import (CellType, FluidConfig, initial_state,
                              simulation_step, step)
 from tpu_fluid_torch.core.state import state_from_numpy, state_to_numpy
+from tpu_fluid_torch.kernels import fuse_grid_choice
+from tpu_fluid_torch.kernels.grid_fused import (classify_extrap_cuda,
+                                                forces_solids_div_cuda,
+                                                project_cuda)
 from tpu_fluid_torch.stages.pressure import compute_divergence
 
 torch.set_num_threads(2)
@@ -90,6 +94,41 @@ def test_state_carried_from_jax_steps_alike():
     state = state_from_numpy(jax_numpy(jstate))
     assert_states_close(state_to_numpy(step(state, CFG)),
                         jax_numpy(jstep(jstate, jcfg)), "carried")
+
+
+def test_fused_grid_slice_matches_jax_interpret():
+    """The grid_fused path (K6 and every other kernel's plain version,
+    pallas_mode="interpret") against JAX's interpreted Pallas kernels, two
+    steps from one JAX initial state, on the scene of
+    tests/test_grid_fused.py:96-117."""
+    kw = dict(grid_size=(16, 16, 16), particle_count=2048,
+              particle_init_cube_resolution=(16, 16, 8),
+              particle_init_cube_offset=(3.0, 2.0, 3.0),
+              particle_init_cube_size=(10.0, 8.0, 8.0),
+              surface_render_resolution=2, jacobi_iters=20,
+              advect_max_displacement=1, pallas_mode="interpret",
+              grid_fused=True)
+    jcfg, cfg = JaxConfig(**kw), FluidConfig(**kw)
+    assert fuse_grid_choice(cfg, torch.device("cpu"))
+    jstate = jax_initial_state(jcfg)
+    state = state_from_numpy(jax_numpy(jstate))
+    launches = [w.launches for w in (classify_extrap_cuda,
+                                     forces_solids_div_cuda, project_cuda)]
+    for k in range(2):
+        jstate = jax_step(jstate, jcfg)
+        state = step(state, cfg)
+        got, want = state_to_numpy(state), jax_numpy(jstate)
+        for name, w in want.items():
+            g = got[name]
+            assert g.dtype == w.dtype and g.shape == w.shape, name
+            if np.issubdtype(w.dtype, np.floating):
+                np.testing.assert_allclose(g, w, rtol=2e-5, atol=2e-5,
+                                           err_msg=f"step {k} {name}")
+            else:
+                np.testing.assert_array_equal(g, w,
+                                              err_msg=f"step {k} {name}")
+    assert launches == [w.launches for w in (
+        classify_extrap_cuda, forces_solids_div_cuda, project_cuda)]
 
 
 @pytest.fixture(scope="module")

@@ -104,7 +104,7 @@ class FluidConfig:
     packed_pair_z: bool = True            # TPU table layout; no effect here
     pallas_mode: str = "auto"        # "auto" | "on" | "interpret" | "off"
     pressure_solver: str = "jacobi"       # "jacobi" | "redblack" (not ported)
-    grid_fused: bool = False              # fused grid kernels (not ported)
+    grid_fused: bool = False              # fused grid kernels (K6)
     particle_sharding: str = "index"
     particle_slot_slack: float = 1.5
     particle_migrate_frac: float = 0.25

@@ -64,11 +64,19 @@ def on_cuda(t: torch.Tensor) -> bool:
 
 def fuse_grid_choice(cfg, device: torch.device, scene=None) -> bool:
     """The JAX package's gate for its fused grid kernels (stages 02-06,
-    08-11 and 13).  Where it would choose them, the port has no kernel yet
-    and raises; everywhere else it returns False."""
-    if (kernel_choice(cfg, device) and cfg.grid_fused
-            and cfg.reference_diffuse_noop and scene is None
-            and cfg.grid_size[1] * cfg.grid_size[2] <= _FUSE_GRID_MAX_PLANE):
-        raise NotImplementedError(
-            "grid_fused kernels are not ported yet; set grid_fused=False")
-    return False
+    08-11 and 13), answer for answer: the kernels are in use ("on" and
+    "interpret" always, "auto" for CUDA tensors where JAX's "auto" asks for
+    a TPU), the config opts in, stage 09 is the no-op, no scene fields,
+    and the y*z plane is at most `_FUSE_GRID_MAX_PLANE`.  Where it is True
+    the step runs K6 (`kernels/grid_fused.py`): the CUDA kernels where
+    `kernel_choice` picks them, else their plain versions."""
+    mode = getattr(cfg, "pallas_mode", "auto")
+    if mode == "off":
+        use = False
+    elif mode in ("on", "interpret"):
+        use = True
+    else:
+        use = torch.device(device).type == "cuda"
+    return (use and cfg.grid_fused and cfg.reference_diffuse_noop
+            and scene is None
+            and cfg.grid_size[1] * cfg.grid_size[2] <= _FUSE_GRID_MAX_PLANE)

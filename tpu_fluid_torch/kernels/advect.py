@@ -10,6 +10,14 @@ bound by the scattered 4-byte reads (about 20 per output), which the 50 MB
 L2 absorbs at 128^3 (24 MB of velocity): one thread per output keeps the
 reads of a warp on neighbouring z.
 
+K1 also covers two TPU tiling variants of the same function, which differ
+only in how they cut VMEM: `advect_one_pallas` (`advect.py:244`), which
+JAX runs one component per call for y*z planes above 128^2 (tx = 2 at
+256^3), and `advect_component_pallas` (`advect.py:369`), its fallback from
+a precomputed displacement field.  K1 indexes with `long long` and has no
+plane limit; tests/test_torch_kernels.py holds both variants against
+`advect_all_plain` component by component.
+
 `advect_all_plain` is the same function in plain PyTorch, in the masked-sum
 order of `tpu_fluid.stages.velocity.advect_shift`.
 """

@@ -11,6 +11,14 @@ no such memory, but at 128^3 both q buffers, c2e and the code (26 MB) stay
 in the 50 MB L2, so each of the one-launch-per-sweep passes is L2-bound,
 and at 20^3 the 199 launches themselves are the cost.
 
+K2 also covers the slab branch of `jacobi_sweeps_pallas` (`_one_pass`,
+`jacobi.py:263`), which JAX runs above 128^3 cells: k sweeps per pass over
+x-slabs with k-row halos, summing in the same order as the whole-grid
+kernel.  At 256^3 the working set (two q buffers and c2e at 67 MB each, the
+code at 17 MB) no longer fits the L2, so each sweep streams it from HBM;
+PERF.md has the time.  tests/test_torch_kernels.py holds the slab branch
+against `jacobi_sweeps_plain`.
+
 `jacobi_sweeps_plain` is the same function in plain PyTorch.
 """
 

@@ -12,6 +12,12 @@ all of it over VMEM x-slabs; here one launch does 16+17 and one launch per
 blur pass streams the grid, so the work is bandwidth-bound at about 13
 bytes per cell per pass (67 MB per f32 field at 256^3).
 
+K5 also covers `surface_fused_2d` (`surface_fused.py:266`), the (x, y)-tiled
+form JAX runs for detailed planes above `MAX_PLANE` (the 512^3 detailed
+grid of `scaled_scene(256)`): the same stages and order, cut differently
+for VMEM.  K5 has no plane limit; tests/test_torch_kernels.py holds the 2D
+form against `surface_fused_plain`.
+
 `surface_fused_plain` is the same function in plain PyTorch, with the
 kernel's integer formulation and neighbour order (the XLA stages in
 `stages/surface_fields.py` add the neighbours in `MOVES` order).

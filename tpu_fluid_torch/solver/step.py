@@ -1,7 +1,9 @@
 """Full simulation step (`tpu_fluid.solver.step`): the reference's 19-stage
 per-frame compute graph (`fluid_flow_sections.h:159-391`) as one function
 over the state, run eagerly.  The kernel-bearing stages (07, 12, 14, 16-18)
-pick their CUDA kernel or its plain version through `kernel_choice`."""
+pick their CUDA kernel or its plain version through `kernel_choice`; where
+`fuse_grid_choice` holds, stages 02-06, 08-11 and 13 run as the three K6
+groups, again as kernels or plain versions by `kernel_choice`."""
 
 from __future__ import annotations
 
@@ -9,7 +11,8 @@ import torch
 
 from tpu_fluid_torch.core.config import FluidConfig
 from tpu_fluid_torch.core.state import FluidState
-from tpu_fluid_torch.kernels import fuse_grid_choice
+from tpu_fluid_torch.kernels import fuse_grid_choice, kernel_choice
+from tpu_fluid_torch.kernels import grid_fused
 from tpu_fluid_torch.stages import celltypes, particles, pressure
 from tpu_fluid_torch.stages import surface_fields
 from tpu_fluid_torch.stages import velocity as vstages
@@ -28,33 +31,59 @@ def simulation_step(state: FluidState, cfg: FluidConfig,
         raise NotImplementedError("scene fields are not ported")
     if cfg.volume_correction > 0.0:
         raise NotImplementedError("volume_correction is not ported")
-    fuse_grid_choice(cfg, state.velocity.device, scene)
+    device = state.velocity.device
+    fuse_grid = fuse_grid_choice(cfg, device, scene)
+    if fuse_grid and kernel_choice(cfg, device):
+        classify_extrap = grid_fused.classify_extrap_cuda
+        forces_solids_div = grid_fused.forces_solids_div_cuda
+        project = grid_fused.project_cuda
+    else:
+        classify_extrap = grid_fused.classify_extrap_plain
+        forces_solids_div = grid_fused.forces_solids_div_plain
+        project = grid_fused.project_plain
 
     old_types = state.cell_types
     vel = state.velocity
 
-    # 01-03: classify cells from the occupancy of the current positions,
-    # scattered at the end of the previous step
+    # 01: sim-grid occupancy of the current positions, scattered at the
+    # end of the previous step
     occ_sim = particles.occupancy_to_sim_grid(state.detailed_occ, cfg)
-    new_types = celltypes.update_water(occ_sim)
-    new_types = celltypes.update_air(new_types, cfg)
-    # 04-05: velocity extrapolation into newly active faces
-    extrapolated = vstages.compute_extrapolated_velocities(old_types, vel)
-    vel = vstages.set_extrapolated_velocities(old_types, new_types, vel,
-                                              extrapolated)
-    # 06: the new classification becomes current
-    types = celltypes.commit_cell_types(new_types)
+
+    if fuse_grid:
+        # 02-06 in one pass (K6a)
+        types, vel = classify_extrap(occ_sim, old_types, vel, cfg)
+    else:
+        # 02-03: classify cells
+        new_types = celltypes.update_water(occ_sim)
+        new_types = celltypes.update_air(new_types, cfg)
+        # 04-05: velocity extrapolation into newly active faces
+        extrapolated = vstages.compute_extrapolated_velocities(old_types,
+                                                               vel)
+        vel = vstages.set_extrapolated_velocities(old_types, new_types, vel,
+                                                  extrapolated)
+        # 06: the new classification becomes current
+        types = celltypes.commit_cell_types(new_types)
 
     # 07
     vel = vstages.advect(types, vel, cfg)
-    # 08-10: force, diffuse, solid clamp
-    vel = vstages.apply_forces(types, vel, cfg)
-    vel = vstages.diffuse(types, vel, cfg)
-    vel = vstages.apply_solids(types, vel, cfg)
-    # 11-13: divergence, pressure solve, projection
-    div = pressure.compute_divergence(vel)
+
+    if fuse_grid:
+        # 08-11 in one pass (K6b; 09 is the reference's no-op)
+        vel, div = forces_solids_div(types, vel, cfg)
+    else:
+        # 08-10: force, diffuse, solid clamp
+        vel = vstages.apply_forces(types, vel, cfg)
+        vel = vstages.diffuse(types, vel, cfg)
+        vel = vstages.apply_solids(types, vel, cfg)
+        # 11
+        div = pressure.compute_divergence(vel)
+
+    # 12-13: pressure solve and projection (13 as K6c when fused)
     p = pressure.jacobi_solve(types, div, cfg)
-    vel = pressure.pressure_project(types, p, vel, cfg)
+    if fuse_grid:
+        vel = project(types, p, vel, cfg)
+    else:
+        vel = pressure.pressure_project(types, p, vel, cfg)
 
     # 14: move particles through the projected field
     pos = particles.move_particles(vel, state.positions, state.active, cfg)
