@@ -21,10 +21,23 @@ Phases, one line each (more for the parity and scene phases):
               invariants, steps/s, and every kernel, K6 included, launched
               in it; then 2 steps with the kernels and 2 with
               pallas_mode="off" (the unfused stage path) must agree
+  8 sharded   the x-slab multi-device step (tpu_fluid_torch/parallel/):
+              first each halo-form kernel against its plain version,
+              bitwise, at the local-slab shapes of scaled_scene(256) split
+              4 ways (K1, K2's pass and K6 on (64 + 2h) x 256 x 256 slabs,
+              K5 on a 128 x 512 x 512 detailed slab), at shards 0, 1 and 3;
+              then scaled_scene(256) on 4 ranks, spawned processes that
+              share this one card over a gloo group (halo planes and
+              collectives staged through the host), for 2 steps: the
+              gathered state must equal 2 single-device steps from the
+              same initial state bitwise in every field, hold the
+              invariants, and every halo-form kernel must have launched on
+              every rank.  Its steps/s measures the host-staged transport,
+              not the port.
 The line before the last is a JSON object with the kernels' numbers (times
-at the large scene); the last line is {"ok": true, "device": {...}}.  Any
-failed check raises, so the script then exits nonzero without that line;
-without CUDA it exits 2.
+at the large scene, the halo forms' at shard 1 of phase 8); the last line is
+{"ok": true, "device": {...}}.  Any failed check raises, so the script then
+exits nonzero without that line; without CUDA it exits 2.
 """
 
 from __future__ import annotations
@@ -43,11 +56,48 @@ BENCH_STEPS = 10
 COMPARE_STEPS = 3
 LARGE_STEPS = 5
 LARGE_COMPARE_STEPS = 2
+SHARDS = 4
+SHARDED_STEPS = 2
+PARITY_SHARDS = (0, 1, 3)
+RANK_TIMEOUT = 480.0
 # f32 tolerances of the kernel path against pallas_mode="off" where the two
 # are not bitwise equal (tests/test_full_step_oracle.py)
 STEP_TOLERANCES = {"velocity": (2e-4, 2e-5), "positions": (1e-4, 1e-5),
                    "float_dens_1": (1e-4, 1e-5),
                    "float_dens_2": (1e-4, 1e-5)}
+
+
+# The halo forms of phase 8: source, and the TPU kernel each replaces.
+HALO_SOURCES = {
+    "advect_all_halo_cuda": (
+        "tpu_fluid_torch/csrc/advect.cu",
+        "tpu_fluid/kernels/advect.py:321 (advect_all_pallas, halo form), "
+        "tpu_fluid/kernels/advect.py:244 (advect_one_pallas, halo form "
+        "_advect_one_kernel_halo :238, covered), "
+        "tpu_fluid/kernels/advect.py:369 (advect_component_pallas, halo "
+        "form, covered)"),
+    "jacobi_pass_cuda": (
+        "tpu_fluid_torch/csrc/jacobi.cu",
+        "tpu_fluid/kernels/jacobi.py:367 (jacobi_sweeps_sharded: _one_pass "
+        "halo branch :309, _halo_blocks :249)"),
+    "surface_fused_halo_cuda": (
+        "tpu_fluid_torch/csrc/surface_fused.cu",
+        "tpu_fluid/kernels/surface_fused.py:345 (surface_fused_pallas, halo "
+        "branch :431), tpu_fluid/kernels/surface_fused.py:438 "
+        "(surface_fused_auto y-chunk route, covered)"),
+    "classify_extrap_halo_cuda": (
+        "tpu_fluid_torch/csrc/grid_fused.cu",
+        "tpu_fluid/kernels/grid_fused.py:411 (classify_extrap_pallas, halo "
+        "form; pallas_call in _call :340)"),
+    "forces_solids_div_halo_cuda": (
+        "tpu_fluid_torch/csrc/grid_fused.cu",
+        "tpu_fluid/kernels/grid_fused.py:443 (forces_solids_div_pallas, "
+        "halo form; pallas_call in _call :340)"),
+    "project_halo_cuda": (
+        "tpu_fluid_torch/csrc/grid_fused.cu",
+        "tpu_fluid/kernels/grid_fused.py:473 (project_pallas, halo form; "
+        "pallas_call in _call :340)"),
+}
 
 
 class CheckFailed(RuntimeError):
@@ -273,6 +323,281 @@ def read_launches(wrappers) -> dict:
     return {w.__name__: w.launches for w in wrappers}
 
 
+# ------------------------------------------------------------ 8: sharded
+def split_rows(ext: torch.Tensor, h: int):
+    """An extended slab (h planes a side on dim ndim-3) -> (local, (left,
+    right))."""
+    ax = ext.ndim - 3
+    lx = ext.shape[ax] - 2 * h
+    return (ext.narrow(ax, h, lx).contiguous(),
+            (ext.narrow(ax, 0, h).contiguous(),
+             ext.narrow(ax, lx + h, h).contiguous()))
+
+
+def type_rows(rng, lo: int, n: int, cfg) -> np.ndarray:
+    """Cell types of the global rows [lo, lo + n): water, air, the solid
+    border at global positions, INACTIVE (zero) past the domain."""
+    from tpu_fluid_torch.core.types import CellType
+    gx, gy, gz = cfg.grid_size
+    t = np.where(rng.random((n, gy, gz)) < 0.4, CellType.WATER,
+                 CellType.INACTIVE).astype(np.uint8)
+    t[(t == CellType.INACTIVE) & (rng.random(t.shape) < 0.3)] = CellType.AIR
+    x = np.arange(lo, lo + n)
+    t[(x == 0) | (x == gx - 1)] = CellType.SOLID
+    t[:, 0], t[:, -1], t[:, :, 0], t[:, :, -1] = (CellType.SOLID,) * 4
+    t[(x < 0) | (x >= gx)] = CellType.INACTIVE
+    return t
+
+
+def halo_cases(device, cfg):
+    """(wrapper, plain, args, kwargs, shard) for each halo-form kernel at
+    the local-slab shapes of `cfg` split SHARDS ways, at PARITY_SHARDS, on
+    numpy-seeded slabs whose halo planes past the domain are zero."""
+    from tpu_fluid_torch.kernels import grid_fused as k6
+    from tpu_fluid_torch.kernels.advect import (advect_all_halo_cuda,
+                                                advect_all_halo_plain)
+    from tpu_fluid_torch.kernels.jacobi import (SHARDED_K, fold_c2e,
+                                                jacobi_pass_cuda,
+                                                jacobi_pass_plain)
+    from tpu_fluid_torch.kernels.surface_fused import (
+        surface_fused_halo_cuda, surface_fused_halo_plain)
+    from tpu_fluid_torch.stages.pressure import jacobi_fold
+    from tpu_fluid_torch.stages.surface_fields import solid_parent_mask
+
+    gx, gy, gz = cfg.grid_size
+    lx = gx // SHARDS
+    r = cfg.advect_max_displacement
+    res = cfg.surface_render_resolution
+    dsize = cfg.detailed_size
+    h5 = cfg.float_density_diffuse_steps + 1
+    box = ((gx // 4, gy // 4, gz // 4), (gx // 2, gy // 3, gz // 2))
+    force_cell = (gx // 3, gy // 2, gz // 3)
+    fcfg = cfg.replace(solid_boxes=(box,),
+                       extra_forces=((force_cell, (40.0, 0.0, -25.0)),))
+    kw5 = dict(steps=cfg.float_density_diffuse_steps,
+               k=cfg.float_density_diffuse_coefficient,
+               inc_filled=cfg.inertia_increase_filled,
+               inc_neigh=cfg.inertia_increase_neighbour,
+               required_hits=cfg.inertia_required_neighbour_hits,
+               dec=cfg.inertia_decrease, max_inertia=cfg.max_inertia,
+               div_coef=cfg.float_density_division_coefficient)
+    cases = []
+    for shard in PARITY_SHARDS:
+        x0 = shard * lx
+        rng = np.random.default_rng(SEED + shard)
+
+        def rows(h, shape, make, dtype, lo_of=lambda h: x0 - h, extent=gx):
+            """Global rows [x0 - h, x0 + lx + h) of a field, zero past the
+            domain, on the card."""
+            lo = lo_of(h)
+            a = make((shape[0] + 2 * h,) + tuple(shape[1:])).astype(dtype)
+            x = np.arange(lo, lo + a.shape[0])
+            a[(x < 0) | (x >= extent)] = 0
+            return torch.from_numpy(a).to(device)
+
+        def vel_rows(h, scale):
+            v = rng.standard_normal((3, lx + 2 * h, gy, gz)) * scale
+            x = np.arange(x0 - h, x0 + lx + h)
+            v[:, (x < 0) | (x >= gx)] = 0
+            return torch.from_numpy(v.astype(np.float32)).to(device)
+
+        def types_rows(h):
+            return torch.from_numpy(type_rows(rng, x0 - h, lx + 2 * h,
+                                              cfg)).to(device)
+
+        # K1: |v| * dt up to a few cells, so the R clamp is exercised
+        vel, vel_h = split_rows(vel_rows(r, 60), r)
+        cond3 = torch.from_numpy(
+            (rng.random((3, lx, gy, gz)) < 0.6).astype(np.uint8)).to(device)
+        cases.append((advect_all_halo_cuda, advect_all_halo_plain,
+                      (vel, cond3, r, cfg.dt, vel_h, x0, cfg.grid_size), {},
+                      shard))
+        # K2: one pass of SHARDED_K sweeps on the folded inputs of a real
+        # solve on the slab extended by SHARDED_K planes a side
+        k = SHARDED_K
+        rhs = torch.from_numpy((rng.standard_normal((lx + 2 * k, gy, gz))
+                                * 100).astype(np.float32)).to(device)
+        _, q0, code, c2 = jacobi_fold(types_rows(k), rhs, cfg,
+                                      cfg.air_pressure)
+        ext = [q0, code, fold_c2e(q0, code, c2)]
+        x = torch.arange(x0 - k, x0 + lx + k, device=device)
+        outside = ((x < 0) | (x >= gx)).reshape(-1, 1, 1)
+        ext = [torch.where(outside, torch.zeros_like(a), a) for a in ext]
+        cases.append((jacobi_pass_cuda, jacobi_pass_plain,
+                      tuple(ext) + (k, k), {}, shard))
+        # K6, with the fountain and the force cell wet where they lie here
+        occ, occ_h = split_rows(rows(2, (lx, gy, gz), lambda s: (
+            rng.random(s) < 0.35), np.uint8), 2)
+        old, old_h = split_rows(rows(2, (lx, gy, gz), lambda s: (
+            rng.integers(0, 4, s)), np.uint8), 2)
+        vel2, vel2_h = split_rows(vel_rows(2, 3), 2)
+        cases.append((k6.classify_extrap_halo_cuda,
+                      k6.classify_extrap_halo_plain, (occ, old, vel2, fcfg),
+                      dict(halos=(occ_h, old_h, vel2_h), x0=x0,
+                           global_gx=gx), shard))
+        t_ext = types_rows(1)
+        for cell in (cfg.fountain, force_cell):
+            if x0 <= cell[0] < x0 + lx:
+                t_ext[cell[0] - x0 + 1, cell[1] - 1:cell[1] + 1,
+                      cell[2]] = 2
+        types, types_h = split_rows(t_ext, 1)
+        vel1, vel1_h = split_rows(vel_rows(1, 3), 1)
+        p, p_h = split_rows(rows(1, (lx, gy, gz), lambda s: (
+            rng.standard_normal(s) * 50), np.float32), 1)
+        cases.append((k6.forces_solids_div_halo_cuda,
+                      k6.forces_solids_div_halo_plain, (types, vel1, fcfg),
+                      dict(halos=(types_h, vel1_h), x0=x0, global_gx=gx),
+                      shard))
+        cases.append((k6.project_halo_cuda, k6.project_halo_plain,
+                      (types, p, vel1, fcfg),
+                      dict(halos=(types_h, p_h, vel1_h), x0=x0,
+                           global_gx=gx), shard))
+        # K5 on the detailed slab, h = steps + 1 planes a side
+        dlx = dsize[0] // SHARDS
+        dshape = (dlx,) + tuple(dsize[1:])
+        dlo = lambda h: shard * dlx - h                       # noqa: E731
+        sim_lo = (shard * dlx - h5) // res
+        sim_types = torch.from_numpy(type_rows(
+            rng, sim_lo, -(-(dlx + 2 * h5) // res) + 1, cfg)).to(device)
+        off = shard * dlx - h5 - sim_lo * res
+        skip = solid_parent_mask(sim_types, cfg)[off:off + dlx + 2 * h5]
+        fields = [
+            rows(h5, dshape, lambda s: rng.random(s) < 0.3, np.uint8, dlo,
+                 dsize[0]),
+            rows(h5, dshape, lambda s: rng.integers(0, cfg.max_inertia + 1,
+                                                    s), np.uint8, dlo,
+                 dsize[0]),
+            rows(h5, dshape, lambda s: rng.standard_normal(s), np.float32,
+                 dlo, dsize[0]),
+            skip.to(torch.uint8)]
+        parts = [split_rows(a, h5) for a in fields]
+        cases.append((surface_fused_halo_cuda, surface_fused_halo_plain,
+                      tuple(a for a, _ in parts),
+                      dict(halos=tuple(hh for _, hh in parts),
+                           x0=shard * dlx, global_gx=dsize[0], **kw5),
+                      shard))
+    return cases
+
+
+def phase_halo_parity(device, cfg) -> dict:
+    results = {}
+    for kernel, plain, args, kw, shard in halo_cases(device, cfg):
+        name = kernel.__name__
+        got, want = kernel(*args, **kw), plain(*args, **kw)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max(max_abs_err(a, b) for a, b in zip(got, want))
+        bitwise = all(a.dtype == b.dtype and torch.equal(a, b)
+                      for a, b in zip(got, want))
+        ms = time_ms(lambda: kernel(*args, **kw), reps=10)
+        plain_ms = time_ms(lambda: plain(*args, **kw), reps=3, warmup=1)
+        print(f"[8 parity] {name} shard {shard}/{SHARDS} shapes="
+              f"{[tuple(a.shape) for a in got]} max_abs_err={err!r} "
+              f"bitwise={bitwise} (tolerance 0) kernel_ms={ms!r} "
+              f"plain_ms={plain_ms!r}", flush=True)
+        check(bitwise, f"{name} at shard {shard} differs from its plain "
+                       f"version (max abs err {err!r})")
+        entry = results.setdefault(name, {"max_abs_err": 0.0})
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        entry[shard] = (ms, plain_ms)
+    return results
+
+
+def halo_wrappers():
+    from tpu_fluid_torch.kernels import grid_fused as k6
+    from tpu_fluid_torch.kernels.advect import advect_all_halo_cuda
+    from tpu_fluid_torch.kernels.jacobi import jacobi_pass_cuda
+    from tpu_fluid_torch.kernels.particle_move import particle_move_cuda
+    from tpu_fluid_torch.kernels.surface_fused import surface_fused_halo_cuda
+    return (advect_all_halo_cuda, jacobi_pass_cuda, surface_fused_halo_cuda,
+            k6.classify_extrap_halo_cuda, k6.forces_solids_div_halo_cuda,
+            k6.project_halo_cuda, particle_move_cuda)
+
+
+def sharded_rank(rank, n, init_method, cfg, device):
+    """One rank of phase 8: SHARDED_STEPS steps of its slab; rank 0 also
+    runs the single-device steps and compares the gathered state.  All
+    ranks share `device`."""
+    import torch.distributed as dist
+    from tpu_fluid_torch import initial_state
+    from tpu_fluid_torch.kernels import build
+    from tpu_fluid_torch.parallel.mesh import (gather_state, make_mesh,
+                                               shard_state)
+    from tpu_fluid_torch.parallel.spmd_step import spmd_multi_step
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        build.library()
+        sync = torch.cuda.synchronize
+    else:
+        torch.set_num_threads(1)
+        sync = lambda: None                                # noqa: E731
+    mesh = make_mesh(n, rank, init_method, device=device, backend="gloo")
+    state0 = initial_state(cfg, device)
+    ymax0 = float(active_positions(state0)[:, 1].max())
+    local = shard_state(state0, rank, n)
+    if rank != 0:
+        del state0
+    wrappers = halo_wrappers()
+    run = spmd_multi_step(cfg, mesh, SHARDED_STEPS)
+    reset_launches(wrappers)
+    dist.barrier()
+    sync()
+    t0 = time.perf_counter()
+    local = run(local)
+    sync()
+    dist.barrier()
+    seconds = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    full = gather_state(local, mesh)
+    out = {"launches": launches, "seconds": seconds}
+    if rank == 0:
+        check_invariants(full, cfg, ymax0, "8 sharded")
+        ref = run_steps(state0, cfg, SHARDED_STEPS)
+        sync()
+        fields = {}
+        for name in ref._fields:
+            a, b = getattr(full, name), getattr(ref, name)
+            same = a.dtype == b.dtype and a.shape == b.shape and \
+                torch.equal(a, b)
+            err = (max_abs_err(a, b) if a.dtype.is_floating_point
+                   and a.shape == b.shape else None)
+            fields[name] = (same, err)
+        out["fields"] = fields
+    return out
+
+
+def phase_sharded(cfg, card: str, device) -> dict:
+    from tpu_fluid_torch.parallel.launch import run_ranks
+    t0 = time.perf_counter()
+    ranks = run_ranks(sharded_rank, SHARDS, cfg, str(device),
+                      timeout=RANK_TIMEOUT)
+    wall = time.perf_counter() - t0
+    fields = ranks[0]["fields"]
+    for name, (same, err) in fields.items():
+        print(f"[8 sharded] {name}: bitwise={same} max_abs_err={err!r} "
+              f"(tolerance 0)", flush=True)
+    check(all(same for same, _ in fields.values()),
+          f"{SHARDED_STEPS} sharded steps differ from {SHARDED_STEPS} "
+          f"single-device steps: {fields}")
+    seconds = max(r["seconds"] for r in ranks)
+    print(f"[8 sharded] {SHARDS} ranks sharing one card over gloo "
+          f"(host-staged transport, not a figure for the port): "
+          f"{SHARDED_STEPS / seconds!r} steps/s at grid {cfg.grid_size} on "
+          f"{card}; phase wall {wall!r} s, rank start-up included",
+          flush=True)
+    launches = {}
+    for rank, r in enumerate(ranks):
+        print(f"[8 launches] rank {rank}: {r['launches']}", flush=True)
+        check(all(v > 0 for v in r["launches"].values()),
+              f"rank {rank}: a kernel of the sharded path never launched: "
+              f"{r['launches']}")
+        for name, count in r["launches"].items():
+            launches[name] = launches.get(name, 0) + count
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -407,6 +732,13 @@ def main() -> int:
     plain = run_steps(state, large_cfg.replace(pallas_mode="off"),
                       LARGE_COMPARE_STEPS)
     compare_states(with_kernels, plain, "7 kernels vs off")
+    del state, with_kernels, plain
+    torch.cuda.empty_cache()
+
+    # 8: the x-slab multi-device step at scaled_scene(256) on SHARDS ranks
+    halo_parity = phase_halo_parity(device, large_cfg)
+    torch.cuda.empty_cache()
+    sharded_launches = phase_sharded(large_cfg, card, device)
 
     kernels = []
     for w in wrappers + fused_wrappers:
@@ -416,6 +748,13 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": parity[name]["max_abs_err"],
+                        "ms": ms, "plain_ms": plain_ms})
+    for name, (source, replaces) in HALO_SOURCES.items():
+        ms, plain_ms = halo_parity[name][1]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces,
+                        "launches": sharded_launches[name],
+                        "max_abs_err": halo_parity[name]["max_abs_err"],
                         "ms": ms, "plain_ms": plain_ms})
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,410 @@
+"""The halo forms of the port's kernels, which the x-slab multi-device step
+runs: each plain version against the JAX package's Pallas kernel in the
+Pallas interpreter, called directly with explicit neighbour planes (zeros
+past the domain), `x0` and the global extent, at the first, a middle and
+the last of three shards; and against the port's single-device plain
+version on the same rows, bitwise.  On a CUDA card only (marked `cuda`),
+each halo-form CUDA kernel against its plain version, bitwise.
+
+`jacobi_sweeps_sharded`, whose passes exchange planes with the neighbours,
+is held against JAX under shard_map in tests/test_torch_spmd.py.
+
+Integer results must be equal.  f32 results allow 1 ULP of the field's
+scale against JAX (2 for K5's blurred fields, as tests/test_torch_kernels.py
+allows): XLA:CPU may contract a*b+c into one fused multiply-add inside the
+interpreted kernel, where the plain version rounds twice."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_fluid.core.config import FluidConfig as JaxConfig
+from tpu_fluid.kernels.advect import (advect_all_pallas,
+                                      advect_component_pallas,
+                                      advect_one_pallas)
+from tpu_fluid.kernels.grid_fused import (classify_extrap_pallas,
+                                          forces_solids_div_pallas,
+                                          project_pallas)
+from tpu_fluid.kernels.surface_fused import (surface_fused_auto,
+                                             surface_fused_pallas)
+from tpu_fluid.stages.velocity import face_center_velocity as jax_face_center
+from tpu_fluid_torch.core.config import FluidConfig
+from tpu_fluid_torch.kernels.advect import (advect_all_halo_cuda,
+                                            advect_all_halo_plain,
+                                            advect_all_plain)
+from tpu_fluid_torch.kernels.grid_fused import (
+    classify_extrap_halo_cuda, classify_extrap_halo_plain,
+    classify_extrap_plain, forces_solids_div_halo_cuda,
+    forces_solids_div_halo_plain, forces_solids_div_plain, project_halo_cuda,
+    project_halo_plain, project_plain)
+from tpu_fluid_torch.kernels.jacobi import (fold_c2e, jacobi_pass_cuda,
+                                            jacobi_pass_plain,
+                                            jacobi_sweeps_plain)
+from tpu_fluid_torch.kernels.surface_fused import (surface_fused_halo_cuda,
+                                                   surface_fused_halo_plain,
+                                                   surface_fused_plain)
+from tpu_fluid_torch.stages.pressure import jacobi_fold
+from tpu_fluid_torch.stages.surface_fields import solid_parent_mask
+from tpu_fluid_torch.stages.velocity import _advect_conditions
+
+torch.set_num_threads(2)
+EPS = np.finfo(np.float32).eps
+N_SHARDS = 3
+SHARDS = [0, 1, 2]                      # first, middle, last
+GRID = (24, 10, 12)                     # 8-row slabs
+ADVECT_GRID = (12, 6, 8)                # 4-row slabs: one interpreted block
+BOXES = (((4, 3, 2), (11, 8, 6)),)      # across the first shard border
+FORCES = (((8, 4, 3), (100.0, 0.0, -50.0)),
+          ((16, 7, 6), (0.0, -30.0, 0.0)))
+
+
+def T(a):
+    return torch.from_numpy(np.array(a))
+
+
+def same(got, want, ulp=0):
+    g = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    w = np.asarray(want)
+    assert g.shape == w.shape and g.dtype == w.dtype
+    if ulp == 0:
+        np.testing.assert_array_equal(g, w)
+    else:
+        scale = float(np.abs(w).max())
+        np.testing.assert_allclose(g, w, rtol=ulp * EPS,
+                                   atol=ulp * EPS * scale)
+
+
+def slab(a, shard, n=N_SHARDS, h=0):
+    """Rows of shard `shard` along dim ndim-3 with h planes a side, zeros
+    past the domain: (local, (left, right)), numpy."""
+    ax = a.ndim - 3
+    lx = a.shape[ax] // n
+    x0 = shard * lx
+    pad = [(0, 0)] * a.ndim
+    pad[ax] = (h, h)
+    ap = np.pad(a, pad)
+    take = lambda lo, hi: np.ascontiguousarray(        # noqa: E731
+        np.take(ap, np.arange(lo + h, hi + h), axis=ax))
+    return take(x0, x0 + lx), (take(x0 - h, x0), take(x0 + lx, x0 + lx + h))
+
+
+def torch_halos(halos):
+    return tuple((T(l), T(r)) for l, r in halos)
+
+
+def jax_halos(halos):
+    return tuple((jnp.asarray(l), jnp.asarray(r)) for l, r in halos)
+
+
+def random_types(r, shape):
+    t = np.where(r.random(shape) < 0.4, 2, 0).astype(np.uint8)
+    t[0], t[-1], t[:, 0], t[:, -1], t[:, :, 0], t[:, :, -1] = (3,) * 6
+    t[(t == 0) & (r.random(shape) < 0.3)] = 1
+    return t
+
+
+# ------------------------------------------------------------------ K1
+def advect_case(seed=0):
+    """Velocity with displacements up to R, and the advection conditions
+    of a cell field with the solid border, as the step makes them."""
+    r = np.random.default_rng(seed)
+    vel = (r.standard_normal((3,) + ADVECT_GRID) * 80).astype(np.float32)
+    cond3 = _advect_conditions(T(random_types(r, ADVECT_GRID))).numpy()
+    return vel, cond3
+
+
+@pytest.mark.parametrize("shard", SHARDS)
+def test_advect_halo_matches_advect_all_and_one_pallas(shard):
+    vel, cond3 = advect_case()
+    R, dt = 2, 0.01
+    lx = ADVECT_GRID[0] // N_SHARDS
+    v, halo = slab(vel, shard, h=R)
+    c, _ = slab(cond3, shard)
+    got = advect_all_halo_plain(T(v), T(c), R, dt, (T(halo[0]), T(halo[1])),
+                                shard * lx, ADVECT_GRID)
+    same(got, advect_all_plain(T(vel), T(cond3), R, dt)[
+        :, shard * lx:(shard + 1) * lx])
+    jhalo = (jnp.asarray(halo[0]), jnp.asarray(halo[1]))
+    want = advect_all_pallas(jnp.asarray(v), jnp.asarray(c), R, dt,
+                             halo=jhalo, x0=shard * lx,
+                             global_shape=ADVECT_GRID, interpret=True)
+    same(got, want, ulp=1)
+    # one component a shard: the three shards cover all three
+    comp = shard
+    want = advect_one_pallas(jnp.asarray(v), jnp.asarray(c[comp]), comp, R,
+                             dt, halo=jhalo, x0=shard * lx,
+                             global_shape=ADVECT_GRID, interpret=True)
+    same(got[comp], want, ulp=1)
+
+
+@pytest.mark.parametrize("shard", SHARDS)
+def test_advect_halo_covers_advect_component_pallas(shard):
+    """advect_component_pallas's halo form, called directly with the
+    displacement JAX's step computes from a 1-plane halo block; one
+    component a shard."""
+    vel, cond3 = advect_case(1)
+    R, dt = 2, 0.01
+    lx = ADVECT_GRID[0] // N_SHARDS
+    v, halo = slab(vel, shard, h=R)
+    c, _ = slab(cond3, shard)
+    got = advect_all_halo_plain(T(v), T(c), R, dt, (T(halo[0]), T(halo[1])),
+                                shard * lx, ADVECT_GRID)
+    v1, (l1, r1) = slab(vel, shard, h=1)
+    vel_e = jnp.asarray(np.concatenate([l1, v1, r1], axis=1))
+    comp = shard
+    u = -jax_face_center(vel_e, comp)[:, 1:-1] * dt
+    _, hc = slab(vel[comp], shard, h=R)
+    want = advect_component_pallas(
+        jnp.asarray(v[comp]), u, jnp.asarray(c[comp]), R, tx=4,
+        halo=(jnp.asarray(hc[0]), jnp.asarray(hc[1])), x0=shard * lx,
+        global_shape=ADVECT_GRID, interpret=True)
+    same(got[comp], want, ulp=1)
+
+
+# ------------------------------------------------------------------ K5
+def surface_case(steps, seed):
+    cfg = FluidConfig(grid_size=(GRID[0] // 2, 8, 7),
+                      surface_render_resolution=2,
+                      float_density_diffuse_steps=steps)
+    r = np.random.default_rng(seed)
+    d = cfg.detailed_size
+    occ = (r.random(d) < 0.3).astype(np.uint8)
+    inertia = r.integers(0, cfg.max_inertia + 1, d).astype(np.uint8)
+    f2 = r.normal(size=d).astype(np.float32)
+    types = r.integers(0, 4, cfg.grid_size).astype(np.uint8)
+    skip = solid_parent_mask(T(types), cfg).to(torch.uint8).numpy()
+    kw = dict(steps=steps, k=cfg.float_density_diffuse_coefficient,
+              inc_filled=cfg.inertia_increase_filled,
+              inc_neigh=cfg.inertia_increase_neighbour,
+              required_hits=cfg.inertia_required_neighbour_hits,
+              dec=cfg.inertia_decrease, max_inertia=cfg.max_inertia,
+              div_coef=cfg.float_density_division_coefficient)
+    return (occ, inertia, f2, skip), kw
+
+
+@pytest.mark.parametrize("shard", SHARDS)
+@pytest.mark.parametrize("steps", [0, 3])
+def test_surface_halo_matches_surface_fused_pallas(steps, shard):
+    fields, kw = surface_case(steps, 5 + steps)
+    h, gx = steps + 1, fields[0].shape[0]
+    lx = gx // N_SHARDS
+    parts = [slab(a, shard, h=h) for a in fields]
+    local = [T(p[0]) for p in parts]
+    halos = [p[1] for p in parts]
+    got = surface_fused_halo_plain(*local, halos=torch_halos(halos),
+                                   x0=shard * lx, global_gx=gx, **kw)
+    single = surface_fused_plain(*map(T, fields), **kw)
+    for g, w in zip(got, single):
+        same(g, w[shard * lx:(shard + 1) * lx])
+    want = surface_fused_pallas(*(jnp.asarray(p[0]) for p in parts),
+                                halos=jax_halos(halos), x0=shard * lx,
+                                global_gx=gx, interpret=True, **kw)
+    for g, w, ulp in zip(got, want, (0, 2, 2)):
+        same(g, w, ulp=ulp)
+
+
+@pytest.mark.parametrize("shard", SHARDS)
+def test_surface_halo_covers_the_y_chunk_route(shard):
+    """surface_fused_auto's route for planes above max_plane under
+    sharding: y-chunks with h-wide overlaps, here forced by a small
+    max_plane on a 16 x 14 detailed plane."""
+    fields, kw = surface_case(2, 9)
+    h, gx = 3, fields[0].shape[0]
+    lx = gx // N_SHARDS
+    parts = [slab(a, shard, h=h) for a in fields]
+    got = surface_fused_halo_plain(*(T(p[0]) for p in parts),
+                                   halos=torch_halos([p[1] for p in parts]),
+                                   x0=shard * lx, global_gx=gx, **kw)
+    want = surface_fused_auto(*(jnp.asarray(p[0]) for p in parts),
+                              halos=jax_halos([p[1] for p in parts]),
+                              x0=shard * lx, global_gx=gx, max_plane=120,
+                              interpret=True, **kw)
+    for g, w, ulp in zip(got, want, (0, 2, 2)):
+        same(g, w, ulp=ulp)
+
+
+# ------------------------------------------------------------------ K6
+def configs(**kw):
+    kw = dict(grid_size=GRID, **kw)
+    return JaxConfig(**kw), FluidConfig(**kw)
+
+
+def grid_case(seed):
+    r = np.random.default_rng(seed)
+    occ = (r.random(GRID) < 0.35).astype(np.uint8)
+    old = r.integers(0, 4, GRID).astype(np.uint8)
+    types = random_types(r, GRID)
+    # the fountain and the extra-force cells wet, so their forces land
+    types[12, 7:9, 6] = 2
+    types[8, 3:5, 3], types[16, 6:8, 6] = 2, 2
+    vel = (3.0 * r.standard_normal((3,) + GRID)).astype(np.float32)
+    p = r.standard_normal(GRID).astype(np.float32)
+    return occ, old, types, vel, p
+
+
+def run_grid(kind, shard, jcfg, cfg, seed):
+    """(port halo plain, port single-device rows, JAX interpret) of one K6
+    kernel at one shard."""
+    occ, old, types, vel, p = grid_case(seed)
+    lx = GRID[0] // N_SHARDS
+    rows = slice(shard * lx, (shard + 1) * lx)
+    if kind == "classify":
+        arrays, h, fns = (occ, old, vel), 2, (classify_extrap_halo_plain,
+                                              classify_extrap_plain,
+                                              classify_extrap_pallas)
+    elif kind == "forces":
+        arrays, h, fns = (types, vel), 1, (forces_solids_div_halo_plain,
+                                           forces_solids_div_plain,
+                                           forces_solids_div_pallas)
+    else:
+        arrays, h, fns = (types, p, vel), 1, (project_halo_plain,
+                                              project_plain, project_pallas)
+    parts = [slab(a, shard, h=h) for a in arrays]
+    halo_fn, single_fn, jax_fn = fns
+    got = halo_fn(*(T(q[0]) for q in parts), cfg,
+                  halos=torch_halos([q[1] for q in parts]), x0=shard * lx,
+                  global_gx=GRID[0])
+    single = single_fn(*map(T, arrays), cfg)
+    want = jax_fn(*(jnp.asarray(q[0]) for q in parts), jcfg,
+                  halos=jax_halos([q[1] for q in parts]), x0=shard * lx,
+                  global_gx=GRID[0], interpret=True)
+    got = got if isinstance(got, tuple) else (got,)
+    single = single if isinstance(single, tuple) else (single,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, s in zip(got, single):
+        same(g, s[..., rows, :, :])
+    return got, want
+
+
+@pytest.mark.parametrize("shard", SHARDS)
+def test_classify_extrap_halo_matches_pallas_interpret(shard):
+    jcfg, cfg = configs(solid_boxes=BOXES)
+    (got_t, got_v), (want_t, want_v) = run_grid("classify", shard, jcfg,
+                                                cfg, 0)
+    same(got_t, want_t)
+    same(got_v, want_v, ulp=1)
+
+
+@pytest.mark.parametrize("shard", SHARDS)
+def test_forces_solids_div_halo_matches_pallas_interpret(shard):
+    jcfg, cfg = configs(solid_boxes=BOXES, extra_forces=FORCES,
+                        fountain_position=(12, 8, 6))
+    (got_v, got_div), (want_v, want_div) = run_grid("forces", shard, jcfg,
+                                                    cfg, 2)
+    same(got_v, want_v, ulp=1)
+    same(got_div, want_div, ulp=1)
+
+
+@pytest.mark.parametrize("shard", SHARDS)
+def test_project_halo_matches_pallas_interpret(shard):
+    jcfg, cfg = configs(dt=0.013, fluid_density=0.7, cell_width=1.3)
+    (got,), (want,) = run_grid("project", shard, jcfg, cfg, 3)
+    same(got, want, ulp=1)
+
+
+# ------------------------------------------------------------------ K2 pass
+@pytest.mark.parametrize("shard", SHARDS)
+def test_jacobi_pass_equals_single_device_rows(shard):
+    """One pass of kk <= h sweeps on an h-extended slab gives the
+    single-device rows after kk sweeps; past the domain the zero planes
+    with code 0 act as the zero pad."""
+    r = np.random.default_rng(11)
+    types = T(random_types(r, GRID))
+    rhs = T((r.standard_normal(GRID) * 50).astype(np.float32))
+    _, q0, code, c2 = jacobi_fold(types, rhs, FluidConfig(), 1.0)
+    c2e = fold_c2e(q0, code, c2)
+    lx = GRID[0] // N_SHARDS
+    h = 4
+    for kk in (1, 3, 4):
+        ext = [torch.cat([T(q[1][0]), T(q[0]), T(q[1][1])]) for q in
+               (slab(a.numpy(), shard, h=h) for a in (q0, code, c2e))]
+        got = jacobi_pass_plain(*ext, h, kk)
+        same(got, jacobi_sweeps_plain(q0, code, c2, kk)[
+            shard * lx:(shard + 1) * lx])
+
+
+# ------------------------------------------------------------------ on card
+def halo_calls(device):
+    """(halo-form wrapper, plain version, args, kwargs) at the middle and
+    the last shard."""
+    dev = lambda a: T(a).to(device)                   # noqa: E731
+    lx = GRID[0] // N_SHARDS
+    calls = []
+    for shard in (1, 2):
+        x0 = shard * lx
+        vel, cond3 = advect_case(20 + shard)
+        v, halo = slab(vel, shard, h=2)
+        c, _ = slab(cond3, shard)
+        calls.append((advect_all_halo_cuda, advect_all_halo_plain,
+                      (dev(v), dev(c), 2, 0.01,
+                       (dev(halo[0]), dev(halo[1])),
+                       shard * ADVECT_GRID[0] // N_SHARDS, ADVECT_GRID), {}))
+        fields, kw = surface_case(3, 30 + shard)
+        parts = [slab(a, shard, h=4) for a in fields]
+        calls.append((surface_fused_halo_cuda, surface_fused_halo_plain,
+                      tuple(dev(q[0]) for q in parts),
+                      dict(halos=tuple((dev(q[1][0]), dev(q[1][1]))
+                                       for q in parts),
+                           x0=shard * fields[0].shape[0] // N_SHARDS,
+                           global_gx=fields[0].shape[0], **kw)))
+        _, cfg = configs(solid_boxes=BOXES, extra_forces=FORCES,
+                         fountain_position=(12, 8, 6))
+        occ, old, types, vel, p = grid_case(40 + shard)
+        for wrapper, plain, arrays, h in (
+                (classify_extrap_halo_cuda, classify_extrap_halo_plain,
+                 (occ, old, vel), 2),
+                (forces_solids_div_halo_cuda, forces_solids_div_halo_plain,
+                 (types, vel), 1),
+                (project_halo_cuda, project_halo_plain, (types, p, vel), 1)):
+            parts = [slab(a, shard, h=h) for a in arrays]
+            calls.append((wrapper, plain,
+                          tuple(dev(q[0]) for q in parts) + (cfg,),
+                          dict(halos=tuple((dev(q[1][0]), dev(q[1][1]))
+                                           for q in parts),
+                               x0=x0, global_gx=GRID[0])))
+        r = np.random.default_rng(50 + shard)
+        _, q0, code, c2 = jacobi_fold(
+            T(random_types(r, GRID)),
+            T((r.standard_normal(GRID) * 50).astype(np.float32)),
+            FluidConfig(), 1.0)
+        ext = [torch.cat([T(q[1][0]), T(q[0]), T(q[1][1])]).to(device)
+               for q in (slab(a.numpy(), shard, h=3)
+                         for a in (q0, code, fold_c2e(q0, code, c2)))]
+        calls.append((jacobi_pass_cuda, jacobi_pass_plain,
+                      tuple(ext) + (3, 3), {}))
+    return calls
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are compiled and run "
+                    "only there")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(12))
+def test_cuda_halo_kernel_matches_plain_bitwise(cuda_device, case):
+    wrapper, plain, args, kw = halo_calls(cuda_device)[case]
+    before = wrapper.launches
+    got, want = wrapper(*args, **kw), plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert g.device == cuda_device and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", range(12))
+def test_halo_wrapper_on_cpu_runs_plain_version_without_launch(case):
+    wrapper, plain, args, kw = halo_calls("cpu")[case]
+    before = wrapper.launches
+    got, want = wrapper(*args, **kw), plain(*args, **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert wrapper.launches == before

@@ -1,0 +1,296 @@
+"""The port's x-slab multi-device step (`tpu_fluid_torch/parallel/`) on the
+CPU: n = 2 and n = 4 ranks, each a spawned process on a gloo group, against
+the port's single-device step (bitwise) and JAX's single-device
+`simulation_step` (the tolerances of tests/test_torch_step.py), on the
+scene of tests/test_spmd_step.py:31-43; the sharded Jacobi sweeps against
+JAX's `jacobi_sweeps_sharded` under shard_map; the halo helpers and
+collectives; one shard without spawning; and the config rejections.
+
+One spawn per mesh size runs every scenario (a fixture with its own
+timeout): a rank that raises, hangs or mismatches a collective fails the
+fixture, with the rank's traceback, well inside the run's time limit."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as P
+
+from tpu_fluid.core.config import FluidConfig as JaxConfig
+from tpu_fluid.core.state import initial_state as jax_initial_state
+from tpu_fluid.kernels.jacobi import jacobi_sweeps_sharded
+from tpu_fluid.parallel.mesh import make_mesh as jax_make_mesh
+from tpu_fluid.solver.step import simulation_step as jax_step
+from tpu_fluid_torch import FluidConfig, initial_state, step
+from tpu_fluid_torch.core.state import state_to_numpy
+from tpu_fluid_torch.kernels.jacobi import (jacobi_sweeps_plain,
+                                            jacobi_sweeps_sharded_cuda,
+                                            jacobi_sweeps_sharded_plain)
+from tpu_fluid_torch.parallel.halo import (all_gather_x, exchange_x_halo,
+                                           halo_planes, jacobi_solve_halo,
+                                           psum, psum_scatter_x)
+from tpu_fluid_torch.parallel.launch import run_ranks
+from tpu_fluid_torch.parallel.mesh import (gather_state, make_mesh,
+                                           shard_state)
+from tpu_fluid_torch.parallel.spmd_step import (spmd_multi_step, spmd_step,
+                                                validate_spmd_config)
+from tpu_fluid_torch.stages.pressure import jacobi_fold, jacobi_solve
+
+torch.set_num_threads(2)
+EPS = np.finfo(np.float32).eps
+STEPS = 3
+SPAWN_TIMEOUT = 240.0
+TOL = {"velocity": (2e-4, 2e-5), "positions": (1e-4, 1e-5),
+       "float_dens_1": (1e-4, 1e-5), "float_dens_2": (1e-4, 1e-5)}
+
+BASE = dict(grid_size=(32, 16, 16), particle_count=4096,
+            particle_init_cube_resolution=(16, 16, 16),
+            particle_init_cube_offset=(5.0, 2.0, 2.0),
+            particle_init_cube_size=(20.0, 9.0, 5.0),
+            surface_render_resolution=2, jacobi_iters=30,
+            advect_max_displacement=2)
+BOX = (((6, 8, 4), (10, 14, 8)),)
+FORCE = (((9, 12, 11), (50.0, -80.0, 0.0)),)
+SCENARIOS = {
+    # the plain stage formulations
+    "off": dict(pallas_mode="off"),
+    # the fused grid path (K6 halo forms) and every kernel's halo plain
+    # version, with a solid box and an extra force across shard borders
+    "fused": dict(pallas_mode="interpret", grid_fused=True, solid_boxes=BOX,
+                  extra_forces=FORCE),
+    # the unfused stages with global-coordinate features and the shift
+    # advection on an (R + 1)-extended block
+    "obstacles": dict(pallas_mode="off", solid_boxes=BOX, extra_forces=FORCE,
+                      advect_method="shift"),
+    "sim_only": dict(pallas_mode="off", surface_enabled=False),
+    # 16 blur passes: K5's halo (17 planes) fits the 32-row detailed slab
+    # of 2 shards, not the 16-row slab of 4, which takes the per-pass path
+    "long_blur": dict(pallas_mode="interpret",
+                      float_density_diffuse_steps=16),
+}
+JACOBI_SHAPE, JACOBI_ITERS, JACOBI_KS = (16, 8, 8), 11, (1, 3, None)
+JACOBI_CFG = FluidConfig(grid_size=JACOBI_SHAPE, jacobi_iters=25)
+
+
+def cfg_of(name, package=FluidConfig):
+    return package(**BASE, **SCENARIOS[name])
+
+
+def jacobi_scene():
+    """Cell types with the solid border and a right-hand side."""
+    r = np.random.default_rng(7)
+    t = np.where(r.random(JACOBI_SHAPE) < 0.4, 2, 0).astype(np.uint8)
+    t[0], t[-1], t[:, 0], t[:, -1], t[:, :, 0], t[:, :, -1] = (3,) * 6
+    rhs = (r.standard_normal(JACOBI_SHAPE) * 50).astype(np.float32)
+    return torch.from_numpy(t), torch.from_numpy(rhs)
+
+
+def jacobi_inputs():
+    _, q0, code, c2 = jacobi_fold(*jacobi_scene(), FluidConfig(), 1.0)
+    return q0, code, c2
+
+
+# ------------------------------------------------------------ rank worker
+def _rank(rank, n, init_method):
+    """Every scenario on this rank: the gathered states (on rank 0), the
+    sharded sweeps and the helpers' results."""
+    torch.set_num_threads(1)
+    mesh = make_mesh(n, rank, init_method)
+    out = {}
+    for name in SCENARIOS:
+        cfg = cfg_of(name)
+        local = shard_state(initial_state(cfg), rank, n)
+        local = spmd_multi_step(cfg, mesh, STEPS)(local)
+        full = gather_state(local, mesh)
+        out[name] = state_to_numpy(full) if rank == 0 else None
+    q0, code, c2 = jacobi_inputs()
+    lx = JACOBI_SHAPE[0] // n
+    sl = slice(rank * lx, (rank + 1) * lx)
+    args = (q0[sl].contiguous(), code[sl].contiguous(), c2[sl].contiguous(),
+            JACOBI_ITERS, mesh)
+    out["jacobi"] = [jacobi_sweeps_sharded_plain(*args, k=k).numpy()
+                     for k in JACOBI_KS]
+    out["jacobi_cuda_wrapper"] = jacobi_sweeps_sharded_cuda(*args).numpy()
+    types, div = jacobi_scene()
+    out["jacobi_solve_halo"] = jacobi_solve_halo(
+        mesh, types[sl].contiguous(), div[sl].contiguous(),
+        JACOBI_CFG).numpy()
+    a = torch.arange(2 * 4 * 3, dtype=torch.float32).reshape(2, 4, 3) \
+        + 100 * rank
+    out["halo"] = [x.numpy() for x in halo_planes(a, 2, mesh)]
+    out["halo_bool"] = [x.numpy() for x in halo_planes(a > 110, 1, mesh)]
+    out["exchange"] = exchange_x_halo(a, mesh).numpy()
+    out["gather"] = all_gather_x(a[None].repeat(3, 1, 1, 1), mesh,
+                                 axis=1).numpy()
+    counts = torch.full((n * 2, 3, 3), rank + 1, dtype=torch.uint8)
+    out["psum_scatter"] = psum_scatter_x(counts, mesh).numpy()
+    out["psum"] = psum(torch.tensor(rank + 1, dtype=torch.int32), mesh).item()
+    return out
+
+
+@pytest.fixture(scope="module", params=[2, 4], ids=["n2", "n4"])
+def sharded(request, tmp_path_factory):
+    n = request.param
+    ranks = run_ranks(_rank, n, timeout=SPAWN_TIMEOUT,
+                      workdir=tmp_path_factory.mktemp(f"rendezvous{n}"))
+    return n, ranks
+
+
+@pytest.fixture(scope="module")
+def single():
+    """The port's single-device states after STEPS steps."""
+    out = {}
+    for name in SCENARIOS:
+        cfg = cfg_of(name)
+        state = initial_state(cfg)
+        for _ in range(STEPS):
+            state = step(state, cfg)
+        out[name] = state_to_numpy(state)
+    return out
+
+
+def assert_bitwise(got: dict, want: dict, label: str):
+    for name, w in want.items():
+        g = got[name]
+        assert g.dtype == w.dtype and g.shape == w.shape, (label, name)
+        np.testing.assert_array_equal(g, w, err_msg=f"{label} {name}")
+
+
+def scenario_state(sharded, name):
+    return sharded[1][0][name]
+
+
+@pytest.mark.parametrize("name", list(SCENARIOS))
+def test_sharded_steps_equal_single_device_bitwise(sharded, single, name):
+    got = scenario_state(sharded, name)
+    assert_bitwise(got, single[name], f"n={sharded[0]} {name}")
+    assert int(got["step"]) == STEPS
+
+
+@pytest.fixture(scope="module")
+def jax_single():
+    """JAX's single-device states after STEPS jitted steps (XLA stages),
+    from JAX's initial state, per scenario; computed once for both mesh
+    sizes.  The fused path of the port's single-device step is held
+    against JAX's interpreted kernels in tests/test_torch_step.py."""
+    out = {}
+
+    def get(name):
+        if name not in out:
+            jcfg = cfg_of(name, JaxConfig)
+            jstate = jax_initial_state(jcfg)
+            jstep = jax.jit(jax_step, static_argnums=1)
+            for _ in range(STEPS):
+                jstate = jstep(jstate, jcfg)
+            out[name] = {k: np.asarray(v) for k, v in
+                         jstate._asdict().items()}
+        return out[name]
+    return get
+
+
+@pytest.mark.parametrize("name", ["off", "obstacles"])
+def test_sharded_steps_match_jax_single_device(sharded, jax_single, name):
+    got = scenario_state(sharded, name)
+    for field, w in jax_single(name).items():
+        g = got[field]
+        assert g.dtype == w.dtype and g.shape == w.shape, field
+        if field in TOL:
+            rtol, atol = TOL[field]
+            np.testing.assert_allclose(g, w, rtol=rtol, atol=atol,
+                                       err_msg=field)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=field)
+
+
+def test_sharded_jacobi_independent_of_k_and_matches_jax(sharded):
+    """The sharded sweeps at k = 1, 3 and the default, and through the
+    kernel wrapper's CPU route, equal the single-device sweeps bitwise and
+    JAX's jacobi_sweeps_sharded (interpreted, under shard_map on n CPU
+    devices) within 1 ULP of the field's scale (XLA:CPU may contract a
+    mul+add in the interpreted kernel)."""
+    n, ranks = sharded
+    q0, code, c2 = jacobi_inputs()
+    want = jacobi_sweeps_plain(q0, code, c2, JACOBI_ITERS).numpy()
+    for i, k in enumerate(JACOBI_KS):
+        got = np.concatenate([r["jacobi"][i] for r in ranks])
+        np.testing.assert_array_equal(got, want, err_msg=f"k={k}")
+    np.testing.assert_array_equal(
+        np.concatenate([r["jacobi_cuda_wrapper"] for r in ranks]), want)
+    # the XLA-path sharded solve, one plane exchanged a sweep
+    types, div = jacobi_scene()
+    np.testing.assert_array_equal(
+        np.concatenate([r["jacobi_solve_halo"] for r in ranks]),
+        jacobi_solve(types, div, JACOBI_CFG).numpy())
+
+    mesh = jax_make_mesh(n)
+    fn = jax.shard_map(
+        lambda q, rd, c: jacobi_sweeps_sharded(q, rd, c, JACOBI_ITERS, "x",
+                                               k=3, interpret=True),
+        mesh=mesh, in_specs=(P("x"),) * 3, out_specs=P("x"),
+        check_vma=False)
+    jax_q = np.asarray(fn(*(jnp.asarray(a.numpy()) for a in (q0, code, c2))))
+    scale = float(np.abs(jax_q).max())
+    np.testing.assert_allclose(want, jax_q, rtol=EPS, atol=EPS * scale)
+
+
+def test_halo_planes_and_collectives(sharded):
+    n, ranks = sharded
+    a = [np.arange(24, dtype=np.float32).reshape(2, 4, 3) + 100 * r
+         for r in range(n)]
+    for r, out in enumerate(ranks):
+        left, right = out["halo"]
+        np.testing.assert_array_equal(
+            left, a[r - 1][-2:] if r > 0 else np.zeros((2, 4, 3)))
+        np.testing.assert_array_equal(
+            right, a[r + 1][:2] if r < n - 1 else np.zeros((2, 4, 3)))
+        np.testing.assert_array_equal(
+            out["exchange"], np.concatenate([left[-1:], a[r], right[:1]]))
+        bl, br = out["halo_bool"]
+        assert bl.dtype == br.dtype == np.bool_
+        np.testing.assert_array_equal(
+            bl, a[r - 1][-1:] > 110 if r > 0 else np.zeros((1, 4, 3), bool))
+        np.testing.assert_array_equal(
+            out["gather"], np.concatenate(a)[None].repeat(3, 0))
+        np.testing.assert_array_equal(
+            out["psum_scatter"], np.full((2, 3, 3), n * (n + 1) // 2))
+        assert out["psum"] == n * (n + 1) // 2
+
+
+# ------------------------------------------------------------- one shard
+def test_one_shard_without_spawning_equals_single_device(single):
+    cfg = cfg_of("fused")
+    mesh = make_mesh(1)
+    state = spmd_multi_step(cfg, mesh, STEPS)(
+        shard_state(initial_state(cfg), 0, 1))
+    assert_bitwise(state_to_numpy(gather_state(state, mesh)),
+                   single["fused"], "n=1")
+
+
+def test_validate_spmd_config_rejections():
+    cfg = cfg_of("off")
+    with pytest.raises(ValueError):
+        validate_spmd_config(cfg.replace(grid_size=(18, 16, 16)), 8)
+    with pytest.raises(ValueError):
+        validate_spmd_config(cfg.replace(particle_count=4097), 8)
+    with pytest.raises(ValueError):
+        validate_spmd_config(cfg, 16)      # 2-row slabs, halo R + 1 = 3
+    for change in (dict(particle_sharding="domain"),
+                   dict(volume_correction=0.5),
+                   dict(surface_method="levelset")):
+        with pytest.raises(NotImplementedError):
+            validate_spmd_config(cfg.replace(**change), 2)
+    with pytest.raises(NotImplementedError):
+        spmd_step(cfg, make_mesh(1), scene=object())
+    bad = cfg.replace(pressure_solver="redblack")
+    with pytest.raises(NotImplementedError):
+        spmd_step(bad, make_mesh(1))(initial_state(bad))
+
+
+def test_make_mesh_rejections():
+    with pytest.raises(RuntimeError):
+        make_mesh(torch.cuda.device_count() + 1, backend="nccl")
+    with pytest.raises(ValueError):
+        make_mesh(2, rank=2)
+    with pytest.raises(ValueError):
+        make_mesh(2, rank=0)                # no init_method

@@ -7,14 +7,28 @@
 // gather; every term but the 8 around the back-traced point has weight
 // exactly 0 and adds +-0, so this kernel reads those 8 taps at edge-clamped
 // indices and adds them in the same ascending (dx, dy, dz) order.
+//
+// Halo form (the x-slab multi-device step, advect_all_pallas with `halo`,
+// `x0` and `global_shape`): the output is the local slab of global rows
+// [x0, x0 + lx); the input holds global rows [xb, xb + mx), the slab with
+// R neighbour planes on each side.  Coordinates, clamps and tap indices are
+// global, so a tap never reads past the domain: the end shards give exactly
+// the single-device rows, where the TPU kernel reads zero planes there and
+// relies on their zero weights.  Single device: x0 = xb = 0, lx = mx = gx.
 
 #include "common.cuh"
 
 namespace {
 
+// The x geometry of a slab: global extent gx, output rows [x0, x0 + lx),
+// memory rows [xb, xb + mx), all in global x.
+struct Slab {
+  int gx, x0, lx, xb, mx;
+};
+
 __device__ __forceinline__ float tap(const float* f, int x, int y, int z,
-                                     int gx, int gy, int gz) {
-  x = tf::clamp_index(x, gx);
+                                     const Slab& s, int gy, int gz) {
+  x = tf::clamp_index(x, s.gx) - s.xb;
   y = tf::clamp_index(y, gy);
   z = tf::clamp_index(z, gz);
   return f[(static_cast<long long>(x) * gy + y) * gz + z];
@@ -22,10 +36,12 @@ __device__ __forceinline__ float tap(const float* f, int x, int y, int z,
 
 __global__ void advect_all_kernel(const float* __restrict__ vel,
                                   const uint8_t* __restrict__ cond,
-                                  float* __restrict__ out, int gx, int gy,
+                                  float* __restrict__ out, Slab s, int gy,
                                   int gz, int r, float dt, float umin,
                                   float umax) {
-  const long long n = static_cast<long long>(gx) * gy * gz;
+  const long long plane = static_cast<long long>(gy) * gz;
+  const long long n = s.lx * plane;    // output cells per component
+  const long long nm = s.mx * plane;   // input cells per component
   const long long gid = blockIdx.x * static_cast<long long>(blockDim.x)
                         + threadIdx.x;
   if (gid >= 3 * n) return;
@@ -33,15 +49,15 @@ __global__ void advect_all_kernel(const float* __restrict__ vel,
   const long long cell = gid - c * n;
   const int z = static_cast<int>(cell % gz);
   const int y = static_cast<int>((cell / gz) % gy);
-  const int x = static_cast<int>(cell / (static_cast<long long>(gy) * gz));
-  const float* vc = vel + c * n;
-  const float old = vc[cell];
+  const int x = s.x0 + static_cast<int>(cell / plane);
+  const float* vc = vel + c * nm;
+  const float old = vc[(x - s.xb) * plane + y * gz + z];
   if (cond[gid] == 0) {  // where(cond, sample, old)
     out[gid] = old;
     return;
   }
   const int idx[3] = {x, y, z};
-  const int dims[3] = {gx, gy, gz};
+  const int dims[3] = {s.gx, gy, gz};
 
   // Face-centre velocity of component c's face: its own stored value, or
   // the 4-point average over {i_c-1, i_c} x {i_cp, i_cp+1} with edge clamp,
@@ -52,7 +68,7 @@ __global__ void advect_all_kernel(const float* __restrict__ vel,
       vface[cp] = old;
       continue;
     }
-    const float* vp = vel + cp * n;
+    const float* vp = vel + cp * nm;
     float acc = 0.0f;
     bool first = true;
     for (int dc = -1; dc <= 0; ++dc) {
@@ -60,7 +76,7 @@ __global__ void advect_all_kernel(const float* __restrict__ vel,
         int q[3] = {x, y, z};
         q[c] += dc;
         q[cp] += dcp;
-        const float t = tap(vp, q[0], q[1], q[2], gx, gy, gz);
+        const float t = tap(vp, q[0], q[1], q[2], s, gy, gz);
         acc = first ? t : acc + t;
         first = false;
       }
@@ -96,7 +112,7 @@ __global__ void advect_all_kernel(const float* __restrict__ vel,
         const int dz = o[2] + az;
         if (dz > r) continue;
         const float wz = az ? f[2] : 1.0f - f[2];
-        acc = acc + (wxy * wz) * tap(vc, x + dx, y + dy, z + dz, gx, gy, gz);
+        acc = acc + (wxy * wz) * tap(vc, x + dx, y + dy, z + dz, s, gy, gz);
       }
     }
   }
@@ -105,14 +121,16 @@ __global__ void advect_all_kernel(const float* __restrict__ vel,
 
 }  // namespace
 
+// vel holds global rows [xb, xb + mx) of the (3, gx, gy, gz) field; cond
+// and out are the (3, lx, gy, gz) slab of rows [x0, x0 + lx).
 extern "C" int tf_advect_all(const float* vel, const uint8_t* cond,
-                             float* out, int gx, int gy, int gz, int r,
-                             float dt, float umin, float umax,
-                             void* stream) {
-  const long long total = 3LL * gx * gy * gz;
+                             float* out, int gx, int gy, int gz, int x0,
+                             int lx, int xb, int mx, int r, float dt,
+                             float umin, float umax, void* stream) {
+  const long long total = 3LL * lx * gy * gz;
   if (total == 0) return 0;
   advect_all_kernel<<<tf::blocks_for(total), tf::kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      vel, cond, out, gx, gy, gz, r, dt, umin, umax);
+      vel, cond, out, Slab{gx, x0, lx, xb, mx}, gy, gz, r, dt, umin, umax);
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,6 +21,16 @@
 // writes 16 bytes, K6c 4 u8 and 7 f32 and writes 12 bytes.  The neighbour
 // reads of one warp lie on neighbouring z and hit L1/L2, so each kernel
 // streams its fields about once from HBM.
+//
+// Halo forms (the x-slab multi-device step: the `halos`, `x0` and
+// `global_gx` arguments of the three JAX wrappers): the output is the local
+// slab of global rows [x0, x0 + lx), and the inputs hold global rows
+// [xb, xb + mx), the slab with its neighbour planes, 2 a side for K6a (its
+// stage 05 reads new types of x +- 1, whose AIR test reads occupancy at
+// x +- 2) and 1 for K6b and K6c.  Cell coordinates, the border and box SOLID
+// rule, the fountain and force cells and the out-of-domain zero are all
+// global, so every row equals the single-device row.  Single device:
+// x0 = xb = 0 and lx = mx = gx.
 
 #include "common.cuh"
 
@@ -31,23 +41,32 @@ constexpr int kAir = 1;
 constexpr int kWater = 2;
 constexpr int kSolid = 3;
 
+// The domain (gx, gy, gz), the output rows [x0, x0 + lx) and the input
+// rows [xb, xb + mx), all in global x.
 struct Grid {
-  int gx, gy, gz;
+  int gx, gy, gz, x0, lx, xb, mx;
 
+  // output cells (one component)
   __device__ long long cells() const {
-    return static_cast<long long>(gx) * gy * gz;
+    return static_cast<long long>(lx) * gy * gz;
+  }
+  // input cells (one component)
+  __device__ long long mem_cells() const {
+    return static_cast<long long>(mx) * gy * gz;
   }
   __device__ bool inside(const int* p) const {
     return p[0] >= 0 && p[0] < gx && p[1] >= 0 && p[1] < gy && p[2] >= 0
            && p[2] < gz;
   }
+  // index of p in the inputs
   __device__ long long at(const int* p) const {
-    return (static_cast<long long>(p[0]) * gy + p[1]) * gz + p[2];
+    return (static_cast<long long>(p[0] - xb) * gy + p[1]) * gz + p[2];
   }
+  // global coordinates of output cell `cell`
   __device__ void coords(long long cell, int* p) const {
     p[2] = static_cast<int>(cell % gz);
     p[1] = static_cast<int>((cell / gz) % gy);
-    p[0] = static_cast<int>(cell / (static_cast<long long>(gy) * gz));
+    p[0] = x0 + static_cast<int>(cell / (static_cast<long long>(gy) * gz));
   }
 };
 
@@ -119,11 +138,13 @@ __global__ void classify_extrap_kernel(const uint8_t* __restrict__ occ,
                                        const int* __restrict__ boxes,
                                        int nbox) {
   const long long n = g.cells();
+  const long long nm = g.mem_cells();
   const long long cell = blockIdx.x * static_cast<long long>(blockDim.x)
                          + threadIdx.x;
   if (cell >= n) return;
   int p[3];
   g.coords(cell, p);
+  const long long here = g.at(p);
   const int nt = new_type(occ, g, p, boxes, nbox);
 
   // 04: mean velocity of the WATER 6-neighbours under the old types,
@@ -138,7 +159,7 @@ __global__ void classify_extrap_kernel(const uint8_t* __restrict__ occ,
     if (g.inside(q)) {
       const long long j = g.at(q);
       w = ind(old[j] == kWater);
-      for (int c = 0; c < 3; ++c) vw[c] = vel[c * n + j] * w;
+      for (int c = 0; c < 3; ++c) vw[c] = vel[c * nm + j] * w;
     }
     count = count + w;
     for (int c = 0; c < 3; ++c) vsum[c] = vsum[c] + vw[c];
@@ -148,7 +169,7 @@ __global__ void classify_extrap_kernel(const uint8_t* __restrict__ occ,
   // 05: a face is active iff the cell or its lower neighbour is WATER or
   // AIR; was/is from the old and the new types, the lower neighbour's new
   // type recomputed here
-  const float was = ind(is_active(old[cell]));
+  const float was = ind(is_active(old[here]));
   const float is = ind(is_active(nt));
   for (int c = 0; c < 3; ++c) {
     const float extr = vsum[c] / denom;
@@ -160,7 +181,7 @@ __global__ void classify_extrap_kernel(const uint8_t* __restrict__ occ,
     const float is_c = fminf(is + is_lo, 1.0f);
     const float gone = was_c * (1.0f - is_c);
     const float born = (1.0f - was_c) * is_c;
-    const float v = vel[c * n + cell];
+    const float v = vel[c * nm + here];
     vel_out[c * n + cell] =
         (1.0f - gone) * (born * extr + (1.0f - born) * v);
   }
@@ -185,13 +206,13 @@ __device__ __forceinline__ float cell_ind(const int* p, int cx, int cy,
 __device__ float forced_solid(const uint8_t* types, const float* vel,
                               const Grid& g, int c, const int* p,
                               const Forces& f) {
-  const long long n = g.cells();
+  const long long nm = g.mem_cells();
   const long long j = g.at(p);
   const int t = types[j];
   const float water = ind(t == kWater);
   int lo[3];
   lower(p, c, lo);
-  float v = vel[c * n + j];
+  float v = vel[c * nm + j];
   // 08: gravity and the fountain on wet y-faces off the y = 0 plane
   if (c == 1) {
     const float wet_y = fminf(water + ind(type_at(types, g, lo) == kWater),
@@ -252,15 +273,17 @@ __global__ void project_kernel(const uint8_t* __restrict__ types,
                                float* __restrict__ out, Grid g,
                                float scale) {
   const long long n = g.cells();
+  const long long nm = g.mem_cells();
   const long long cell = blockIdx.x * static_cast<long long>(blockDim.x)
                          + threadIdx.x;
   if (cell >= n) return;
   int p[3];
   g.coords(cell, p);
-  const int t = types[cell];
+  const long long here = g.at(p);
+  const int t = types[here];
   const bool water = t == kWater;
   const bool solid = t == kSolid;
-  const float pc = pressure[cell];
+  const float pc = pressure[here];
   for (int c = 0; c < 3; ++c) {
     int q[3];
     lower(p, c, q);
@@ -276,48 +299,56 @@ __global__ void project_kernel(const uint8_t* __restrict__ types,
     const float cond = ind(p[c] != 0 && (water || lo_water) && !solid
                            && !lo_solid);
     const float grad = pc - plo;
-    out[c * n + cell] = vel[c * n + cell] - scale * (cond * grad);
+    out[c * n + cell] = vel[c * nm + here] - scale * (cond * grad);
   }
 }
 
 }  // namespace
 
+// Each entry: the domain (gx, gy, gz), output rows [x0, x0 + lx), input
+// rows [xb, xb + mx).
 extern "C" int tf_classify_extrap(const uint8_t* occ, const uint8_t* old,
                                   const float* vel, uint8_t* types_out,
                                   float* vel_out, int gx, int gy, int gz,
+                                  int x0, int lx, int xb, int mx,
                                   const int* boxes, int nbox, void* stream) {
-  const long long n = static_cast<long long>(gx) * gy * gz;
+  const Grid g{gx, gy, gz, x0, lx, xb, mx};
+  const long long n = static_cast<long long>(lx) * gy * gz;
   if (n == 0) return 0;
   classify_extrap_kernel<<<tf::blocks_for(n), tf::kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
-      occ, old, vel, types_out, vel_out, Grid{gx, gy, gz}, boxes, nbox);
+      occ, old, vel, types_out, vel_out, g, boxes, nbox);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int tf_forces_solids_div(const uint8_t* types, const float* vel,
                                     float* vel_out, float* div_out, int gx,
-                                    int gy, int gz, float dt, float gravity,
-                                    int fx, int fy, int fz,
-                                    float fountain_force, float repel,
-                                    const int* terms, const float* kterm,
-                                    int nterm, void* stream) {
-  const long long n = static_cast<long long>(gx) * gy * gz;
+                                    int gy, int gz, int x0, int lx, int xb,
+                                    int mx, float dt, float gravity, int fx,
+                                    int fy, int fz, float fountain_force,
+                                    float repel, const int* terms,
+                                    const float* kterm, int nterm,
+                                    void* stream) {
+  const Grid g{gx, gy, gz, x0, lx, xb, mx};
+  const long long n = static_cast<long long>(lx) * gy * gz;
   if (n == 0) return 0;
   const Forces f{dt, gravity, fountain_force, repel, fx, fy, fz,
                  terms, kterm, nterm};
   forces_solids_div_kernel<<<tf::blocks_for(n), tf::kThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
-      types, vel, vel_out, div_out, Grid{gx, gy, gz}, f);
+      types, vel, vel_out, div_out, g, f);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int tf_project(const uint8_t* types, const float* pressure,
                           const float* vel, float* out, int gx, int gy,
-                          int gz, float scale, void* stream) {
-  const long long n = static_cast<long long>(gx) * gy * gz;
+                          int gz, int x0, int lx, int xb, int mx, float scale,
+                          void* stream) {
+  const Grid g{gx, gy, gz, x0, lx, xb, mx};
+  const long long n = static_cast<long long>(lx) * gy * gz;
   if (n == 0) return 0;
   project_kernel<<<tf::blocks_for(n), tf::kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
-      types, pressure, vel, out, Grid{gx, gy, gz}, scale);
+      types, pressure, vel, out, g, scale);
   return static_cast<int>(cudaGetLastError());
 }

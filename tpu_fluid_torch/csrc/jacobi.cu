@@ -8,6 +8,15 @@
 // kernel keeps the whole grid in VMEM for all sweeps; here one launch per
 // sweep ping-pongs two buffers, one thread per cell.  At 128^3 the two q
 // buffers, c2e (8 MB each) and the code (2 MB) stay inside the 50 MB L2.
+//
+// Sharded form (jacobi_sweeps_sharded, its _one_pass halo branch and
+// _halo_blocks): tf_jacobi_pass runs kk sweeps on an x-slab extended by h >=
+// kk neighbour planes on each side (zero planes with code 0 past the
+// domain, which stay 0: the single-device zero pad).  Sweep s computes only
+// the rows [h - kk + s, nx - h + kk - s), the TPU kernel's trapezoid, so the
+// last sweep writes exactly the interior and no sweep reads a row that the
+// one before it left stale.  The ghost rows cost (kk - 1) / lx extra work a
+// sweep on average.
 
 #include "common.cuh"
 
@@ -23,16 +32,17 @@ __global__ void jacobi_fold_kernel(const float* __restrict__ q,
   c2e[i] = code[i] > 0 ? c2[i] : q[i];
 }
 
+// One sweep over the cells [begin, end) (whole rows) of a gx-row field.
 __global__ void jacobi_sweep_kernel(const float* __restrict__ q,
                                     const uint8_t* __restrict__ code,
                                     const float* __restrict__ c2e,
                                     float* __restrict__ out, int gx, int gy,
-                                    int gz) {
+                                    int gz, long long begin, long long end) {
   const long long plane = static_cast<long long>(gy) * gz;
-  const long long n = gx * plane;
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x)
+  const long long i = begin
+                      + blockIdx.x * static_cast<long long>(blockDim.x)
                       + threadIdx.x;
-  if (i >= n) return;
+  if (i >= end) return;
   const int z = static_cast<int>(i % gz);
   const int y = static_cast<int>((i / gz) % gy);
   const int x = static_cast<int>(i / plane);
@@ -73,8 +83,37 @@ extern "C" int tf_jacobi_sweeps(const float* q0, const uint8_t* code,
   for (int s = 0; s < n_iters; ++s) {
     float* dst = ((n_iters - 1 - s) % 2 == 0) ? out : tmp;
     jacobi_sweep_kernel<<<blocks, tf::kThreads, 0, stream>>>(
-        src, code, c2e, dst, gx, gy, gz);
+        src, code, c2e, dst, gx, gy, gz, 0, n);
     err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    src = dst;
+  }
+  return 0;
+}
+
+// kk sweeps on the extended slab q (nx = lx + 2h rows, c2e folded over the
+// same rows); the last sweep writes the interior rows [h, nx - h) of `out`,
+// `tmp` takes the other half of the ping-pong.  Rows of `out` outside the
+// interior are left undefined.
+extern "C" int tf_jacobi_pass(const float* q, const uint8_t* code,
+                              const float* c2e, float* out, float* tmp,
+                              int nx, int gy, int gz, int h, int kk,
+                              void* stream_ptr) {
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const long long plane = static_cast<long long>(gy) * gz;
+  if (kk < 1 || kk > h || nx <= 2 * h) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (plane == 0) return 0;
+  const float* src = q;
+  for (int s = 1; s <= kk; ++s) {
+    const int lo = h - kk + s;
+    const int hi = nx - lo;
+    float* dst = ((kk - s) % 2 == 0) ? out : tmp;
+    jacobi_sweep_kernel<<<tf::blocks_for((hi - lo) * plane), tf::kThreads, 0,
+                          stream>>>(src, code, c2e, dst, nx, gy, gz,
+                                    lo * plane, hi * plane);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     src = dst;
   }

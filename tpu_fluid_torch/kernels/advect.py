@@ -20,6 +20,16 @@ plane limit; tests/test_torch_kernels.py holds both variants against
 
 `advect_all_plain` is the same function in plain PyTorch, in the masked-sum
 order of `tpu_fluid.stages.velocity.advect_shift`.
+
+The halo form, `advect_all_halo_cuda` beside `advect_all_halo_plain`,
+replaces the sharded calls of `advect_all_pallas` and `advect_one_pallas`
+(`halo`, `x0`, `global_shape`; `tpu_fluid/parallel/spmd_step.py:145-177`)
+in the x-slab multi-device step: a local slab with its R neighbour planes
+on each side, one launch for all three components.  Clamps and tap indices
+are global, so a tap never reads the zero planes past the domain: every
+row equals the single-device row, at the end shards too.  JAX's kernels read
+those zero planes (`_xpad`, `_advect_one_impl`) where the weight is 0 or
+the condition is 0, which agrees up to the sign of a zero.
 """
 
 from __future__ import annotations
@@ -29,9 +39,8 @@ import torch
 from tpu_fluid_torch.kernels import build, on_cuda, require
 from tpu_fluid_torch.ops.packed_sampler import _edge_shift
 
-_ARGTYPES = (build.POINTER, build.POINTER, build.POINTER, build.INT,
-             build.INT, build.INT, build.INT, build.FLOAT, build.FLOAT,
-             build.FLOAT, build.POINTER)
+_ARGTYPES = ((build.POINTER,) * 3 + (build.INT,) * 8
+             + (build.FLOAT,) * 3 + (build.POINTER,))
 
 
 def face_center_velocity(vel: torch.Tensor, c: int) -> torch.Tensor:
@@ -55,30 +64,39 @@ def face_center_velocity(vel: torch.Tensor, c: int) -> torch.Tensor:
     return torch.stack(comps)
 
 
-def _edge_pad(a: torch.Tensor, r: int) -> torch.Tensor:
-    """Pad all three axes by r with edge replication."""
-    for ax in range(3):
+def _x_rows(vel: torch.Tensor, r: int, x0: int, lx: int, xb: int,
+            gx: int) -> torch.Tensor:
+    """Rows x0 - r .. x0 + lx + r - 1 of the field, each global x clamped
+    into [0, gx - 1] and then into `vel` (C, mx, Y, Z), whose row 0 is
+    global xb."""
+    idx = torch.clamp(torch.arange(x0 - r, x0 + lx + r, device=vel.device),
+                      0, gx - 1) - xb
+    return vel.index_select(1, torch.clamp(idx, 0, vel.shape[1] - 1))
+
+
+def _edge_pad_yz(a: torch.Tensor, r: int) -> torch.Tensor:
+    """Pad the y and z axes of an (X, Y, Z) field by r with edge
+    replication."""
+    for ax in (1, 2):
         n = a.shape[ax]
         idx = torch.clamp(torch.arange(-r, n + r, device=a.device), 0, n - 1)
         a = a.index_select(ax, idx)
     return a
 
 
-def advect_all_plain(vel: torch.Tensor, cond3: torch.Tensor, r: int,
-                     dt: float) -> torch.Tensor:
-    """vel (3,X,Y,Z) f32, cond3 (3,X,Y,Z) u8 -> advected velocity: the
-    backtraced point of component c at cell i is t = i - v_face*dt in
-    texel space, the displacement clamped to [-R, R-1e-4] and the point to
-    the grid, sampled as a hat-weighted sum over all |delta| <= R."""
-    shape = tuple(vel.shape[1:])
+def _advect(vx: torch.Tensor, cond3: torch.Tensor, r: int, dt: float,
+            x0: int, gx: int) -> torch.Tensor:
+    """The masked-sum advection of the rows [x0, x0 + lx) of a domain gx
+    wide: `vx` holds those rows with r edge-clamped rows on each side."""
+    lx, gy, gz = cond3.shape[1:]
     out = []
     for c in range(3):
-        u = -face_center_velocity(vel, c) * dt
+        u = -face_center_velocity(vx, c)[:, r:r + lx] * dt
         u = torch.clamp(u, -r, r - 1e-4)
         axes = []
-        for d in range(3):
-            n = shape[d]
-            i_d = torch.arange(n, dtype=vel.dtype, device=vel.device).reshape(
+        for d, (n, start) in enumerate(((gx, x0), (gy, 0), (gz, 0))):
+            i_d = torch.arange(start, start + cond3.shape[1 + d],
+                               dtype=vx.dtype, device=vx.device).reshape(
                 tuple(-1 if k == d else 1 for k in range(3)))
             t_d = torch.clamp(i_d + u[d], 0.0, n - 1.0)
             u_d = t_d - i_d
@@ -88,42 +106,111 @@ def advect_all_plain(vel: torch.Tensor, cond3: torch.Tensor, r: int,
                          + (o_d == delta - 1) * f_d
                          for delta in range(-r, r + 1)])
         wx, wy, wz = axes
-        padded = _edge_pad(vel[c], r)
-        gx, gy, gz = shape
-        acc = torch.zeros_like(vel[c])
+        padded = _edge_pad_yz(vx[c], r)
+        acc = torch.zeros_like(cond3[c], dtype=vx.dtype)
         for ax, dxo in enumerate(range(-r, r + 1)):
             for ay, dyo in enumerate(range(-r, r + 1)):
                 wxy = wx[ax] * wy[ay]
                 for az, dzo in enumerate(range(-r, r + 1)):
-                    sl = padded[r + dxo:r + dxo + gx,
+                    sl = padded[r + dxo:r + dxo + lx,
                                 r + dyo:r + dyo + gy,
                                 r + dzo:r + dzo + gz]
                     acc = acc + (wxy * wz[az]) * sl
-        out.append(torch.where(cond3[c] != 0, acc, vel[c]))
+        out.append(torch.where(cond3[c] != 0, acc, vx[c, r:r + lx]))
     return torch.stack(out)
 
 
-def advect_all_cuda(vel: torch.Tensor, cond3: torch.Tensor, r: int,
-                    dt: float) -> torch.Tensor:
-    """K1 wrapper: the CUDA kernel for CUDA tensors, `advect_all_plain`
-    for CPU tensors."""
+def advect_slab_plain(vel: torch.Tensor, cond3: torch.Tensor, r: int,
+                      dt: float, x0: int, global_gx: int) -> torch.Tensor:
+    """`advect_all_plain` on a block of global rows [x0, x0 + X) of a
+    domain global_gx rows wide: coordinates clamp into the domain, x taps
+    into the domain and then into the block."""
+    lx = vel.shape[1]
+    return _advect(_x_rows(vel, r, x0, lx, x0, global_gx), cond3, r, dt, x0,
+                   global_gx)
+
+
+def advect_all_plain(vel: torch.Tensor, cond3: torch.Tensor, r: int,
+                     dt: float) -> torch.Tensor:
+    """vel (3,X,Y,Z) f32, cond3 (3,X,Y,Z) u8 -> advected velocity: the
+    backtraced point of component c at cell i is t = i - v_face*dt in
+    texel space, the displacement clamped to [-R, R-1e-4] and the point to
+    the grid, sampled as a hat-weighted sum over all |delta| <= R."""
+    return advect_slab_plain(vel, cond3, r, dt, 0, vel.shape[1])
+
+
+def _halo_slab(vel: torch.Tensor, halo, r: int) -> torch.Tensor:
+    left, right = halo
+    for name, plane in (("halo[0]", left), ("halo[1]", right)):
+        require(plane, name, vel.dtype, (3, r) + tuple(vel.shape[2:]),
+                vel.device)
+    return torch.cat([left, vel, right], dim=1)
+
+
+def advect_all_halo_plain(vel: torch.Tensor, cond3: torch.Tensor, r: int,
+                          dt: float, halo, x0: int,
+                          global_shape) -> torch.Tensor:
+    """The halo form: vel and cond3 are the local (3, lx, Y, Z) slab of
+    global rows [x0, x0 + lx), `halo` the (left, right) (3, r, Y, Z)
+    neighbour planes (zeros past the domain), `global_shape` the domain."""
+    gx, lx = global_shape[0], vel.shape[1]
+    return _advect(_x_rows(_halo_slab(vel, halo, r), r, x0, lx, x0 - r, gx),
+                   cond3, r, dt, x0, gx)
+
+
+def _check(vel, cond3, r):
     require(vel, "vel", torch.float32)
     if vel.ndim != 4 or vel.shape[0] != 3:
         raise ValueError(f"vel: shape {tuple(vel.shape)}, expected (3,X,Y,Z)")
     require(cond3, "cond3", torch.uint8, vel.shape, vel.device)
     if r < 1:
         raise ValueError(f"advect_max_displacement {r} must be >= 1")
+
+
+def _launch(vel_x, cond3, r, dt, gx, x0, xb):
+    """K1 on the rows [x0, x0 + lx) of cond3, from `vel_x` holding global
+    rows [xb, xb + mx)."""
+    out = torch.empty(cond3.shape, dtype=vel_x.dtype, device=vel_x.device)
+    _, lx, gy, gz = cond3.shape
+    with torch.cuda.device(vel_x.device):
+        stream = torch.cuda.current_stream(vel_x.device).cuda_stream
+        build.call("tf_advect_all", _ARGTYPES, vel_x.data_ptr(),
+                   cond3.data_ptr(), out.data_ptr(), gx, gy, gz, x0, lx, xb,
+                   vel_x.shape[1], r, dt, float(-r), r - 1e-4, stream)
+    return out
+
+
+def advect_all_cuda(vel: torch.Tensor, cond3: torch.Tensor, r: int,
+                    dt: float) -> torch.Tensor:
+    """K1 wrapper: the CUDA kernel for CUDA tensors, `advect_all_plain`
+    for CPU tensors."""
+    _check(vel, cond3, r)
     if not on_cuda(vel):
         return advect_all_plain(vel, cond3, r, dt)
-    out = torch.empty_like(vel)
-    _, gx, gy, gz = vel.shape
-    with torch.cuda.device(vel.device):
-        stream = torch.cuda.current_stream(vel.device).cuda_stream
-        build.call("tf_advect_all", _ARGTYPES, vel.data_ptr(),
-                   cond3.data_ptr(), out.data_ptr(), gx, gy, gz, r, dt,
-                   float(-r), r - 1e-4, stream)
+    out = _launch(vel, cond3, r, dt, vel.shape[1], 0, 0)
     advect_all_cuda.launches += 1
     return out
 
 
 advect_all_cuda.launches = 0
+
+
+def advect_all_halo_cuda(vel: torch.Tensor, cond3: torch.Tensor, r: int,
+                         dt: float, halo, x0: int,
+                         global_shape) -> torch.Tensor:
+    """K1 halo-form wrapper (arguments as `advect_all_halo_plain`): the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    _check(vel, cond3, r)
+    if tuple(global_shape[1:]) != tuple(vel.shape[2:]):
+        raise ValueError(f"global_shape {tuple(global_shape)} does not fit "
+                         f"the slab {tuple(vel.shape)}")
+    if not on_cuda(vel):
+        return advect_all_halo_plain(vel, cond3, r, dt, halo, x0,
+                                     global_shape)
+    out = _launch(_halo_slab(vel, halo, r), cond3, r, dt, global_shape[0],
+                  x0, x0 - r)
+    advect_all_halo_cuda.launches += 1
+    return out
+
+
+advect_all_halo_cuda.launches = 0

@@ -3,8 +3,9 @@
 Every source in `tpu_fluid_torch/csrc/` compiles, by `nvcc` for `sm_90a`,
 into one shared library with a plain C interface, loaded with `ctypes`.  The
 build runs at first use into `build/tpu_fluid_torch/` beside the package,
-and again whenever a source is newer than the library.  Nothing here runs at
-import time: the CPU tests import every module on machines without `nvcc`.
+and again whenever a source is newer than the library: one `nvcc` per
+source, all started together, then one link.  Nothing here runs at import
+time: the CPU tests import every module on machines without `nvcc`.
 
 Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()` after its launches; `call` raises on a nonzero code.
@@ -30,7 +31,7 @@ LIBRARY = BUILD_DIR / "libtpu_fluid_kernels.so"
 # the two agree bitwise.  --use_fast_math stays off: it would replace the
 # IEEE divisions of the Jacobi decode and the signed field.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 POINTER = ctypes.c_void_p
 INT = ctypes.c_int
@@ -56,9 +57,28 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def nvcc_command(output: Path) -> list[str]:
-    return [nvcc(), *NVCC_FLAGS, "-o", str(output),
-            *(str(s) for s in sources())]
+def compile_command(source: Path, output: Path) -> list[str]:
+    return [nvcc(), *NVCC_FLAGS, "-c", str(source), "-o", str(output)]
+
+
+def link_command(objects: list[Path], output: Path) -> list[str]:
+    return [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+            "-o", str(output), *(str(o) for o in objects)]
+
+
+def _run_all(commands: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the output of the first
+    that fails."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in commands]
+    failed = None
+    for cmd, proc in zip(commands, procs):
+        out, _ = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}"
+    if failed:
+        raise RuntimeError(failed)
 
 
 def is_stale() -> bool:
@@ -69,24 +89,19 @@ def is_stale() -> bool:
 
 
 def build(force: bool = False) -> Path:
-    """Compile the library unless it is up to date.  The output goes to a
-    temporary file first and is renamed into place, so concurrent builds
-    never load a half-written library."""
+    """Compile the library unless it is up to date.  Objects and the
+    library go to a temporary directory first and the library is renamed
+    into place, so concurrent builds never load a half-written one."""
     if not force and not is_stale():
         return LIBRARY
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(nvcc_command(Path(tmp)), capture_output=True,
-                              text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, LIBRARY)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects = [Path(tmp) / f"{src.stem}.o" for src in sources()]
+        _run_all([compile_command(src, obj)
+                  for src, obj in zip(sources(), objects)])
+        library = Path(tmp) / LIBRARY.name
+        _run_all([link_command(objects, library)])
+        os.replace(library, LIBRARY)
     return LIBRARY
 
 

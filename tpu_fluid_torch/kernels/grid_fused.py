@@ -20,9 +20,16 @@ functions' selects: 0/1 float indicators, `(1-gone)*(born*extr +
 (1-born)*vel)`, `solid*min(v,-repel) + (1-solid)*v`, sums from zero in
 `MOVES` order.  The two forms differ at most in the sign of a zero.  Every
 Python-float constant meets the field as f32, as in the JAX kernels; an
-extra force's `dt * f` is formed in double and rounded once.  Only the
-single-device form is here: the halo and x-offset arguments go with the
-multi-device step.
+extra force's `dt * f` is formed in double and rounded once.
+
+The halo forms (`classify_extrap_halo_cuda`, `forces_solids_div_halo_cuda`,
+`project_halo_cuda`, each beside its plain version) replace the sharded
+calls of the three JAX kernels (`halos`, `x0`, `global_gx`;
+`tpu_fluid/parallel/spmd_step.py:232-290`): the local slab of global rows
+[x0, x0 + lx) with 2 neighbour planes a side for K6a and 1 for K6b and
+K6c, zeros past the domain.  Coordinates, the SOLID rule, the force cells
+and the out-of-domain zero are global, so each row equals the
+single-device row.
 """
 
 from __future__ import annotations
@@ -36,15 +43,21 @@ from tpu_fluid_torch.kernels import build, on_cuda, require
 from tpu_fluid_torch.ops.stencil import MOVES, axis_nonzero, shifted
 from tpu_fluid_torch.stages.celltypes import update_air, update_water
 
-_CLASSIFY_ARGTYPES = ((build.POINTER,) * 5 + (build.INT,) * 3
+_CLASSIFY_ARGTYPES = ((build.POINTER,) * 5 + (build.INT,) * 7
                       + (build.POINTER, build.INT, build.POINTER))
-_FORCES_ARGTYPES = ((build.POINTER,) * 4 + (build.INT,) * 3
+_FORCES_ARGTYPES = ((build.POINTER,) * 4 + (build.INT,) * 7
                     + (build.FLOAT,) * 2 + (build.INT,) * 3
                     + (build.FLOAT,) * 2
                     + (build.POINTER, build.POINTER, build.INT,
                        build.POINTER))
-_PROJECT_ARGTYPES = ((build.POINTER,) * 4 + (build.INT,) * 3
+_PROJECT_ARGTYPES = ((build.POINTER,) * 4 + (build.INT,) * 7
                      + (build.FLOAT, build.POINTER))
+
+# Halo planes a side: K6a's stage 05 reads new types of x +- 1, whose AIR
+# test reads occupancy at x +- 2.
+CLASSIFY_HALO = 2
+FORCES_HALO = 1
+PROJECT_HALO = 1
 
 
 def _f32(x: float) -> float:
@@ -70,12 +83,40 @@ def _sum6(a: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _cell_indicator(shape, cell, device) -> torch.Tensor:
-    """f32 1 at `cell` (if it lies in the grid), 0 elsewhere."""
+def _cell_indicator(shape, cell, device, xb: int = 0) -> torch.Tensor:
+    """f32 1 at `cell` (if it lies in the slab whose row 0 is global x
+    xb), 0 elsewhere."""
     ind = torch.zeros(shape, dtype=torch.float32, device=device)
-    if all(0 <= i < n for i, n in zip(cell, shape)):
-        ind[tuple(cell)] = 1.0
+    local = (cell[0] - xb,) + tuple(cell[1:])
+    if all(0 <= i < n for i, n in zip(local, shape)):
+        ind[local] = 1.0
     return ind
+
+
+def _in_domain(rows: int, xb: int, gx: int, device) -> torch.Tensor:
+    """(rows, 1, 1) mask of the slab rows inside the global domain."""
+    x = torch.arange(xb, xb + rows, device=device)
+    return ((x >= 0) & (x < gx)).reshape(-1, 1, 1)
+
+
+def _with_halos(arrays, halos, h):
+    """Each local slab (X, Y, Z) or (3, X, Y, Z) with its (left, right)
+    h-plane halos on the x axis."""
+    out = []
+    for a, (left, right) in zip(arrays, halos):
+        ax = a.ndim - 3
+        shape = list(a.shape)
+        shape[ax] = h
+        for plane in (left, right):
+            require(plane, "halo plane", a.dtype, shape, a.device)
+        out.append(torch.cat([left, a, right], dim=ax))
+    return out
+
+
+def _check_global(shape, global_gx, x0):
+    if not 0 <= x0 <= global_gx - shape[0]:
+        raise ValueError(f"slab of {shape[0]} rows at x0 = {x0} outside a "
+                         f"domain of {global_gx}")
 
 
 def _force_terms(cfg) -> list[tuple[tuple[int, int, int], int, float]]:
@@ -99,11 +140,13 @@ def _active(t: torch.Tensor) -> torch.Tensor:
     return ((t == CellType.WATER) | (t == CellType.AIR)).to(torch.float32)
 
 
-def classify_extrap_plain(occ_sim, old_types, vel, cfg):
-    """(occ_sim u8, old_types u8, vel f32 (3,X,Y,Z)) -> (types u8, vel').
-    The new types are integer codes, so the stage functions give them
-    exactly as the kernel body's indicator arithmetic does."""
-    newt = update_air(update_water(occ_sim), cfg)
+def _classify_extrap(occ_sim, old_types, vel, cfg, xb, gx):
+    """K6a's arithmetic on a slab whose row 0 lies at global x xb of a
+    domain gx rows wide; rows outside the domain are INACTIVE."""
+    newt = update_air(update_water(occ_sim), cfg, x0=xb, global_gx=gx)
+    if xb < 0 or xb + newt.shape[0] > gx:
+        newt = torch.where(_in_domain(newt.shape[0], xb, gx, newt.device),
+                           newt, torch.zeros_like(newt))
     old_w = (old_types == CellType.WATER).to(torch.float32)
     denom = torch.clamp(_sum6(old_w), min=1.0)
     vsum = _sum6(vel * old_w)
@@ -119,50 +162,111 @@ def classify_extrap_plain(occ_sim, old_types, vel, cfg):
     return newt, torch.stack(comps)
 
 
-def classify_extrap_cuda(occ_sim, old_types, vel, cfg):
-    """K6a wrapper: the CUDA kernel for CUDA tensors,
-    `classify_extrap_plain` for CPU tensors."""
+def classify_extrap_plain(occ_sim, old_types, vel, cfg):
+    """(occ_sim u8, old_types u8, vel f32 (3,X,Y,Z)) -> (types u8, vel').
+    The new types are integer codes, so the stage functions give them
+    exactly as the kernel body's indicator arithmetic does."""
+    return _classify_extrap(occ_sim, old_types, vel, cfg, 0,
+                            occ_sim.shape[0])
+
+
+def classify_extrap_halo_plain(occ_sim, old_types, vel, cfg, *, halos, x0,
+                               global_gx):
+    """The halo form: local slabs of global rows [x0, x0 + lx), `halos`
+    the ((left, right), ...) 2-plane halos of (occ_sim, old_types, vel)."""
+    h = CLASSIFY_HALO
+    _check_global(occ_sim.shape, global_gx, x0)
+    ext = _with_halos((occ_sim, old_types, vel), halos, h)
+    newt, v = _classify_extrap(*ext, cfg, x0 - h, global_gx)
+    return newt[h:-h], v[:, h:-h]
+
+
+def _check_vel(vel):
     require(vel, "vel", torch.float32)
     if vel.ndim != 4 or vel.shape[0] != 3:
         raise ValueError(f"vel: shape {tuple(vel.shape)}, expected (3,X,Y,Z)")
-    shape = tuple(vel.shape[1:])
-    require(occ_sim, "occ_sim", torch.uint8, shape, vel.device)
-    require(old_types, "old_types", torch.uint8, shape, vel.device)
-    if not on_cuda(vel):
-        return classify_extrap_plain(occ_sim, old_types, vel, cfg)
-    types = torch.empty_like(old_types)
-    out = torch.empty_like(vel)
+    return tuple(vel.shape[1:])
+
+
+def _boxes_ptr(cfg, device):
     boxes = tuple(tuple(lo) + tuple(hi) for lo, hi in cfg.solid_boxes)
-    table = (_device_table(boxes, torch.int32, vel.device).data_ptr()
+    table = (_device_table(boxes, torch.int32, device).data_ptr()
              if boxes else None)
+    return table, len(boxes)
+
+
+def _classify_launch(occ_sim, old_types, vel, cfg, geometry):
+    lx = geometry[4]
+    shape = (lx,) + tuple(vel.shape[2:])
+    types = torch.empty(shape, dtype=torch.uint8, device=vel.device)
+    out = torch.empty((3,) + shape, dtype=vel.dtype, device=vel.device)
+    table, nbox = _boxes_ptr(cfg, vel.device)
     with torch.cuda.device(vel.device):
         stream = torch.cuda.current_stream(vel.device).cuda_stream
         build.call("tf_classify_extrap", _CLASSIFY_ARGTYPES,
                    occ_sim.data_ptr(), old_types.data_ptr(), vel.data_ptr(),
-                   types.data_ptr(), out.data_ptr(), *shape, table,
-                   len(boxes), stream)
-    classify_extrap_cuda.launches += 1
+                   types.data_ptr(), out.data_ptr(), *geometry, table, nbox,
+                   stream)
     return types, out
+
+
+def classify_extrap_cuda(occ_sim, old_types, vel, cfg):
+    """K6a wrapper: the CUDA kernel for CUDA tensors,
+    `classify_extrap_plain` for CPU tensors."""
+    shape = _check_vel(vel)
+    require(occ_sim, "occ_sim", torch.uint8, shape, vel.device)
+    require(old_types, "old_types", torch.uint8, shape, vel.device)
+    if not on_cuda(vel):
+        return classify_extrap_plain(occ_sim, old_types, vel, cfg)
+    gx = shape[0]
+    out = _classify_launch(occ_sim, old_types, vel, cfg,
+                           (*shape, 0, gx, 0, gx))
+    classify_extrap_cuda.launches += 1
+    return out
 
 
 classify_extrap_cuda.launches = 0
 
 
+def classify_extrap_halo_cuda(occ_sim, old_types, vel, cfg, *, halos, x0,
+                              global_gx):
+    """K6a halo-form wrapper (arguments as `classify_extrap_halo_plain`):
+    the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    shape = _check_vel(vel)
+    require(occ_sim, "occ_sim", torch.uint8, shape, vel.device)
+    require(old_types, "old_types", torch.uint8, shape, vel.device)
+    if not on_cuda(vel):
+        return classify_extrap_halo_plain(occ_sim, old_types, vel, cfg,
+                                          halos=halos, x0=x0,
+                                          global_gx=global_gx)
+    _check_global(shape, global_gx, x0)
+    h = CLASSIFY_HALO
+    ext = _with_halos((occ_sim, old_types, vel), halos, h)
+    out = _classify_launch(*ext, cfg, (global_gx,) + shape[1:]
+                           + (x0, shape[0], x0 - h, shape[0] + 2 * h))
+    classify_extrap_halo_cuda.launches += 1
+    return out
+
+
+classify_extrap_halo_cuda.launches = 0
+
+
 # ------------------------------------------------------- stages 08, 10, 11
-def forces_solids_div_plain(types, vel, cfg):
-    """(types u8, vel f32 (3,X,Y,Z)) -> (vel', div): forces, solid repel,
-    then the divergence of the result (0 beyond the upper edges)."""
+def _forces_solids_div(types, vel, cfg, xb, gx):
+    """K6b's arithmetic on a slab whose row 0 lies at global x xb of a
+    domain gx rows wide; the velocity of rows outside the domain is 0
+    where the divergence reads it."""
     shape, dev = tuple(types.shape), types.device
     water = (types == CellType.WATER).to(torch.float32)
     wet_y = torch.clamp(water + _lower(water, 1), max=1.0)
     ynz = 1.0 - (~axis_nonzero(shape, 1, dev)).to(torch.float32)
     force = wet_y * ynz * _f32(cfg.gravity)
-    force = force + (_cell_indicator(shape, cfg.fountain, dev) * wet_y
+    force = force + (_cell_indicator(shape, cfg.fountain, dev, xb) * wet_y
                      * _f32(cfg.fountain_force))
     vs = [vel[0], vel[1] + _f32(cfg.dt) * force, vel[2]]
     for cell, c, dtf in _force_terms(cfg):
         wet_c = torch.clamp(water + _lower(water, c), max=1.0)
-        vs[c] = vs[c] + (_cell_indicator(shape, cell, dev) * wet_c
+        vs[c] = vs[c] + (_cell_indicator(shape, cell, dev, xb) * wet_c
                          * _f32(dtf))
     solid = (types == CellType.SOLID).to(torch.float32)
     repel = _f32(cfg.solid_repel_velocity)
@@ -170,23 +274,35 @@ def forces_solids_div_plain(types, vel, cfg):
         v = solid * torch.clamp(vs[c], max=-repel) + (1.0 - solid) * vs[c]
         ls = _lower(solid, c)
         vs[c] = ls * torch.clamp(v, min=repel) + (1.0 - ls) * v
+    if xb < 0 or xb + shape[0] > gx:
+        dom = _in_domain(shape[0], xb, gx, dev)
+        vs = [torch.where(dom, v, 0.0) for v in vs]
     div = torch.zeros(shape, dtype=vel.dtype, device=dev)
     for c in range(3):
         div = div + _upper(vs[c], c) - vs[c]
     return torch.stack(vs), div
 
 
-def forces_solids_div_cuda(types, vel, cfg):
-    """K6b wrapper: the CUDA kernel for CUDA tensors,
-    `forces_solids_div_plain` for CPU tensors."""
-    require(vel, "vel", torch.float32)
-    if vel.ndim != 4 or vel.shape[0] != 3:
-        raise ValueError(f"vel: shape {tuple(vel.shape)}, expected (3,X,Y,Z)")
-    shape = tuple(vel.shape[1:])
-    require(types, "types", torch.uint8, shape, vel.device)
-    if not on_cuda(vel):
-        return forces_solids_div_plain(types, vel, cfg)
-    out = torch.empty_like(vel)
+def forces_solids_div_plain(types, vel, cfg):
+    """(types u8, vel f32 (3,X,Y,Z)) -> (vel', div): forces, solid repel,
+    then the divergence of the result (0 beyond the upper edges)."""
+    return _forces_solids_div(types, vel, cfg, 0, types.shape[0])
+
+
+def forces_solids_div_halo_plain(types, vel, cfg, *, halos, x0, global_gx):
+    """The halo form: local slabs of global rows [x0, x0 + lx), `halos`
+    the ((left, right), ...) 1-plane halos of (types, vel)."""
+    h = FORCES_HALO
+    _check_global(types.shape, global_gx, x0)
+    ext = _with_halos((types, vel), halos, h)
+    v, div = _forces_solids_div(*ext, cfg, x0 - h, global_gx)
+    return v[:, h:-h], div[h:-h]
+
+
+def _forces_launch(types, vel, cfg, geometry):
+    lx = geometry[4]
+    shape = (lx,) + tuple(vel.shape[2:])
+    out = torch.empty((3,) + shape, dtype=vel.dtype, device=vel.device)
     div = torch.empty(shape, dtype=vel.dtype, device=vel.device)
     terms = _force_terms(cfg)
     cells = tuple(cell + (c,) for cell, c, _ in terms)
@@ -199,15 +315,47 @@ def forces_solids_div_cuda(types, vel, cfg):
         stream = torch.cuda.current_stream(vel.device).cuda_stream
         build.call("tf_forces_solids_div", _FORCES_ARGTYPES,
                    types.data_ptr(), vel.data_ptr(), out.data_ptr(),
-                   div.data_ptr(), *shape, cfg.dt, cfg.gravity,
+                   div.data_ptr(), *geometry, cfg.dt, cfg.gravity,
                    *cfg.fountain, cfg.fountain_force,
                    cfg.solid_repel_velocity, cells_ptr, kterm_ptr,
                    len(terms), stream)
-    forces_solids_div_cuda.launches += 1
     return out, div
 
 
+def forces_solids_div_cuda(types, vel, cfg):
+    """K6b wrapper: the CUDA kernel for CUDA tensors,
+    `forces_solids_div_plain` for CPU tensors."""
+    shape = _check_vel(vel)
+    require(types, "types", torch.uint8, shape, vel.device)
+    if not on_cuda(vel):
+        return forces_solids_div_plain(types, vel, cfg)
+    gx = shape[0]
+    out = _forces_launch(types, vel, cfg, (*shape, 0, gx, 0, gx))
+    forces_solids_div_cuda.launches += 1
+    return out
+
+
 forces_solids_div_cuda.launches = 0
+
+
+def forces_solids_div_halo_cuda(types, vel, cfg, *, halos, x0, global_gx):
+    """K6b halo-form wrapper (arguments as `forces_solids_div_halo_plain`):
+    the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    shape = _check_vel(vel)
+    require(types, "types", torch.uint8, shape, vel.device)
+    if not on_cuda(vel):
+        return forces_solids_div_halo_plain(types, vel, cfg, halos=halos,
+                                            x0=x0, global_gx=global_gx)
+    _check_global(shape, global_gx, x0)
+    h = FORCES_HALO
+    ext = _with_halos((types, vel), halos, h)
+    out = _forces_launch(*ext, cfg, (global_gx,) + shape[1:]
+                         + (x0, shape[0], x0 - h, shape[0] + 2 * h))
+    forces_solids_div_halo_cuda.launches += 1
+    return out
+
+
+forces_solids_div_halo_cuda.launches = 0
 
 
 # --------------------------------------------------------------- stage 13
@@ -216,41 +364,84 @@ def _project_scale(cfg) -> float:
     return cfg.dt / (cfg.fluid_density * cfg.cell_width)
 
 
-def project_plain(types, p, vel, cfg):
-    """(types u8, p f32, vel f32 (3,X,Y,Z)) -> vel - scale * (cond *
-    (p - p(i - e_c)))."""
+def _project(types, p, vel, cfg, xb):
+    """K6c's arithmetic on a slab whose row 0 lies at global x xb."""
     water = types == CellType.WATER
     solid = types == CellType.SOLID
     scale = _f32(_project_scale(cfg))
     comps = []
     for c in range(3):
-        cond = (axis_nonzero(types.shape, c, types.device)
-                & (water | _lower(water, c, False)) & ~solid
+        nonzero = axis_nonzero(types.shape, c, types.device)
+        if c == 0:
+            nonzero = (torch.arange(types.shape[0], device=types.device)
+                       + xb != 0).reshape(-1, 1, 1)
+        cond = (nonzero & (water | _lower(water, c, False)) & ~solid
                 & ~_lower(solid, c, False)).to(torch.float32)
         grad = p - _lower(p, c)
         comps.append(vel[c] - scale * (cond * grad))
     return torch.stack(comps)
 
 
+def project_plain(types, p, vel, cfg):
+    """(types u8, p f32, vel f32 (3,X,Y,Z)) -> vel - scale * (cond *
+    (p - p(i - e_c)))."""
+    return _project(types, p, vel, cfg, 0)
+
+
+def project_halo_plain(types, p, vel, cfg, *, halos, x0, global_gx):
+    """The halo form: local slabs of global rows [x0, x0 + lx), `halos`
+    the ((left, right), ...) 1-plane halos of (types, p, vel)."""
+    h = PROJECT_HALO
+    _check_global(types.shape, global_gx, x0)
+    ext = _with_halos((types, p, vel), halos, h)
+    return _project(*ext, cfg, x0 - h)[:, h:-h]
+
+
+def _project_launch(types, p, vel, cfg, geometry):
+    lx = geometry[4]
+    out = torch.empty((3, lx) + tuple(vel.shape[2:]), dtype=vel.dtype,
+                      device=vel.device)
+    with torch.cuda.device(vel.device):
+        stream = torch.cuda.current_stream(vel.device).cuda_stream
+        build.call("tf_project", _PROJECT_ARGTYPES, types.data_ptr(),
+                   p.data_ptr(), vel.data_ptr(), out.data_ptr(), *geometry,
+                   _project_scale(cfg), stream)
+    return out
+
+
 def project_cuda(types, p, vel, cfg):
     """K6c wrapper: the CUDA kernel for CUDA tensors, `project_plain` for
     CPU tensors."""
-    require(vel, "vel", torch.float32)
-    if vel.ndim != 4 or vel.shape[0] != 3:
-        raise ValueError(f"vel: shape {tuple(vel.shape)}, expected (3,X,Y,Z)")
-    shape = tuple(vel.shape[1:])
+    shape = _check_vel(vel)
     require(types, "types", torch.uint8, shape, vel.device)
     require(p, "p", torch.float32, shape, vel.device)
     if not on_cuda(vel):
         return project_plain(types, p, vel, cfg)
-    out = torch.empty_like(vel)
-    with torch.cuda.device(vel.device):
-        stream = torch.cuda.current_stream(vel.device).cuda_stream
-        build.call("tf_project", _PROJECT_ARGTYPES, types.data_ptr(),
-                   p.data_ptr(), vel.data_ptr(), out.data_ptr(), *shape,
-                   _project_scale(cfg), stream)
+    gx = shape[0]
+    out = _project_launch(types, p, vel, cfg, (*shape, 0, gx, 0, gx))
     project_cuda.launches += 1
     return out
 
 
 project_cuda.launches = 0
+
+
+def project_halo_cuda(types, p, vel, cfg, *, halos, x0, global_gx):
+    """K6c halo-form wrapper (arguments as `project_halo_plain`): the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    shape = _check_vel(vel)
+    require(types, "types", torch.uint8, shape, vel.device)
+    require(p, "p", torch.float32, shape, vel.device)
+    if not on_cuda(vel):
+        return project_halo_plain(types, p, vel, cfg, halos=halos, x0=x0,
+                                  global_gx=global_gx)
+    _check_global(shape, global_gx, x0)
+    h = PROJECT_HALO
+    ext = _with_halos((types, p, vel), halos, h)
+    out = _project_launch(*ext, cfg, (global_gx,) + shape[1:]
+                          + (x0, shape[0], x0 - h, shape[0] + 2 * h))
+    project_halo_cuda.launches += 1
+    return out
+
+
+project_halo_cuda.launches = 0

@@ -21,6 +21,15 @@ form against `surface_fused_plain`.
 `surface_fused_plain` is the same function in plain PyTorch, with the
 kernel's integer formulation and neighbour order (the XLA stages in
 `stages/surface_fields.py` add the neighbours in `MOVES` order).
+
+The halo form, `surface_fused_halo_cuda` beside `surface_fused_halo_plain`,
+replaces the sharded calls of `surface_fused_pallas` (`halos`, `x0`,
+`global_gx`; its halo branch `surface_fused.py:425-435`) and the y-chunk
+route of `surface_fused_auto` (`:477-503`) in the x-slab multi-device step.
+It runs on the local detailed slab extended by h = steps + 1 neighbour
+planes a side; each stage loses one exact ring and values outside the
+global domain stay 0, so the interior rows equal the single-device rows.
+The card needs no y-chunks: K5 has no plane limit.
 """
 
 from __future__ import annotations
@@ -30,7 +39,7 @@ import torch
 from tpu_fluid_torch.kernels import build, on_cuda, require
 from tpu_fluid_torch.ops.stencil import AXIS_MOVES, div_scalar, neighbor_sum
 
-_ARGTYPES = ((build.POINTER,) * 7 + (build.INT,) * 5
+_ARGTYPES = ((build.POINTER,) * 7 + (build.INT,) * 8
              + (build.FLOAT, build.FLOAT) + (build.INT,) * 5
              + (build.FLOAT, build.POINTER))
 
@@ -41,9 +50,11 @@ def _blur_constants(k: float) -> tuple[float, float]:
     return 1.0 - 6.0 * k, k
 
 
-def surface_fused_plain(occ, inertia, f2, skip, *, steps, k, inc_filled,
-                        inc_neigh, required_hits, dec, max_inertia,
-                        div_coef):
+def _surface(occ, inertia, f2, skip, in_dom, *, steps, k, inc_filled,
+             inc_neigh, required_hits, dec, max_inertia, div_coef):
+    """Stages 16-18 on a slab; `in_dom` (rows, 1, 1), if given, marks the
+    rows inside the global domain, and the signed field and every blur
+    pass are 0 outside it."""
     filled = torch.clamp(occ.to(torch.int32), max=1)
     hits = neighbor_sum(filled, moves=AXIS_MOVES)
     ge = torch.clamp(hits - (required_hits - 1), 0, 1)
@@ -56,6 +67,8 @@ def surface_fused_plain(occ, inertia, f2, skip, *, steps, k, inc_filled,
                       max=max_inertia)
     nzi = torch.clamp(new, 0, 1).to(torch.float32)
     a = nzi * div_scalar(new.to(torch.float32), div_coef) + (nzi - 1.0)
+    if in_dom is not None:
+        a = torch.where(in_dom, a, 0.0)
     b = f2
     c0, c1 = _blur_constants(k)
     keep = skip != 0
@@ -63,11 +76,78 @@ def surface_fused_plain(occ, inertia, f2, skip, *, steps, k, inc_filled,
         src, dst = (a, b) if it % 2 == 0 else (b, a)
         blurred = c0 * src + c1 * neighbor_sum(src, moves=AXIS_MOVES)
         res = torch.where(keep, dst, blurred)
+        if in_dom is not None:
+            res = torch.where(in_dom, res, 0.0)
         if it % 2 == 0:
             b = res
         else:
             a = res
     return new.to(inertia.dtype), a, b
+
+
+def surface_fused_plain(occ, inertia, f2, skip, *, steps, k, inc_filled,
+                        inc_neigh, required_hits, dec, max_inertia,
+                        div_coef):
+    return _surface(occ, inertia, f2, skip, None, steps=steps, k=k,
+                    inc_filled=inc_filled, inc_neigh=inc_neigh,
+                    required_hits=required_hits, dec=dec,
+                    max_inertia=max_inertia, div_coef=div_coef)
+
+
+def _extend(fields, halos, h):
+    """Each (X, Y, Z) field with its (left, right) h-plane halos."""
+    out = []
+    for name, a, (left, right) in zip(("occ", "inertia", "f2", "skip"),
+                                      fields, halos):
+        for side, plane in (("left", left), ("right", right)):
+            require(plane, f"{name} {side} halo", a.dtype,
+                    (h,) + tuple(a.shape[1:]), a.device)
+        out.append(torch.cat([left, a, right]))
+    return out
+
+
+def surface_fused_halo_plain(occ, inertia, f2, skip, *, halos, x0,
+                             global_gx, steps, **kw):
+    """The halo form: the arrays are the local detailed slab of global rows
+    [x0, x0 + lx), `halos` the ((left, right), ...) h = steps + 1 neighbour
+    planes of (occ, inertia, f2, skip), zeros past the domain, and
+    `global_gx` the detailed domain's x extent."""
+    h = steps + 1
+    ext = _extend((occ, inertia, f2, skip), halos, h)
+    rows = torch.arange(x0 - h, x0 + occ.shape[0] + h, device=occ.device)
+    in_dom = ((rows >= 0) & (rows < global_gx)).reshape(-1, 1, 1)
+    out = _surface(*ext, in_dom, steps=steps, **kw)
+    return tuple(a[h:h + occ.shape[0]] for a in out)
+
+
+def _check(occ, inertia, f2, skip):
+    require(occ, "occ", torch.uint8)
+    if occ.ndim != 3:
+        raise ValueError(f"occ: shape {tuple(occ.shape)}, expected (X,Y,Z)")
+    require(inertia, "inertia", (torch.uint8, torch.int32), occ.shape,
+            occ.device)
+    require(f2, "f2", torch.float32, occ.shape, occ.device)
+    require(skip, "skip", torch.uint8, occ.shape, occ.device)
+
+
+def _launch(occ, inertia, f2, skip, xb, gx, h, *, steps, k, inc_filled,
+            inc_neigh, required_hits, dec, max_inertia, div_coef):
+    """K5 on slabs of nx rows (h halo planes a side, row 0 at global x xb);
+    returns the interior rows of the outputs."""
+    inertia_out = torch.empty_like(inertia)
+    f1_out = torch.empty_like(f2)
+    f2_out = torch.empty_like(f2)
+    nx, gy, gz = occ.shape
+    c0, c1 = _blur_constants(k)
+    with torch.cuda.device(occ.device):
+        stream = torch.cuda.current_stream(occ.device).cuda_stream
+        build.call("tf_surface_fused", _ARGTYPES, occ.data_ptr(),
+                   inertia.data_ptr(), inertia_out.data_ptr(),
+                   f2.data_ptr(), skip.data_ptr(), f1_out.data_ptr(),
+                   f2_out.data_ptr(), inertia.element_size(), nx, gy, gz,
+                   xb, gx, h, steps, c0, c1, inc_filled, inc_neigh,
+                   required_hits, dec, max_inertia, div_coef, stream)
+    return tuple(a[h:nx - h] for a in (inertia_out, f1_out, f2_out))
 
 
 def surface_fused_cuda(occ, inertia, f2, skip, *, steps, k, inc_filled,
@@ -76,33 +156,35 @@ def surface_fused_cuda(occ, inertia, f2, skip, *, steps, k, inc_filled,
     """K5 wrapper: occ u8, inertia u8 or int32, f2 f32 (the stale buffer)
     and skip u8, all (D,D,D) -> (inertia', f1', f2'); the CUDA kernels for
     CUDA tensors, `surface_fused_plain` for CPU tensors."""
-    require(occ, "occ", torch.uint8)
-    if occ.ndim != 3:
-        raise ValueError(f"occ: shape {tuple(occ.shape)}, expected (X,Y,Z)")
-    require(inertia, "inertia", (torch.uint8, torch.int32), occ.shape,
-            occ.device)
-    require(f2, "f2", torch.float32, occ.shape, occ.device)
-    require(skip, "skip", torch.uint8, occ.shape, occ.device)
+    _check(occ, inertia, f2, skip)
     kw = dict(steps=steps, k=k, inc_filled=inc_filled, inc_neigh=inc_neigh,
               required_hits=required_hits, dec=dec, max_inertia=max_inertia,
               div_coef=div_coef)
     if not on_cuda(occ):
         return surface_fused_plain(occ, inertia, f2, skip, **kw)
-    inertia_out = torch.empty_like(inertia)
-    f1_out = torch.empty_like(f2)
-    f2_out = torch.empty_like(f2)
-    gx, gy, gz = occ.shape
-    c0, c1 = _blur_constants(k)
-    with torch.cuda.device(occ.device):
-        stream = torch.cuda.current_stream(occ.device).cuda_stream
-        build.call("tf_surface_fused", _ARGTYPES, occ.data_ptr(),
-                   inertia.data_ptr(), inertia_out.data_ptr(),
-                   f2.data_ptr(), skip.data_ptr(), f1_out.data_ptr(),
-                   f2_out.data_ptr(), inertia.element_size(), gx, gy, gz,
-                   steps, c0, c1, inc_filled, inc_neigh, required_hits, dec,
-                   max_inertia, div_coef, stream)
+    out = _launch(occ, inertia, f2, skip, 0, occ.shape[0], 0, **kw)
     surface_fused_cuda.launches += 1
-    return inertia_out, f1_out, f2_out
+    return out
 
 
 surface_fused_cuda.launches = 0
+
+
+def surface_fused_halo_cuda(occ, inertia, f2, skip, *, halos, x0, global_gx,
+                            steps, **kw):
+    """K5 halo-form wrapper (arguments as `surface_fused_halo_plain`): the
+    CUDA kernels for CUDA tensors, the plain version for CPU tensors.  The
+    results are views of the interior rows of extended buffers."""
+    _check(occ, inertia, f2, skip)
+    if not on_cuda(occ):
+        return surface_fused_halo_plain(occ, inertia, f2, skip, halos=halos,
+                                        x0=x0, global_gx=global_gx,
+                                        steps=steps, **kw)
+    h = steps + 1
+    ext = _extend((occ, inertia, f2, skip), halos, h)
+    out = _launch(*ext, x0 - h, global_gx, h, steps=steps, **kw)
+    surface_fused_halo_cuda.launches += 1
+    return out
+
+
+surface_fused_halo_cuda.launches = 0

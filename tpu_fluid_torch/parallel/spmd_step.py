@@ -1,0 +1,336 @@
+"""The x-slab multi-device step (`tpu_fluid.parallel.spmd_step`): the
+19-stage step on this shard's local slabs, with explicit halo exchange
+between neighbouring shards, one process per shard on `torch.distributed`.
+
+Each stage runs on the local slabs with the halo planes it reads, and uses
+global coordinates wherever the single-device step uses positions (the
+border and box SOLID rule, the fountain and force cells, the advection
+clamps, the i_x != 0 tests).  Where `kernel_choice` picks the kernels, the
+kernel stages run their halo forms: K1 (advection), K2's sharded passes
+(Jacobi), K6a-c (the fused grid groups, where `fuse_grid_choice` holds and
+the slab has 2 rows or more) and K5 (the surface fields, where the
+detailed slab is at least steps + 1 rows wide).  Particles are split by
+index: each shard gathers the whole velocity field, moves its particles
+through K3+K4, scatters their occupancy over the whole detailed grid, and
+the shards' occupancies are summed with a psum_scatter onto the x-slabs.
+
+Every stage adds in the single-device order, so the gathered state equals
+the single-device step's bitwise (tests/test_torch_spmd.py).
+
+Communication per step (n shards, grid (X, Y, Z), detailed (DX, DY, DZ)):
+one plane pair per radius-1 stage, k planes per Jacobi pass
+(ceil(iters / k) passes), steps + 1 detailed planes for K5, an all_gather
+of the velocity (3 X Y Z f32) and a psum_scatter of the detailed occupancy
+(DX DY DZ u8).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpu_fluid_torch.core.config import FluidConfig
+from tpu_fluid_torch.core.state import FluidState
+from tpu_fluid_torch.core.types import CellType
+from tpu_fluid_torch.kernels import fuse_grid_choice, grid_fused
+from tpu_fluid_torch.kernels import kernel_choice
+from tpu_fluid_torch.kernels import surface_fused as k5
+from tpu_fluid_torch.kernels.advect import (advect_all_halo_cuda,
+                                            advect_all_halo_plain)
+from tpu_fluid_torch.ops.stencil import AXIS_MOVES, MOVES, neighbor_sum
+from tpu_fluid_torch.ops.stencil import shifted
+from tpu_fluid_torch.parallel.halo import (all_gather_x, halo_extend,
+                                           halo_inner, halo_planes,
+                                           psum_scatter_x)
+from tpu_fluid_torch.parallel.mesh import Mesh
+from tpu_fluid_torch.stages import celltypes, particles, pressure
+from tpu_fluid_torch.stages import surface_fields
+from tpu_fluid_torch.stages import velocity as vstages
+
+
+# --------------------------------------------------------------- cell types
+def _update_air_spmd(types: torch.Tensor, cfg: FluidConfig, x0: int,
+                     mesh: Mesh) -> torch.Tensor:
+    """Stage 03 on a local slab: the water-neighbour test reads one halo
+    plane; the SOLID rule (JAX's `_solid_mask_spmd`) is global."""
+    water = types == CellType.WATER
+    we = halo_extend(water, 1, mesh)
+    around = torch.zeros_like(we)
+    for mv in MOVES:
+        around = around | shifted(we, mv, fill=False)
+    air = (~water) & halo_inner(around)
+    out = torch.where(air, torch.full_like(types, CellType.AIR), types)
+    solid = celltypes.solid_mask(types.shape, cfg, types.device, x0,
+                                 cfg.grid_size[0])
+    return torch.where(solid, torch.full_like(types, CellType.SOLID), out)
+
+
+# ------------------------------------------------------------------- forces
+def _forces_spmd(types: torch.Tensor, vel: torch.Tensor, cfg: FluidConfig,
+                 x0: int, mesh: Mesh) -> torch.Tensor:
+    """Stage 08 on a local slab (`stages/velocity.apply_forces`): the
+    fountain and force cells are global cells."""
+    lx, gy, gz = types.shape
+    water = types == CellType.WATER
+    wet_face = water | shifted(water, (0, -1, 0), fill=False)
+    ynz = (torch.arange(gy, device=types.device) != 0).reshape(1, -1, 1)
+    force = torch.where(wet_face & ynz, cfg.gravity, 0.0).to(vel.dtype)
+
+    def cell_mask(cell):
+        at = torch.zeros(types.shape, dtype=torch.bool, device=vel.device)
+        if x0 <= cell[0] < x0 + lx:
+            at[(cell[0] - x0,) + tuple(cell[1:])] = True
+        return at
+
+    force = force + torch.where(cell_mask(cfg.fountain) & wet_face,
+                                cfg.fountain_force, 0.0).to(vel.dtype)
+    out = vel.clone()
+    out[1] = vel[1] + cfg.dt * force
+    if cfg.extra_forces:
+        water_e = halo_extend(water, 1, mesh)
+        for cell, fvec in cfg.extra_forces:
+            at = cell_mask(cell)
+            for c in range(3):
+                if fvec[c] == 0.0:
+                    continue
+                mv = tuple(-1 if k == c else 0 for k in range(3))
+                wet_c = water | halo_inner(shifted(water_e, mv, fill=False))
+                out[c] = out[c] + torch.where(at & wet_c, cfg.dt * fvec[c],
+                                              0.0).to(vel.dtype)
+    return out
+
+
+# ------------------------------------------------------------------ advect
+def _advect_spmd(types: torch.Tensor, vel: torch.Tensor, cfg: FluidConfig,
+                 x0: int, mesh: Mesh, use_kernels: bool) -> torch.Tensor:
+    """Stage 07 on a local slab.  "auto" and "pallas" take K1's halo form
+    (one launch for all three components, JAX's advect_all_pallas and
+    advect_one_pallas routes); "shift" runs `advect_shift` on an
+    (R + 1)-extended block.  "gather" has no sharded form and takes the
+    shift path, as in JAX."""
+    r = cfg.advect_max_displacement
+    gx = cfg.grid_size[0]
+    if cfg.advect_method in ("auto", "pallas"):
+        types_e = halo_extend(types, 1, mesh)
+        cond3 = halo_inner(vstages._advect_conditions(types_e, x0 - 1))
+        halo = halo_planes(vel, r, mesh)
+        advect = advect_all_halo_cuda if use_kernels else advect_all_halo_plain
+        return advect(vel, cond3.contiguous(), r, cfg.dt, halo, x0,
+                      (gx,) + tuple(types.shape[1:]))
+    if cfg.advect_method not in ("shift", "gather"):
+        raise ValueError(f"unknown advect_method {cfg.advect_method!r}")
+    h = r + 1
+    out = vstages.advect_shift(halo_extend(types, h, mesh),
+                               halo_extend(vel, h, mesh), cfg, x0=x0 - h,
+                               gx_total=gx)
+    return halo_inner(out, h)
+
+
+# -------------------------------------------------------------- surface
+def _surface_kw(cfg: FluidConfig) -> dict:
+    return dict(steps=cfg.float_density_diffuse_steps,
+                k=cfg.float_density_diffuse_coefficient,
+                inc_filled=cfg.inertia_increase_filled,
+                inc_neigh=cfg.inertia_increase_neighbour,
+                required_hits=cfg.inertia_required_neighbour_hits,
+                dec=cfg.inertia_decrease, max_inertia=cfg.max_inertia,
+                div_coef=cfg.float_density_division_coefficient)
+
+
+def _surface_per_pass(occ, inertia, f2, skip, cfg, mesh):
+    """Stages 16-18 for a detailed slab narrower than K5's halo: one plane
+    exchanged a stage, in K5's arithmetic (`kernels/surface_fused.py`)."""
+    kw = _surface_kw(cfg)
+    steps = kw.pop("steps")
+    new, a, _ = k5.surface_fused_plain(halo_extend(occ, 1, mesh),
+                                       halo_extend(inertia, 1, mesh),
+                                       halo_extend(f2, 1, mesh),
+                                       halo_extend(skip, 1, mesh),
+                                       steps=0, **kw)
+    new, a = halo_inner(new), halo_inner(a)
+    b = f2
+    c0, c1 = k5._blur_constants(kw["k"])
+    keep = skip != 0
+    for it in range(steps):
+        src, dst = (a, b) if it % 2 == 0 else (b, a)
+        nsum = halo_inner(neighbor_sum(halo_extend(src, 1, mesh),
+                                       moves=AXIS_MOVES))
+        res = torch.where(keep, dst, c0 * src + c1 * nsum)
+        if it % 2 == 0:
+            b = res
+        else:
+            a = res
+    return new, a, b
+
+
+# -------------------------------------------------------------- local step
+def _local_step(state: FluidState, cfg: FluidConfig,
+                mesh: Mesh) -> FluidState:
+    """One frame on this shard's slabs, in the single-device stage order
+    (`solver/step.simulation_step`)."""
+    device = state.velocity.device
+    use_kernels = kernel_choice(cfg, device)
+    gx = cfg.grid_size[0]
+    lx = gx // mesh.size
+    x0 = mesh.rank * lx
+    fuse_grid = fuse_grid_choice(cfg, device) and lx >= 2
+    if use_kernels:
+        classify_extrap = grid_fused.classify_extrap_halo_cuda
+        forces_solids_div = grid_fused.forces_solids_div_halo_cuda
+        project = grid_fused.project_halo_cuda
+    else:
+        classify_extrap = grid_fused.classify_extrap_halo_plain
+        forces_solids_div = grid_fused.forces_solids_div_halo_plain
+        project = grid_fused.project_halo_plain
+
+    old_types = state.cell_types
+    vel = state.velocity
+
+    # 01
+    occ_sim = particles.occupancy_to_sim_grid(state.detailed_occ, cfg)
+
+    if fuse_grid:
+        # 02-06 (K6a) with 2-plane halos
+        halos = tuple(halo_planes(a, grid_fused.CLASSIFY_HALO, mesh)
+                      for a in (occ_sim, old_types, vel))
+        types, vel = classify_extrap(occ_sim, old_types, vel, cfg,
+                                     halos=halos, x0=x0, global_gx=gx)
+    else:
+        new_types = celltypes.update_water(occ_sim)
+        new_types = _update_air_spmd(new_types, cfg, x0, mesh)
+        # 04-05 on 1-plane halo blocks, interior kept
+        ot_e = halo_extend(old_types, 1, mesh)
+        nt_e = halo_extend(new_types, 1, mesh)
+        vel_e = halo_extend(vel, 1, mesh)
+        extr_e = vstages.compute_extrapolated_velocities(ot_e, vel_e)
+        vel = halo_inner(vstages.set_extrapolated_velocities(
+            ot_e, nt_e, vel_e, extr_e))
+        types = celltypes.commit_cell_types(new_types)
+
+    # 07
+    vel = _advect_spmd(types, vel, cfg, x0, mesh, use_kernels)
+
+    if fuse_grid:
+        # 08-11 (K6b) with 1-plane halos
+        halos = (halo_planes(types, 1, mesh), halo_planes(vel, 1, mesh))
+        vel, div = forces_solids_div(types, vel, cfg, halos=halos, x0=x0,
+                                     global_gx=gx)
+    else:
+        vel = _forces_spmd(types, vel, cfg, x0, mesh)
+        if not cfg.reference_diffuse_noop:
+            vel = halo_inner(vstages.diffuse(halo_extend(types, 1, mesh),
+                                             halo_extend(vel, 1, mesh), cfg))
+        vel = halo_inner(vstages.apply_solids(halo_extend(types, 1, mesh),
+                                              halo_extend(vel, 1, mesh), cfg))
+        # 11: the out-of-domain halo rows read 0, as the single-device
+        # zero fill does; the i_c != 0 row they spoil is a halo row
+        div = halo_inner(pressure.compute_divergence(
+            halo_extend(vel, 1, mesh)))
+
+    # 12-13
+    p = pressure.jacobi_solve(types, div, cfg, mesh=mesh)
+    if fuse_grid:
+        halos = (halo_planes(types, 1, mesh), halo_planes(p, 1, mesh),
+                 halo_planes(vel, 1, mesh))
+        vel = project(types, p, vel, cfg, halos=halos, x0=x0, global_gx=gx)
+    else:
+        vel = halo_inner(pressure.pressure_project(
+            halo_extend(types, 1, mesh), halo_extend(p, 1, mesh),
+            halo_extend(vel, 1, mesh), cfg))
+
+    # 14-15, particles split by index: every shard gathers the velocity
+    # field, moves its particles, scatters their occupancy over the whole
+    # detailed grid; the sum over shards lands on the x-slabs
+    vel_full = all_gather_x(vel, mesh, axis=1)
+    pos = particles.move_particles(vel_full, state.positions, state.active,
+                                   cfg)
+    occ_full = particles.detailed_occupancy(pos, state.active, cfg)
+    occ = (psum_scatter_x(occ_full, mesh) > 0).to(torch.uint8)
+
+    # 16-18
+    if cfg.surface_enabled:
+        steps = cfg.float_density_diffuse_steps
+        h = steps + 1
+        skip = surface_fields.solid_parent_mask(types, cfg).to(torch.uint8)
+        if occ.shape[0] >= h:
+            # K5's halo form: one (steps + 1)-plane exchange of each input
+            fused = (k5.surface_fused_halo_cuda if use_kernels
+                     else k5.surface_fused_halo_plain)
+            r = cfg.surface_render_resolution
+            halos = tuple(halo_planes(a, h, mesh) for a in (
+                occ, state.inertia, state.float_dens_2, skip))
+            kw = _surface_kw(cfg)
+            inertia, f1, f2 = fused(occ, state.inertia, state.float_dens_2,
+                                    skip, halos=halos, x0=x0 * r,
+                                    global_gx=gx * r, **kw)
+        else:
+            inertia, f1, f2 = _surface_per_pass(
+                occ, state.inertia, state.float_dens_2, skip, cfg, mesh)
+    else:
+        inertia, f1, f2 = (state.inertia, state.float_dens_1,
+                           state.float_dens_2)
+
+    return FluidState(
+        velocity=vel,
+        cell_types=types,
+        inertia=inertia,
+        float_dens_1=f1,
+        float_dens_2=f2,
+        positions=pos,
+        active=state.active,
+        detailed_occ=occ,
+        step=state.step + 1,
+        dropped=state.dropped,
+    )
+
+
+# ------------------------------------------------------------ entry points
+def validate_spmd_config(cfg: FluidConfig, n_shards: int) -> None:
+    """Raise ValueError where the layout cannot hold the config, and
+    NotImplementedError for the options the port's step does not run yet."""
+    gx = cfg.grid_size[0]
+    if gx % n_shards:
+        raise ValueError(f"grid x size {gx} must divide the mesh "
+                         f"({n_shards} shards)")
+    if cfg.particle_sharding == "domain":
+        raise NotImplementedError("particle_sharding='domain' is not ported")
+    if cfg.particle_sharding != "index":
+        raise ValueError(f"unknown particle_sharding "
+                         f"{cfg.particle_sharding!r}")
+    if cfg.particle_count % n_shards:
+        raise ValueError(f"particle_count {cfg.particle_count} must divide "
+                         f"the mesh ({n_shards} shards)")
+    lx = gx // n_shards
+    if lx < cfg.advect_max_displacement + 1:
+        raise ValueError(f"local slab width {lx} too small for advection "
+                         f"halo {cfg.advect_max_displacement + 1}")
+    if cfg.volume_correction > 0.0:
+        raise NotImplementedError("volume_correction is not ported")
+    if cfg.surface_enabled and cfg.surface_method == "levelset":
+        raise NotImplementedError("surface_method='levelset' is not ported")
+
+
+def spmd_step(cfg: FluidConfig, mesh: Mesh, scene=None):
+    """This shard's step: a function local_state -> local_state over the
+    slabs `mesh/shard_state` cuts, run with autograd off.  Every shard of
+    the mesh calls its own in lockstep."""
+    validate_spmd_config(cfg, mesh.size)
+    if scene is not None:
+        raise NotImplementedError("scene fields are not ported")
+
+    @torch.no_grad()
+    def step(state: FluidState) -> FluidState:
+        return _local_step(state, cfg, mesh)
+
+    return step
+
+
+def spmd_multi_step(cfg: FluidConfig, mesh: Mesh, n_steps: int):
+    """n_steps frames per call, a loop over `spmd_step`."""
+    step = spmd_step(cfg, mesh)
+
+    def multi(state: FluidState) -> FluidState:
+        for _ in range(n_steps):
+            state = step(state)
+        return state
+
+    return multi

@@ -15,11 +15,14 @@ def update_water(densities: torch.Tensor) -> torch.Tensor:
                        CellType.INACTIVE).to(torch.uint8)
 
 
-def solid_mask(shape, cfg=None, device=None) -> torch.Tensor:
+def solid_mask(shape, cfg=None, device=None, x0: int = 0,
+               global_gx: int | None = None) -> torch.Tensor:
     """Static solid cells: the domain border plus any configured obstacle
-    boxes."""
-    gx, gy, gz = shape
-    ix = torch.arange(gx, device=device)[:, None, None]
+    boxes.  On an x-slab, `x0` is the global x of its row 0 and
+    `global_gx` the domain's x extent."""
+    lx, gy, gz = shape
+    gx = lx if global_gx is None else global_gx
+    ix = torch.arange(x0, x0 + lx, device=device)[:, None, None]
     iy = torch.arange(gy, device=device)[None, :, None]
     iz = torch.arange(gz, device=device)[None, None, :]
     mask = ((ix == 0) | (ix == gx - 1) | (iy == 0) | (iy == gy - 1)
@@ -31,12 +34,14 @@ def solid_mask(shape, cfg=None, device=None) -> torch.Tensor:
     return mask
 
 
-def update_air(types: torch.Tensor, cfg=None) -> torch.Tensor:
+def update_air(types: torch.Tensor, cfg=None, x0: int = 0,
+               global_gx: int | None = None) -> torch.Tensor:
     """Stage 03: static solid cells become SOLID; non-water cells with at
     least one WATER neighbour become AIR (neighbours read from the stage-02
     output, which resolves the reference's in-place race
-    deterministically)."""
-    solid = solid_mask(types.shape, cfg, types.device)
+    deterministically).  `x0` and `global_gx` place an x-slab in the
+    domain, as for `solid_mask`."""
+    solid = solid_mask(types.shape, cfg, types.device, x0, global_gx)
     water = types == CellType.WATER
     water_around = torch.zeros_like(water)
     for mv in MOVES:

@@ -36,10 +36,10 @@ def detailed_occupancy(positions: torch.Tensor, active: torch.Tensor,
 def occupancy_to_sim_grid(occ: torch.Tensor,
                           cfg: FluidConfig) -> torch.Tensor:
     """Sim-grid occupancy: the max over each res^3 block of the detailed
-    occupancy (a u8 max-pool)."""
+    occupancy (a u8 max-pool), of the whole grid or of an x-slab."""
     r = cfg.surface_render_resolution
-    gx, gy, gz = cfg.grid_size
-    return occ.reshape(gx, r, gy, r, gz, r).amax(dim=(1, 3, 5))
+    dx, dy, dz = occ.shape
+    return occ.reshape(dx // r, r, dy // r, r, dz // r, r).amax(dim=(1, 3, 5))
 
 
 def move_particles(vel: torch.Tensor, positions: torch.Tensor,

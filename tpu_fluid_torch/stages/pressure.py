@@ -4,6 +4,13 @@
 The solve always takes the JAX package's kernel formulation: the per-cell
 constants fold into (rd code, c2, q0) and the sweeps run in the K2 kernel,
 or in its plain version where `kernel_choice` does not pick the kernel.
+
+With `mesh` (the x-slab multi-device step; JAX passes `axis_name`) the
+inputs and the result are this shard's slabs: the neighbour counts read one
+halo plane of the types, and the sweeps exchange planes with the
+neighbours (`kernels/jacobi.jacobi_sweeps_sharded_cuda`, or its plain
+version, which adds in the kernel's order too; JAX's XLA route adds in
+`MOVES` order).  Every result equals the single-device one bitwise.
 """
 
 from __future__ import annotations
@@ -14,7 +21,9 @@ from tpu_fluid_torch.core.config import FluidConfig
 from tpu_fluid_torch.core.types import CellType
 from tpu_fluid_torch.kernels import kernel_choice
 from tpu_fluid_torch.kernels.jacobi import (jacobi_sweeps_cuda,
-                                            jacobi_sweeps_plain)
+                                            jacobi_sweeps_plain,
+                                            jacobi_sweeps_sharded_cuda,
+                                            jacobi_sweeps_sharded_plain)
 from tpu_fluid_torch.ops.stencil import MOVES, axis_nonzero, shifted
 
 
@@ -44,7 +53,7 @@ def jacobi_stats(types: torch.Tensor, cfg: FluidConfig):
 
 
 def jacobi_solve(types: torch.Tensor, div: torch.Tensor,
-                 cfg: FluidConfig) -> torch.Tensor:
+                 cfg: FluidConfig, mesh=None) -> torch.Tensor:
     """Stage 12: Jacobi pressure iteration on WATER cells with
     b = div * rho * dx / dt.  With `cfg.reference_pressure_parity` it runs
     jacobi_iters - 1 sweeps: the reference's projection reads the 199th of
@@ -52,16 +61,22 @@ def jacobi_solve(types: torch.Tensor, div: torch.Tensor,
     b = div.to(torch.float32) * (cfg.fluid_density * cfg.cell_width / cfg.dt)
     iters = cfg.jacobi_iters - (1 if cfg.reference_pressure_parity else 0)
     return poisson_solve(types, b, cfg, iters=iters,
-                         boundary_value=cfg.air_pressure)
+                         boundary_value=cfg.air_pressure, mesh=mesh)
 
 
 def jacobi_fold(types: torch.Tensor, rhs: torch.Tensor, cfg: FluidConfig,
-                boundary_value: float):
+                boundary_value: float, mesh=None):
     """The K2 kernel's inputs: (water, q0, code, c2) with q0 the
     water-masked start pressure, code the u8 aii where the cell updates
     (WATER, aii > 0) and 0 elsewhere, and c2 = (n_air * boundary_value -
-    rhs) / max(aii, 1)."""
-    water, aii, n_air = jacobi_stats(types, cfg)
+    rhs) / max(aii, 1).  With `mesh` the neighbour counts read the
+    neighbour shards' boundary planes of the types."""
+    if mesh is not None:
+        from tpu_fluid_torch.parallel.halo import halo_extend, halo_inner
+        water, aii, n_air = (halo_inner(a) for a in jacobi_stats(
+            halo_extend(types, 1, mesh), cfg))
+    else:
+        water, aii, n_air = jacobi_stats(types, cfg)
     const = n_air * boundary_value - rhs.to(torch.float32)
     denom = torch.clamp(aii, min=1.0)
     code = torch.where(water & (aii > 0), aii, 0.0).to(torch.uint8)
@@ -70,7 +85,8 @@ def jacobi_fold(types: torch.Tensor, rhs: torch.Tensor, cfg: FluidConfig,
 
 
 def poisson_solve(types: torch.Tensor, rhs: torch.Tensor, cfg: FluidConfig,
-                  iters: int, boundary_value: float) -> torch.Tensor:
+                  iters: int, boundary_value: float,
+                  mesh=None) -> torch.Tensor:
     """On WATER cells with aii > 0, iterate
         p = (sum_{water nbrs} p + n_air * boundary_value - rhs) / aii
     `iters` times from p0 = boundary_value, in the folded form
@@ -81,8 +97,13 @@ def poisson_solve(types: torch.Tensor, rhs: torch.Tensor, cfg: FluidConfig,
         raise NotImplementedError("pressure_solver='redblack' is not ported")
     if cfg.pressure_solver != "jacobi":
         raise ValueError(f"unknown pressure_solver {cfg.pressure_solver!r}")
-    water, q0, code, c2 = jacobi_fold(types, rhs, cfg, boundary_value)
-    if kernel_choice(cfg, types.device):
+    water, q0, code, c2 = jacobi_fold(types, rhs, cfg, boundary_value, mesh)
+    kernel = kernel_choice(cfg, types.device)
+    if mesh is not None:
+        sweeps = (jacobi_sweeps_sharded_cuda if kernel
+                  else jacobi_sweeps_sharded_plain)
+        q = sweeps(q0, code, c2, iters, mesh)
+    elif kernel:
         q = jacobi_sweeps_cuda(q0, code, c2, iters)
     else:
         q = jacobi_sweeps_plain(q0, code, c2, iters)

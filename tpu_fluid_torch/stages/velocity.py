@@ -13,7 +13,7 @@ from tpu_fluid_torch.core.config import FluidConfig
 from tpu_fluid_torch.core.types import CellType
 from tpu_fluid_torch.kernels import kernel_choice
 from tpu_fluid_torch.kernels.advect import (advect_all_cuda,
-                                            advect_all_plain,
+                                            advect_slab_plain,
                                             face_center_velocity)
 from tpu_fluid_torch.ops.sampling import velocity_at, velocity_component_at
 from tpu_fluid_torch.ops.stencil import MOVES, axis_nonzero, shifted
@@ -62,17 +62,22 @@ def set_extrapolated_velocities(old_types: torch.Tensor,
     return torch.stack(out)
 
 
-def _advect_condition(types: torch.Tensor, c: int) -> torch.Tensor:
+def _advect_condition(types: torch.Tensor, c: int,
+                      x0: int = 0) -> torch.Tensor:
     """Advection applies to component c of cell i iff i_c != 0 and cell i
-    or its upper neighbour i + e_c is WATER (`advect.comp:66-71`)."""
+    or its upper neighbour i + e_c is WATER (`advect.comp:66-71`).  On an
+    x-slab whose row 0 is global x `x0` the i_x != 0 test is global."""
     water = types == CellType.WATER
     up = tuple(1 if k == c else 0 for k in range(3))
     cond = water | shifted(water, up, fill=False)
+    if c == 0:
+        ix = torch.arange(x0, x0 + types.shape[0], device=types.device)
+        return cond & (ix != 0).reshape(-1, 1, 1)
     return cond & axis_nonzero(types.shape, c, types.device)
 
 
-def _advect_conditions(types: torch.Tensor) -> torch.Tensor:
-    return torch.stack([_advect_condition(types, c)
+def _advect_conditions(types: torch.Tensor, x0: int = 0) -> torch.Tensor:
+    return torch.stack([_advect_condition(types, c, x0)
                         for c in range(3)]).to(torch.uint8)
 
 
@@ -99,14 +104,20 @@ def advect_gather(types: torch.Tensor, vel: torch.Tensor,
     return torch.stack(out)
 
 
-def advect_shift(types: torch.Tensor, vel: torch.Tensor,
-                 cfg: FluidConfig) -> torch.Tensor:
+def advect_shift(types: torch.Tensor, vel: torch.Tensor, cfg: FluidConfig,
+                 x0: int = 0, gx_total: int | None = None) -> torch.Tensor:
     """Stage 07, gather-free shift-select path: the trilinear sample as a
     hat-weighted sum over all offsets |delta| <= R of edge-replicated
     shifts, displacements clamped to [-R, R).  It is the K1 kernel's plain
-    version (`kernels/advect.advect_all_plain`)."""
-    return advect_all_plain(vel, _advect_conditions(types),
-                            cfg.advect_max_displacement, cfg.dt)
+    version (`kernels/advect.advect_all_plain`).
+
+    On a halo-extended x-slab (the multi-device step), `x0` is the global x
+    of its row 0 and `gx_total` the domain's x extent: the coordinate clamp
+    and the i_x != 0 test are global; the caller keeps the rows at least
+    R + 1 from the slab's ends."""
+    gx = types.shape[0] if gx_total is None else gx_total
+    return advect_slab_plain(vel, _advect_conditions(types, x0),
+                             cfg.advect_max_displacement, cfg.dt, x0, gx)
 
 
 def advect(types: torch.Tensor, vel: torch.Tensor,
