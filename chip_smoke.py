@@ -34,10 +34,27 @@ Phases, one line each (more for the parity and scene phases):
               invariants, and every halo-form kernel must have launched on
               every rank.  Its steps/s measures the host-staged transport,
               not the port.
+  9 domain    domain-sharded particles (particle_sharding="domain",
+              tpu_fluid_torch/parallel/particles_domain.py): first K3+K4's
+              local-slab form against its plain version, bitwise, on the
+              (3, 66, 256, 256) edge-replicated slabs of scaled_scene(256)
+              split 4 ways at shards 0, 1 and 3, with the shard's own
+              particles, stragglers past both slab ends and both domain
+              ends, and inactive slots; then scaled_scene(256) with domain
+              sharding on 4 ranks sharing this card over gloo for 2 steps:
+              the gathered grid fields must equal 2 single-device steps
+              bitwise, the active positions as sorted sets bitwise, with
+              nothing dropped, at least one particle migrated, the
+              invariants held, no velocity all_gather or occupancy
+              psum_scatter run, and the local-slab kernel and every
+              halo-form kernel launched on every rank.  It prints steps/s
+              and the host-staged transport of each step: the halo planes
+              beside the migration exchange.
 The line before the last is a JSON object with the kernels' numbers (times
-at the large scene, the halo forms' at shard 1 of phase 8); the last line is
-{"ok": true, "device": {...}}.  Any failed check raises, so the script then
-exits nonzero without that line; without CUDA it exits 2.
+at the large scene, the halo forms' and the local-slab form's at shard 1 of
+phases 8 and 9); the last line is {"ok": true, "device": {...}}.  Any
+failed check raises, so the script then exits nonzero without that line;
+without CUDA it exits 2.
 """
 
 from __future__ import annotations
@@ -98,6 +115,17 @@ HALO_SOURCES = {
         "tpu_fluid/kernels/grid_fused.py:473 (project_pallas, halo form; "
         "pallas_call in _call :340)"),
 }
+# The local-slab form of phase 9.
+LOCAL_SOURCE = (
+    "tpu_fluid_torch/csrc/particle_move.cu",
+    "tpu_fluid/kernels/pack_table.py:75, "
+    "tpu_fluid/kernels/particle_sample.py:77 (local slab, "
+    "tpu_fluid/parallel/particles_domain.py:128)")
+STRAGGLERS = 20_000
+# +-x force on single water cells at the slab borders (extra_forces): the
+# scene alone falls straight down, so no particle would cross a border in
+# 2 steps and the migration exchange would carry nothing
+BORDER_FORCE = 20000.0
 
 
 class CheckFailed(RuntimeError):
@@ -598,6 +626,255 @@ def phase_sharded(cfg, card: str, device) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- 9: domain
+GRID_FIELDS = ("velocity", "cell_types", "inertia", "float_dens_1",
+               "float_dens_2", "detailed_occ", "step")
+
+
+def domain_scene(cfg):
+    """`cfg` with domain-sharded particles and a force cell pushing across
+    each of the SHARDS - 1 slab borders: -x at the first row of slab 1 and
+    of the middle slab, +x at the last row of the slabs before the middle
+    and the last border, inside the falling blob."""
+    n = cfg.grid_size[0]
+    y, z = int(0.4 * cfg.grid_size[1]), cfg.grid_size[2] // 8
+    f = BORDER_FORCE
+    forces = (((n // 4, y, z), (-f, 0.0, 0.0)),
+              ((n // 2 - 1, y, z), (f, 0.0, 0.0)),
+              ((n // 2, y + 2, z), (-f, 0.0, 0.0)),
+              ((3 * n // 4 - 1, y, z), (f, 0.0, 0.0)))
+    return cfg.replace(particle_sharding="domain", extra_forces=forces)
+
+
+def local_move_cases(device, cfg, state0):
+    """(shard, args) of K3+K4's local-slab form at the slabs of `cfg` split
+    SHARDS ways, at PARITY_SHARDS: a numpy-seeded velocity slab with one
+    edge-replicated plane a side; the shard's segment of
+    `domain_shard_state(state0)` (its own particles, then inactive slots);
+    and STRAGGLERS seeded particles, half within 3 rows past either slab
+    end and half up to 1.5 cells past either domain end in x, over the box
+    and 1.5 cells past it in y and z, a tenth of them inactive."""
+    from tpu_fluid_torch.parallel.particles_domain import domain_shard_state
+    gx, gy, gz = cfg.grid_size
+    lx = gx // SHARDS
+    cases = []
+    for shard in PARITY_SHARDS:
+        x0 = shard * lx
+        rng = np.random.default_rng(SEED + 10 + shard)
+        v = rng.standard_normal((3, lx + 2, gy, gz), dtype=np.float32) * 5
+        if shard == 0:
+            v[:, 0] = v[:, 1]
+        if shard == SHARDS - 1:
+            v[:, -1] = v[:, -2]
+        seg = domain_shard_state(state0, shard, SHARDS, cfg)
+        k = STRAGGLERS
+        s = rng.random((k, 3)) * (np.array(cfg.grid_size) + 3.0) - 1.5
+        low = rng.random(k) < 0.5
+        near = np.where(low, x0 - 3 * rng.random(k),
+                        x0 + lx + 3 * rng.random(k))
+        past = np.where(low, -1.5 * rng.random(k), gx + 1.5 * rng.random(k))
+        s[:, 0] = np.where(np.arange(k) % 2 == 0, near, past)
+        pos = torch.cat([seg.positions,
+                         torch.from_numpy(s.astype(np.float32)).to(device)])
+        act = torch.cat([seg.active,
+                         torch.from_numpy(rng.random(k) < 0.9).to(device)])
+        cases.append((shard, (torch.from_numpy(v).to(device), pos, act,
+                              cfg.dt, x0, cfg.grid_size)))
+    return cases
+
+
+def phase_local_parity(device, cfg, state0) -> dict:
+    from tpu_fluid_torch.kernels.particle_move import (
+        particle_move_local_cuda, particle_move_local_plain)
+    results = {"max_abs_err": 0.0}
+    for shard, args in local_move_cases(device, cfg, state0):
+        got = particle_move_local_cuda(*args)
+        want = particle_move_local_plain(*args)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        bitwise = got.dtype == want.dtype and torch.equal(got, want)
+        ms = time_ms(lambda: particle_move_local_cuda(*args), reps=20)
+        plain_ms = time_ms(lambda: particle_move_local_plain(*args), reps=3,
+                           warmup=1)
+        print(f"[9 parity] particle_move_local_cuda shard {shard}/{SHARDS} "
+              f"vel_e={tuple(args[0].shape)} particles={args[1].shape[0]} "
+              f"(active {int(args[2].sum())}) max_abs_err={err!r} "
+              f"bitwise={bitwise} (tolerance 0) kernel_ms={ms!r} "
+              f"plain_ms={plain_ms!r}", flush=True)
+        check(bitwise, f"particle_move_local_cuda at shard {shard} differs "
+                       f"from its plain version (max abs err {err!r})")
+        results["max_abs_err"] = max(results["max_abs_err"], err)
+        results[shard] = (ms, plain_ms)
+    return results
+
+
+class Transport:
+    """Calls and host-clock seconds of the exchanges of a rank's step: each
+    wrapped call runs between two device synchronizations, so that its time
+    holds its own staging and waiting and no kernel queued before it."""
+
+    def __init__(self, sync):
+        self.sync = sync
+        self.calls, self.seconds = {}, {}
+
+    def wrap(self, module, name: str, label: str) -> None:
+        fn = getattr(module, name)
+        self.calls[label], self.seconds[label] = 0, 0.0
+
+        def timed(*args, **kw):
+            self.sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            self.sync()
+            self.calls[label] += 1
+            self.seconds[label] += time.perf_counter() - t0
+            return out
+        setattr(module, name, timed)
+
+    def take(self) -> dict:
+        out = {label: (self.calls[label], self.seconds[label])
+               for label in self.calls}
+        for label in self.calls:
+            self.calls[label], self.seconds[label] = 0, 0.0
+        return out
+
+
+def sorted_rows(pos: torch.Tensor) -> np.ndarray:
+    p = pos.cpu().numpy()
+    return p[np.lexsort((p[:, 2], p[:, 1], p[:, 0]))]
+
+
+def domain_rank(rank, n, init_method, cfg, device):
+    """One rank of phase 9: SHARDED_STEPS domain-sharded steps of its slab
+    and its particles, each timed with its exchanges; rank 0 also runs the
+    single-device steps and compares the gathered state.  All ranks share
+    `device`."""
+    import torch.distributed as dist
+    from tpu_fluid_torch import initial_state
+    from tpu_fluid_torch.kernels import build
+    from tpu_fluid_torch.kernels.particle_move import particle_move_local_cuda
+    from tpu_fluid_torch.parallel import halo, particles_domain
+    from tpu_fluid_torch.parallel import spmd_step as spmd_module
+    from tpu_fluid_torch.parallel.mesh import gather_state, make_mesh
+    device = torch.device(device)
+    torch.cuda.set_device(device)
+    build.library()
+    sync = torch.cuda.synchronize
+    mesh = make_mesh(n, rank, init_method, device=device, backend="gloo")
+    state0 = initial_state(cfg, device)
+    ymax0 = float(active_positions(state0)[:, 1].max())
+    local = particles_domain.domain_shard_state(state0, rank, n, cfg)
+    if rank != 0:
+        del state0
+    slots = local.positions.shape[0]
+    transport = Transport(sync)
+    transport.wrap(halo, "ppermute_neighbours", "halo planes")
+    transport.wrap(particles_domain, "ppermute_neighbours", "migration")
+    transport.wrap(spmd_module, "psum", "drop psum")
+    for name in ("all_gather_x", "psum_scatter_x"):
+        transport.wrap(spmd_module, name, name)
+    crossers = []
+    migrate = spmd_module.migrate
+
+    def counted_migrate(pos, active, x0, lx, m, mesh):
+        cx = torch.floor(pos[:, 0])
+        crossers.append(int((active & ((cx < x0) | (cx >= x0 + lx))).sum()))
+        return migrate(pos, active, x0, lx, m, mesh)
+
+    spmd_module.migrate = counted_migrate
+    # the halo forms of phase 8, and the local-slab form in place of the
+    # index path's particle_move_cuda
+    wrappers = halo_wrappers()[:-1] + (particle_move_local_cuda,)
+    step = spmd_module.spmd_step(cfg, mesh)
+    reset_launches(wrappers)
+    dist.barrier()
+    sync()
+    steps = []
+    for _ in range(SHARDED_STEPS):
+        t0 = time.perf_counter()
+        local = step(local)
+        sync()
+        steps.append((time.perf_counter() - t0, transport.take()))
+    dist.barrier()
+    launches = read_launches(wrappers)
+    full = gather_state(local, mesh)
+    out = {"launches": launches, "steps": steps, "crossers": crossers,
+           "slots": slots,
+           "capacity": particles_domain.migrate_capacity(slots, cfg)}
+    if rank == 0:
+        check_invariants(full, cfg, ymax0, "9 domain")
+        ref = run_steps(state0, cfg, SHARDED_STEPS)
+        sync()
+        fields = {}
+        for name in GRID_FIELDS:
+            a, b = getattr(full, name), getattr(ref, name)
+            same = a.dtype == b.dtype and a.shape == b.shape and \
+                torch.equal(a, b)
+            err = (max_abs_err(a, b) if a.dtype.is_floating_point
+                   and a.shape == b.shape else None)
+            fields[name] = (same, err)
+        a = sorted_rows(active_positions(full))
+        b = sorted_rows(active_positions(ref))
+        fields["active positions, sorted"] = (
+            a.shape == b.shape and np.array_equal(a, b),
+            float(np.abs(a - b).max()) if a.shape == b.shape else None)
+        out["fields"] = fields
+        out["dropped"] = int(full.dropped)
+    return out
+
+
+def phase_domain(cfg, card: str, device) -> dict:
+    from tpu_fluid_torch.parallel.launch import run_ranks
+    t0 = time.perf_counter()
+    ranks = run_ranks(domain_rank, SHARDS, cfg, str(device),
+                      timeout=RANK_TIMEOUT)
+    wall = time.perf_counter() - t0
+    fields = ranks[0]["fields"]
+    for name, (same, err) in fields.items():
+        print(f"[9 domain] {name}: bitwise={same} max_abs_err={err!r} "
+              f"(tolerance 0)", flush=True)
+    check(all(same for same, _ in fields.values()),
+          f"{SHARDED_STEPS} domain-sharded steps differ from "
+          f"{SHARDED_STEPS} single-device steps: {fields}")
+    check(ranks[0]["dropped"] == 0,
+          f"domain sharding dropped {ranks[0]['dropped']} particles")
+    crossers = [sum(r["crossers"][i] for r in ranks)
+                for i in range(SHARDED_STEPS)]
+    print(f"[9 domain] {ranks[0]['slots']} slots a rank, migration buffers "
+          f"of {ranks[0]['capacity']} rows a direction; slab-border "
+          f"crossers migrated a step: {crossers}", flush=True)
+    check(sum(crossers) > 0, "no particle crossed a slab border: the "
+                             "migration exchange moved nothing")
+    seconds = sum(max(r["steps"][i][0] for r in ranks)
+                  for i in range(SHARDED_STEPS))
+    print(f"[9 domain] {SHARDS} ranks sharing one card over gloo "
+          f"(host-staged transport, not a figure for the port): "
+          f"{SHARDED_STEPS / seconds!r} steps/s at grid {cfg.grid_size} on "
+          f"{card}; phase wall {wall!r} s, rank start-up included",
+          flush=True)
+    for i in range(SHARDED_STEPS):
+        for rank, r in enumerate(ranks):
+            step_s, split = r["steps"][i]
+            check(split["all_gather_x"][0] == 0
+                  and split["psum_scatter_x"][0] == 0,
+                  f"rank {rank}: a volume collective ran in the domain "
+                  f"step: {split}")
+            parts = "; ".join(f"{label} {calls} calls {s!r} s"
+                              for label, (calls, s) in split.items())
+            rest = step_s - sum(s for _, s in split.values())
+            print(f"[9 transport] step {i + 1} rank {rank}: {step_s!r} s; "
+                  f"{parts}; the rest {rest!r} s", flush=True)
+    launches = {}
+    for rank, r in enumerate(ranks):
+        print(f"[9 launches] rank {rank}: {r['launches']}", flush=True)
+        check(all(v > 0 for v in r["launches"].values()),
+              f"rank {rank}: a kernel of the domain path never launched: "
+              f"{r['launches']}")
+        for name, count in r["launches"].items():
+            launches[name] = launches.get(name, 0) + count
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -740,6 +1017,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     sharded_launches = phase_sharded(large_cfg, card, device)
 
+    # 9: domain-sharded particles at scaled_scene(256) on SHARDS ranks
+    domain_cfg = domain_scene(large_cfg)
+    state0 = initial_state(domain_cfg, device)
+    local_parity = phase_local_parity(device, domain_cfg, state0)
+    del state0
+    torch.cuda.empty_cache()
+    domain_launches = phase_domain(domain_cfg, card, device)
+
     kernels = []
     for w in wrappers + fused_wrappers:
         name = w.__name__
@@ -756,6 +1041,12 @@ def main() -> int:
                         "launches": sharded_launches[name],
                         "max_abs_err": halo_parity[name]["max_abs_err"],
                         "ms": ms, "plain_ms": plain_ms})
+    ms, plain_ms = local_parity[1]
+    kernels.append({"name": "particle_move_local_cuda", "route": "cuda",
+                    "source": LOCAL_SOURCE[0], "replaces": LOCAL_SOURCE[1],
+                    "launches": domain_launches["particle_move_local_cuda"],
+                    "max_abs_err": local_parity["max_abs_err"],
+                    "ms": ms, "plain_ms": plain_ms})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

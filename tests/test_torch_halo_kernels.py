@@ -3,8 +3,11 @@ runs: each plain version against the JAX package's Pallas kernel in the
 Pallas interpreter, called directly with explicit neighbour planes (zeros
 past the domain), `x0` and the global extent, at the first, a middle and
 the last of three shards; and against the port's single-device plain
-version on the same rows, bitwise.  On a CUDA card only (marked `cuda`),
-each halo-form CUDA kernel against its plain version, bitwise.
+version on the same rows, bitwise.  K3+K4's local-slab form, which
+domain-sharded particles run, is held against JAX's table and
+`sample_and_move` on a numpy-built edge-replicated slab, stragglers
+included.  On a CUDA card only (marked `cuda`), each halo-form CUDA kernel
+against its plain version, bitwise.
 
 `jacobi_sweeps_sharded`, whose passes exchange planes with the neighbours,
 is held against JAX under shard_map in tests/test_torch_spmd.py.
@@ -26,6 +29,8 @@ from tpu_fluid.kernels.advect import (advect_all_pallas,
 from tpu_fluid.kernels.grid_fused import (classify_extrap_pallas,
                                           forces_solids_div_pallas,
                                           project_pallas)
+from tpu_fluid.kernels.pack_table import build_packed_table_pallas
+from tpu_fluid.kernels.particle_sample import sample_and_move
 from tpu_fluid.kernels.surface_fused import (surface_fused_auto,
                                              surface_fused_pallas)
 from tpu_fluid.stages.velocity import face_center_velocity as jax_face_center
@@ -41,6 +46,9 @@ from tpu_fluid_torch.kernels.grid_fused import (
 from tpu_fluid_torch.kernels.jacobi import (fold_c2e, jacobi_pass_cuda,
                                             jacobi_pass_plain,
                                             jacobi_sweeps_plain)
+from tpu_fluid_torch.kernels.particle_move import (particle_move_local_cuda,
+                                                   particle_move_local_plain,
+                                                   particle_move_plain)
 from tpu_fluid_torch.kernels.surface_fused import (surface_fused_halo_cuda,
                                                    surface_fused_halo_plain,
                                                    surface_fused_plain)
@@ -324,10 +332,61 @@ def test_jacobi_pass_equals_single_device_rows(shard):
             shard * lx:(shard + 1) * lx])
 
 
+# ------------------------------------------------------------ K3+K4 local
+def local_particle_case(shard, seed):
+    """The edge-replicated slab (3, lx + 2, Y, Z) of a random velocity
+    field at `shard`, built with numpy, and global positions: the shard's
+    own particles, stragglers up to 3 rows past both slab ends and up to
+    1.5 cells past every domain face, some inactive."""
+    r = np.random.default_rng(seed)
+    gx = GRID[0]
+    lx = gx // N_SHARDS
+    x0 = shard * lx
+    vel = (r.standard_normal((3,) + GRID) * 4).astype(np.float32)
+    rows = np.clip(np.arange(x0 - 1, x0 + lx + 1), 0, gx - 1)
+    vel_e = np.ascontiguousarray(vel[:, rows])
+    top = np.array(GRID, np.float32)
+    own = r.random((600, 3)) * top
+    own[:, 0] = x0 + r.random(600) * lx
+    near = r.random((400, 3)) * top
+    near[:, 0] = np.where(r.random(400) < 0.5, x0 - 3 * r.random(400),
+                          x0 + lx + 3 * r.random(400))
+    far = r.random((200, 3)) * (top + 3) - 1.5
+    pos = np.concatenate([own, near, far]).astype(np.float32)
+    act = r.random(len(pos)) < 0.9
+    return vel, vel_e, pos, act, x0, lx
+
+
+@pytest.mark.parametrize("shard", SHARDS)
+def test_particle_move_local_matches_pallas_interpret(shard):
+    """JAX's move_particles_local with its Pallas kernels
+    (`tpu_fluid/parallel/particles_domain.py:139-151`): the table of the
+    extended slab, the slab-local row, the global weights; stragglers
+    included.  For the particles whose clipped cell lies in the slab, the
+    single-device plain version's result, bitwise."""
+    vel, vel_e, pos, act, x0, lx = local_particle_case(shard, 60 + shard)
+    dt = 0.01
+    got = particle_move_local_plain(T(vel_e), T(pos), T(act), dt, x0, GRID)
+    j = jnp.clip(jnp.floor(jnp.asarray(pos)).astype(jnp.int32), 0,
+                 jnp.array([g - 1 for g in GRID], dtype=jnp.int32))
+    jx = jnp.clip(j[:, 0] - x0 + 1, 0, lx + 1)
+    flat = jx * (GRID[1] * GRID[2]) + j[:, 1] * GRID[2] + j[:, 2]
+    table = build_packed_table_pallas(jnp.asarray(vel_e), interpret=True)
+    rows = jnp.take(table, flat, axis=0, mode="clip")
+    want = sample_and_move(rows, jnp.asarray(pos).T, jnp.asarray(act), GRID,
+                           dt, interpret=True).T
+    same(got, want, ulp=1)
+    cell_x = np.clip(np.floor(pos[:, 0]), 0, GRID[0] - 1)
+    inside = (cell_x >= x0) & (cell_x < x0 + lx)
+    assert 0 < inside.sum() < len(pos)
+    single = particle_move_plain(T(vel), T(pos), T(act), dt)
+    same(got[T(inside)], single[T(inside)].numpy())
+
+
 # ------------------------------------------------------------------ on card
 def halo_calls(device):
     """(halo-form wrapper, plain version, args, kwargs) at the middle and
-    the last shard."""
+    the last shard, K3+K4's local-slab form included."""
     dev = lambda a: T(a).to(device)                   # noqa: E731
     lx = GRID[0] // N_SHARDS
     calls = []
@@ -373,6 +432,9 @@ def halo_calls(device):
                          for a in (q0, code, fold_c2e(q0, code, c2)))]
         calls.append((jacobi_pass_cuda, jacobi_pass_plain,
                       tuple(ext) + (3, 3), {}))
+        _, vel_e, pos, act, x0, _ = local_particle_case(shard, 70 + shard)
+        calls.append((particle_move_local_cuda, particle_move_local_plain,
+                      (dev(vel_e), dev(pos), dev(act), 0.01, x0, GRID), {}))
     return calls
 
 
@@ -385,7 +447,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", range(12))
+@pytest.mark.parametrize("case", range(14))
 def test_cuda_halo_kernel_matches_plain_bitwise(cuda_device, case):
     wrapper, plain, args, kw = halo_calls(cuda_device)[case]
     before = wrapper.launches
@@ -398,7 +460,7 @@ def test_cuda_halo_kernel_matches_plain_bitwise(cuda_device, case):
         assert g.device == cuda_device and torch.equal(g, w)
 
 
-@pytest.mark.parametrize("case", range(12))
+@pytest.mark.parametrize("case", range(14))
 def test_halo_wrapper_on_cpu_runs_plain_version_without_launch(case):
     wrapper, plain, args, kw = halo_calls("cpu")[case]
     before = wrapper.launches

@@ -29,7 +29,8 @@ from tpu_fluid_torch.kernels.jacobi import (jacobi_sweeps_plain,
                                             jacobi_sweeps_sharded_plain)
 from tpu_fluid_torch.parallel.halo import (all_gather_x, exchange_x_halo,
                                            halo_planes, jacobi_solve_halo,
-                                           psum, psum_scatter_x)
+                                           ppermute_neighbours, psum,
+                                           psum_scatter_x)
 from tpu_fluid_torch.parallel.launch import run_ranks
 from tpu_fluid_torch.parallel.mesh import (gather_state, make_mesh,
                                            shard_state)
@@ -121,6 +122,11 @@ def _rank(rank, n, init_method):
     out["halo"] = [x.numpy() for x in halo_planes(a, 2, mesh)]
     out["halo_bool"] = [x.numpy() for x in halo_planes(a > 110, 1, mesh)]
     out["exchange"] = exchange_x_halo(a, mesh).numpy()
+    # migrate's exchange: (m, 3) f32 rows and int32 flags, either direction
+    rows = torch.arange(12, dtype=torch.float32).reshape(4, 3) + 100 * rank
+    flags = torch.tensor([rank, -rank], dtype=torch.int32)
+    out["ppermute"] = [x.numpy() for x in ppermute_neighbours(
+        rows, rows + 1000, mesh) + ppermute_neighbours(-flags, flags, mesh)]
     out["gather"] = all_gather_x(a[None].repeat(3, 1, 1, 1), mesh,
                                  axis=1).numpy()
     counts = torch.full((n * 2, 3, 3), rank + 1, dtype=torch.uint8)
@@ -257,6 +263,27 @@ def test_halo_planes_and_collectives(sharded):
         assert out["psum"] == n * (n + 1) // 2
 
 
+def test_ppermute_neighbours(sharded):
+    """from_left is what the -x neighbour sent right, from_right what the
+    +x neighbour sent left; the domain ends receive zeros; int32 stays
+    int32."""
+    n, ranks = sharded
+    rows = [np.arange(12, dtype=np.float32).reshape(4, 3) + 100 * r
+            for r in range(n)]
+    flags = [np.array([r, -r], np.int32) for r in range(n)]
+    for r, out in enumerate(ranks):
+        from_left, from_right, flag_left, flag_right = out["ppermute"]
+        np.testing.assert_array_equal(
+            from_left, rows[r - 1] + 1000 if r > 0 else np.zeros((4, 3)))
+        np.testing.assert_array_equal(
+            from_right, rows[r + 1] if r < n - 1 else np.zeros((4, 3)))
+        assert flag_left.dtype == flag_right.dtype == np.int32
+        np.testing.assert_array_equal(
+            flag_left, flags[r - 1] if r > 0 else np.zeros(2, np.int32))
+        np.testing.assert_array_equal(
+            flag_right, -flags[r + 1] if r < n - 1 else np.zeros(2, np.int32))
+
+
 # ------------------------------------------------------------- one shard
 def test_one_shard_without_spawning_equals_single_device(single):
     cfg = cfg_of("fused")
@@ -275,8 +302,14 @@ def test_validate_spmd_config_rejections():
         validate_spmd_config(cfg.replace(particle_count=4097), 8)
     with pytest.raises(ValueError):
         validate_spmd_config(cfg, 16)      # 2-row slabs, halo R + 1 = 3
-    for change in (dict(particle_sharding="domain"),
-                   dict(volume_correction=0.5),
+    domain = cfg.replace(particle_sharding="domain")
+    with pytest.raises(ValueError):
+        validate_spmd_config(domain.replace(particle_sampler="gather"), 2)
+    with pytest.raises(ValueError):
+        validate_spmd_config(cfg.replace(particle_sharding="rows"), 2)
+    # slots are sized per shard, so the count need not divide the mesh
+    validate_spmd_config(domain.replace(particle_count=4097), 8)
+    for change in (dict(volume_correction=0.5),
                    dict(surface_method="levelset")):
         with pytest.raises(NotImplementedError):
             validate_spmd_config(cfg.replace(**change), 2)

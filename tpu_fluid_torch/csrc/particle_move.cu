@@ -11,21 +11,36 @@
 // the table's lanes hold -- so no table and no (P, 64) row buffer are ever
 // written.  The bound is the 24 scattered 4-byte reads per particle, which
 // land in L2 for grids of up to 128^3 (24 MB of velocity).
+//
+// The field in memory holds rows [xb, xb + mx) of a grid of global extent
+// (gx, gy, gz).  Single device is xb = 0, mx = gx.  The local-slab form of
+// domain-sharded particles (tpu_fluid/parallel/particles_domain.py:
+// move_particles_local) passes a shard's slab with one edge-replicated
+// plane a side, xb = x0 - 1 and mx = lx + 2: the weights still clamp to
+// the global grid, the cell's memory row is clipped to [0, mx) and every x
+// tap is clipped within the slab, as the TPU path's table of the extended
+// slab does.  Inside the slab that is the single-device tap, bitwise.
+// The kernel is specialised on kSlab, so that a single-device launch does
+// no slab arithmetic: with xb = 0 and mx = gx both forms read the same
+// taps.
 
 #include "common.cuh"
 
 namespace {
 
+template <bool kSlab>
 __global__ void particle_move_kernel(const float* __restrict__ vel,
                                      const float* __restrict__ pos,
                                      const uint8_t* __restrict__ active,
                                      float* __restrict__ out, long long np,
-                                     int gx, int gy, int gz, float dt) {
+                                     int xb, int mx, int gx, int gy, int gz,
+                                     float dt) {
   const long long p = blockIdx.x * static_cast<long long>(blockDim.x)
                       + threadIdx.x;
   if (p >= np) return;
   const int dims[3] = {gx, gy, gz};
-  const long long n = static_cast<long long>(gx) * gy * gz;
+  const int rows = kSlab ? mx : gx;
+  const long long n = static_cast<long long>(rows) * gy * gz;
   float pd[3];
   float jf[3];
   int j[3];
@@ -34,6 +49,10 @@ __global__ void particle_move_kernel(const float* __restrict__ vel,
     jf[d] = tf::clampf(floorf(pd[d]), 0.0f, static_cast<float>(dims[d] - 1));
     j[d] = static_cast<int>(jf[d]);
   }
+  // the cell in memory, and the extent each tap is clipped to
+  const int base[3] = {kSlab ? tf::clamp_index(j[0] - xb, mx) : j[0], j[1],
+                        j[2]};
+  const int ext[3] = {rows, gy, gz};
 
   float v[3];
   for (int c = 0; c < 3; ++c) {
@@ -65,9 +84,9 @@ __global__ void particle_move_kernel(const float* __restrict__ vel,
           if (d2 < -1 || d2 > 1) continue;
           const float w2 = k2 ? f[a2] : 1.0f - f[a2];
           int q[3];
-          q[c] = tf::clamp_index(j[c] + dc, dims[c]);
-          q[a1] = tf::clamp_index(j[a1] + d1, dims[a1]);
-          q[a2] = tf::clamp_index(j[a2] + d2, dims[a2]);
+          q[c] = tf::clamp_index(base[c] + dc, ext[c]);
+          q[a1] = tf::clamp_index(base[a1] + d1, ext[a1]);
+          q[a2] = tf::clamp_index(base[a2] + d2, ext[a2]);
           const float val = vc[(static_cast<long long>(q[0]) * gy + q[1]) * gz
                                + q[2]];
           acc = acc + ((wc * w1) * w2) * val;
@@ -86,11 +105,13 @@ __global__ void particle_move_kernel(const float* __restrict__ vel,
 
 extern "C" int tf_particle_move(const float* vel, const float* pos,
                                 const uint8_t* active, float* out,
-                                long long np, int gx, int gy, int gz,
-                                float dt, void* stream) {
+                                long long np, int xb, int mx, int gx,
+                                int gy, int gz, float dt, void* stream) {
   if (np == 0) return 0;
-  particle_move_kernel<<<tf::blocks_for(np), tf::kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      vel, pos, active, out, np, gx, gy, gz, dt);
+  const auto kernel = xb == 0 && mx == gx ? particle_move_kernel<false>
+                                          : particle_move_kernel<true>;
+  kernel<<<tf::blocks_for(np), tf::kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      vel, pos, active, out, np, xb, mx, gx, gy, gz, dt);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,6 +12,13 @@ accumulates them in the table's lane order.  It is bound by those 24
 scattered reads per particle; no table (537 MB at 128^3) and no row buffer
 are written.
 
+The local-slab form (`particle_move_local_cuda`) is the same kernel on a
+shard's (3, lx + 2, Y, Z) velocity slab with one edge-replicated plane a
+side, which domain-sharded particles sample
+(`tpu_fluid/parallel/particles_domain.py:move_particles_local`): positions
+and weights stay global, the row of a particle's cell is its slab-local x
+row clipped to the extended slab, and each x tap is clipped within it.
+
 `particle_move_plain` keeps the TPU formulation in plain PyTorch: build
 the 64-lane table, gather one row per particle, and accumulate the 18 lanes
 of each component one by one in the loop order of `_sample_update_kernel`.
@@ -24,18 +31,20 @@ import torch
 from tpu_fluid_torch.kernels import build, on_cuda, require
 from tpu_fluid_torch.ops.packed_sampler import (_OTHER, _lane,
                                                 build_packed_table,
+                                                cell_index,
                                                 packed_row_indices)
 
-_ARGTYPES = (build.POINTER,) * 4 + (build.INT64, build.INT, build.INT,
-                                    build.INT, build.FLOAT, build.POINTER)
+_ARGTYPES = (build.POINTER,) * 4 + (build.INT64,) + (build.INT,) * 5 + (
+    build.FLOAT, build.POINTER)
 
 
-def particle_move_plain(vel: torch.Tensor, pos: torch.Tensor,
-                        active: torch.Tensor, dt: float) -> torch.Tensor:
-    grid = tuple(vel.shape[1:])
-    table = build_packed_table(vel)
-    rows = table.index_select(0, packed_row_indices(pos, grid))
-    top = [float(g) - 1.0 for g in grid]
+def sample_and_move_rows(rows: torch.Tensor, pos: torch.Tensor,
+                         active: torch.Tensor, dt: float,
+                         grid_size) -> torch.Tensor:
+    """`sample_and_move` on gathered (P, 64) rows: hat weights clamped to
+    the global `grid_size`, the 18 lanes of each component accumulated one
+    by one, then the Euler step of the active particles."""
+    top = [float(g) - 1.0 for g in grid_size]
     jf = [torch.clamp(torch.floor(pos[:, d]), 0.0, top[d]) for d in range(3)]
     v = []
     for c in range(3):
@@ -65,11 +74,33 @@ def particle_move_plain(vel: torch.Tensor, pos: torch.Tensor,
                         for d in range(3)], dim=1)
 
 
-def particle_move_cuda(vel: torch.Tensor, pos: torch.Tensor,
-                       active: torch.Tensor, dt: float) -> torch.Tensor:
-    """K3+K4 wrapper: vel (3,X,Y,Z) f32, pos (P,3) f32, active (P,) bool ->
-    moved positions (P,3); the CUDA kernel for CUDA tensors,
-    `particle_move_plain` for CPU tensors."""
+def particle_move_plain(vel: torch.Tensor, pos: torch.Tensor,
+                        active: torch.Tensor, dt: float) -> torch.Tensor:
+    grid = tuple(vel.shape[1:])
+    table = build_packed_table(vel)
+    rows = table.index_select(0, packed_row_indices(pos, grid))
+    return sample_and_move_rows(rows, pos, active, dt, grid)
+
+
+def particle_move_local_plain(vel_e: torch.Tensor, pos: torch.Tensor,
+                              active: torch.Tensor, dt: float, x0: int,
+                              grid_size) -> torch.Tensor:
+    """The TPU formulation on a local slab: the 64-lane table of the
+    extended slab `vel_e` (3, lx + 2, Y, Z) whose row 1 is global x0, one
+    row per particle (its global cell, clipped to the grid, then its x row
+    clipped to the extended slab, `particles_domain.py:139-142`), and the
+    lane sums with global weights."""
+    lx = vel_e.shape[1] - 2
+    _, gy, gz = grid_size
+    j = cell_index(pos, grid_size)
+    jx = torch.clamp(j[:, 0] - x0 + 1, 0, lx + 1)
+    rows = build_packed_table(vel_e).index_select(
+        0, jx * (gy * gz) + j[:, 1] * gz + j[:, 2])
+    return sample_and_move_rows(rows, pos, active, dt, tuple(grid_size))
+
+
+def _check(vel: torch.Tensor, pos: torch.Tensor,
+           active: torch.Tensor) -> None:
     require(vel, "vel", torch.float32)
     if vel.ndim != 4 or vel.shape[0] != 3:
         raise ValueError(f"vel: shape {tuple(vel.shape)}, expected (3,X,Y,Z)")
@@ -77,17 +108,56 @@ def particle_move_cuda(vel: torch.Tensor, pos: torch.Tensor,
     if pos.ndim != 2 or pos.shape[1] != 3:
         raise ValueError(f"pos: shape {tuple(pos.shape)}, expected (P,3)")
     require(active, "active", torch.bool, (pos.shape[0],), vel.device)
-    if not on_cuda(vel):
-        return particle_move_plain(vel, pos, active, dt)
+
+
+def _launch(vel, pos, active, dt, xb, grid_size) -> torch.Tensor:
+    """The kernel on memory rows [xb, xb + vel.shape[1]) of a grid of
+    global extent `grid_size`."""
     out = torch.empty_like(pos)
-    _, gx, gy, gz = vel.shape
+    gx, gy, gz = grid_size
     with torch.cuda.device(vel.device):
         stream = torch.cuda.current_stream(vel.device).cuda_stream
         build.call("tf_particle_move", _ARGTYPES, vel.data_ptr(),
                    pos.data_ptr(), active.data_ptr(), out.data_ptr(),
-                   pos.shape[0], gx, gy, gz, dt, stream)
+                   pos.shape[0], xb, vel.shape[1], gx, gy, gz, dt, stream)
+    return out
+
+
+def particle_move_cuda(vel: torch.Tensor, pos: torch.Tensor,
+                       active: torch.Tensor, dt: float) -> torch.Tensor:
+    """K3+K4 wrapper: vel (3,X,Y,Z) f32, pos (P,3) f32, active (P,) bool ->
+    moved positions (P,3); the CUDA kernel for CUDA tensors,
+    `particle_move_plain` for CPU tensors."""
+    _check(vel, pos, active)
+    if not on_cuda(vel):
+        return particle_move_plain(vel, pos, active, dt)
+    out = _launch(vel, pos, active, dt, 0, tuple(vel.shape[1:]))
     particle_move_cuda.launches += 1
     return out
 
 
+def particle_move_local_cuda(vel_e: torch.Tensor, pos: torch.Tensor,
+                             active: torch.Tensor, dt: float, x0: int,
+                             grid_size) -> torch.Tensor:
+    """K3+K4's local-slab form: vel_e (3, lx+2, Y, Z) f32, the shard's slab
+    with one edge-replicated plane a side, whose row 1 is global x0;
+    global positions pos (P,3) f32 and active (P,) bool -> moved positions
+    (P,3).  The CUDA kernel for CUDA tensors, `particle_move_local_plain`
+    for CPU tensors."""
+    _check(vel_e, pos, active)
+    gx, gy, gz = grid_size
+    lx = vel_e.shape[1] - 2
+    if tuple(vel_e.shape[2:]) != (gy, gz) or lx < 1 or not (
+            0 <= x0 and x0 + lx <= gx):
+        raise ValueError(f"vel_e: shape {tuple(vel_e.shape)} is no extended "
+                         f"slab at x0={x0} of grid {tuple(grid_size)}")
+    if not on_cuda(vel_e):
+        return particle_move_local_plain(vel_e, pos, active, dt, x0,
+                                         grid_size)
+    out = _launch(vel_e, pos, active, dt, x0 - 1, tuple(grid_size))
+    particle_move_local_cuda.launches += 1
+    return out
+
+
 particle_move_cuda.launches = 0
+particle_move_local_cuda.launches = 0

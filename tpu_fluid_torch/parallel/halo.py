@@ -1,11 +1,12 @@
 """Halo exchange and the collectives of the x-slab step
 (`tpu_fluid.parallel.halo`), on `torch.distributed`.
 
-`halo_planes` is JAX's pair of `ppermute`s: the h boundary planes this
-shard receives from its -x and +x neighbours, sent with one
-`batch_isend_irecv`.  The shards at the domain ends receive zeros, as
-ppermute leaves non-receivers, which is the out-of-domain zero of every
-stencil stage; one shard gets zeros without any exchange.  The three
+`ppermute_neighbours` is JAX's pair of `ppermute`s between x-neighbours,
+sent with one `batch_isend_irecv`: the shards at the domain ends receive
+zeros, as ppermute leaves non-receivers, and one shard gets zeros without
+any exchange.  `halo_planes` sends it the h boundary planes of a slab,
+which makes the zeros the out-of-domain zero of every stencil stage;
+domain-sharded particles send it their migration buffers.  The three
 collectives of the particle stages are thin helpers here, so that
 `parallel/spmd_step.py` reads like the JAX step: `all_gather_x`
 (`jax.lax.all_gather(..., tiled=True)`), `psum_scatter_x`
@@ -36,6 +37,31 @@ def _from_wire(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return t.to(device=like.device, dtype=like.dtype)
 
 
+def ppermute_neighbours(to_left: torch.Tensor, to_right: torch.Tensor,
+                        mesh: Mesh):
+    """(from_left, from_right): send `to_left` to the -x neighbour and
+    `to_right` to the +x neighbour, and receive what they sent this way,
+    in one `batch_isend_irecv`.  JAX's pair of ppermutes with pairs
+    (j, j + 1) and (j + 1, j): the shards at the domain ends, and a single
+    shard, receive zeros."""
+    if mesh.size == 1:
+        return torch.zeros_like(to_right), torch.zeros_like(to_left)
+    left = _to_wire(torch.zeros_like(to_right), mesh)
+    right = _to_wire(torch.zeros_like(to_left), mesh)
+    ops = []
+    if mesh.rank > 0:
+        ops += [dist.P2POp(dist.isend, _to_wire(to_left, mesh),
+                           mesh.rank - 1, mesh.group),
+                dist.P2POp(dist.irecv, left, mesh.rank - 1, mesh.group)]
+    if mesh.rank < mesh.size - 1:
+        ops += [dist.P2POp(dist.isend, _to_wire(to_right, mesh),
+                           mesh.rank + 1, mesh.group),
+                dist.P2POp(dist.irecv, right, mesh.rank + 1, mesh.group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return _from_wire(left, to_right), _from_wire(right, to_left)
+
+
 def halo_planes(a: torch.Tensor, h: int, mesh: Mesh):
     """(from_left, from_right): the h planes next to this shard's slab on
     its -x and +x side.  The x axis is dim ndim-3, so (Lx, Y, Z) fields and
@@ -44,24 +70,8 @@ def halo_planes(a: torch.Tensor, h: int, mesh: Mesh):
     if not 0 < h <= a.shape[ax]:
         raise ValueError(f"halo of {h} planes from a slab of "
                          f"{a.shape[ax]} rows")
-    first = a.narrow(ax, 0, h)
-    last = a.narrow(ax, a.shape[ax] - h, h)
-    if mesh.size == 1:
-        return torch.zeros_like(last), torch.zeros_like(first)
-    left = _to_wire(torch.zeros_like(last), mesh)
-    right = _to_wire(torch.zeros_like(first), mesh)
-    ops = []
-    if mesh.rank > 0:
-        ops += [dist.P2POp(dist.isend, _to_wire(first, mesh), mesh.rank - 1,
-                           mesh.group),
-                dist.P2POp(dist.irecv, left, mesh.rank - 1, mesh.group)]
-    if mesh.rank < mesh.size - 1:
-        ops += [dist.P2POp(dist.isend, _to_wire(last, mesh), mesh.rank + 1,
-                           mesh.group),
-                dist.P2POp(dist.irecv, right, mesh.rank + 1, mesh.group)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return _from_wire(left, a), _from_wire(right, a)
+    return ppermute_neighbours(a.narrow(ax, 0, h),
+                               a.narrow(ax, a.shape[ax] - h, h), mesh)
 
 
 def halo_extend(a: torch.Tensor, h: int, mesh: Mesh) -> torch.Tensor:

@@ -6,29 +6,36 @@ each, with `init_method` a fresh file rendezvous for `make_mesh`, and
 returns the ranks' results in rank order.  A rank that raises, dies or
 outlives the timeout fails the whole run: the others are killed and
 RuntimeError (TimeoutError for the timeout) carries the first failure.
+
+A run leaves no process behind.  Each rank answers through a pipe of its
+own (no queue, so no semaphore for multiprocessing's resource tracker to
+watch), and once the ranks are joined the tracker, a helper process that
+spawning starts, is stopped and reaped: left alone it would outlive its
+parent by a moment.
 """
 
 from __future__ import annotations
 
 import multiprocessing as mp
-import queue
 import tempfile
 import time
 import traceback
+from multiprocessing import resource_tracker
+from multiprocessing.connection import wait
 from pathlib import Path
 
 
-def _rank_main(fn, rank, n_ranks, init_method, args, results):
+def _rank_main(fn, rank, n_ranks, init_method, args, conn):
     try:
         out = fn(rank, n_ranks, init_method, *args)
     except BaseException:
-        results.put((rank, False, traceback.format_exc()))
+        conn.send((False, traceback.format_exc()))
         raise
     finally:
         import torch.distributed as dist
         if dist.is_initialized():
             dist.destroy_process_group()
-    results.put((rank, True, out))
+    conn.send((True, out))
 
 
 def _stop(procs) -> None:
@@ -47,36 +54,44 @@ def run_ranks(fn, n_ranks: int, *args, timeout: float = 120.0,
     with tempfile.TemporaryDirectory(dir=workdir) as tmp:
         init_method = (Path(tmp) / "rendezvous").as_uri()
         ctx = mp.get_context("spawn")
-        results = ctx.Queue()
-        procs = [ctx.Process(target=_rank_main, daemon=True,
-                             args=(fn, r, n_ranks, init_method, args,
-                                   results))
-                 for r in range(n_ranks)]
-        for p in procs:
-            p.start()
+        procs, pending = [], {}
         out = {}
-        deadline = time.monotonic() + timeout
         try:
-            while len(out) < n_ranks:
+            for r in range(n_ranks):
+                recv, send = ctx.Pipe(duplex=False)
+                p = ctx.Process(target=_rank_main, daemon=True,
+                                args=(fn, r, n_ranks, init_method, args,
+                                      send))
+                p.start()
+                send.close()
+                procs.append(p)
+                pending[recv] = r
+            deadline = time.monotonic() + timeout
+            while pending:
                 left = deadline - time.monotonic()
                 if left <= 0:
                     raise TimeoutError(
-                        f"ranks {sorted(set(range(n_ranks)) - set(out))} "
-                        f"did not finish within {timeout} s")
-                try:
-                    rank, ok, payload = results.get(timeout=min(left, 1.0))
-                except queue.Empty:
-                    dead = [r for r, p in enumerate(procs)
-                            if r not in out and p.exitcode not in (None, 0)]
-                    if dead:
-                        raise RuntimeError(f"rank {dead[0]} exited with "
-                                           f"code {procs[dead[0]].exitcode}")
-                    continue
-                if not ok:
-                    raise RuntimeError(f"rank {rank} failed:\n{payload}")
-                out[rank] = payload
+                        f"ranks {sorted(pending.values())} did not finish "
+                        f"within {timeout} s")
+                for conn in wait(list(pending), timeout=left):
+                    rank = pending.pop(conn)
+                    try:
+                        ok, payload = conn.recv()
+                    except EOFError:
+                        procs[rank].join(10)
+                        raise RuntimeError(
+                            f"rank {rank} exited with code "
+                            f"{procs[rank].exitcode}") from None
+                    finally:
+                        conn.close()
+                    if not ok:
+                        raise RuntimeError(f"rank {rank} failed:\n{payload}")
+                    out[rank] = payload
             for p in procs:
                 p.join(timeout=max(1.0, deadline - time.monotonic()))
         finally:
             _stop(procs)
+            for conn in pending:
+                conn.close()
+            resource_tracker._resource_tracker._stop()
     return [out[r] for r in range(n_ranks)]

@@ -4,9 +4,16 @@
 JAX puts every shard of one program on a 1-D device mesh; here each shard
 is a process of a process group.  `make_mesh` joins the group and names the
 shard's device, `shard_state` cuts a full state into this shard's part as
-`state_pspecs` lays it out (3-D fields in x-slabs, particles by index,
-`step` and `dropped` replicated), and `gather_state` puts the parts back
-together on every rank, as `jax.device_get` does for a sharded state.
+`state_pspecs` lays it out for index-sharded particles (3-D fields in
+x-slabs, particles by index, `step` and `dropped` replicated), and
+`gather_state` puts the parts back together on every rank, as
+`jax.device_get` does for a sharded state.
+
+With domain-sharded particles (`particles_domain.domain_shard_state`) the
+3-D fields are cut the same way, but each shard's `positions` and `active`
+are a segment of `slots` rows holding the particles of its x-slab, with the
+same `slots` on every shard: `gather_state` then returns n * slots rows,
+the segments in rank order, as JAX's domain layout has them.
 
 Transport: an `nccl` group sends device tensors.  A `gloo` group sends host
 tensors, so on a CUDA device every halo plane and collective buffer is
@@ -95,8 +102,9 @@ def make_mesh(n_shards: int, rank: int = 0, init_method: str | None = None,
 
 
 def shard_state(state: FluidState, rank: int, n_shards: int) -> FluidState:
-    """Shard `rank`'s part of a full state: the x-slabs of the 3-D fields,
-    the particle index chunk, `step` and `dropped` as they are."""
+    """Shard `rank`'s part of a full state with index-sharded particles:
+    the x-slabs of the 3-D fields, the particle index chunk, `step` and
+    `dropped` as they are."""
     parts = {}
     for name in FluidState._fields:
         a = getattr(state, name)

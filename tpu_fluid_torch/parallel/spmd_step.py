@@ -9,19 +9,31 @@ clamps, the i_x != 0 tests).  Where `kernel_choice` picks the kernels, the
 kernel stages run their halo forms: K1 (advection), K2's sharded passes
 (Jacobi), K6a-c (the fused grid groups, where `fuse_grid_choice` holds and
 the slab has 2 rows or more) and K5 (the surface fields, where the
-detailed slab is at least steps + 1 rows wide).  Particles are split by
-index: each shard gathers the whole velocity field, moves its particles
-through K3+K4, scatters their occupancy over the whole detailed grid, and
-the shards' occupancies are summed with a psum_scatter onto the x-slabs.
+detailed slab is at least steps + 1 rows wide).
 
-Every stage adds in the single-device order, so the gathered state equals
-the single-device step's bitwise (tests/test_torch_spmd.py).
+Particles (stages 14-15) follow `cfg.particle_sharding`:
+  - "index" (the default): `mesh.shard_state` splits them by index; each
+    shard gathers the whole velocity field, moves its particles through
+    K3+K4, scatters their occupancy over the whole detailed grid, and the
+    shards' occupancies are summed with a psum_scatter onto the x-slabs.
+  - "domain": `particles_domain.domain_shard_state` puts each particle on
+    the shard that owns its x-slab; each shard moves its particles through
+    K3+K4's local-slab form on its edge-replicated slab, `migrate` hands
+    the border crossers to the neighbours, and the occupancy is scattered
+    onto the local detailed slab.  No all_gather and no psum_scatter run.
+
+Every stage adds in the single-device order, so the gathered grid fields
+equal the single-device step's bitwise, and so do the particles: in slot
+order under index sharding, as a set under domain sharding
+(tests/test_torch_spmd.py, tests/test_torch_particles_domain.py).
 
 Communication per step (n shards, grid (X, Y, Z), detailed (DX, DY, DZ)):
 one plane pair per radius-1 stage, k planes per Jacobi pass
-(ceil(iters / k) passes), steps + 1 detailed planes for K5, an all_gather
-of the velocity (3 X Y Z f32) and a psum_scatter of the detailed occupancy
-(DX DY DZ u8).
+(ceil(iters / k) passes), steps + 1 detailed planes for K5; then, with
+index sharding, an all_gather of the velocity (3 X Y Z f32) and a
+psum_scatter of the detailed occupancy (DX DY DZ u8); with domain
+sharding, one velocity plane a side, two (m, 3) f32 migration buffers and
+their (m,) int32 flags a direction, and a psum of the drop count.
 """
 
 from __future__ import annotations
@@ -39,9 +51,11 @@ from tpu_fluid_torch.kernels.advect import (advect_all_halo_cuda,
 from tpu_fluid_torch.ops.stencil import AXIS_MOVES, MOVES, neighbor_sum
 from tpu_fluid_torch.ops.stencil import shifted
 from tpu_fluid_torch.parallel.halo import (all_gather_x, halo_extend,
-                                           halo_inner, halo_planes,
+                                           halo_inner, halo_planes, psum,
                                            psum_scatter_x)
 from tpu_fluid_torch.parallel.mesh import Mesh
+from tpu_fluid_torch.parallel.particles_domain import (
+    detailed_occupancy_local, migrate, migrate_capacity, move_particles_local)
 from tpu_fluid_torch.stages import celltypes, particles, pressure
 from tpu_fluid_torch.stages import surface_fields
 from tpu_fluid_torch.stages import velocity as vstages
@@ -237,14 +251,28 @@ def _local_step(state: FluidState, cfg: FluidConfig,
             halo_extend(types, 1, mesh), halo_extend(p, 1, mesh),
             halo_extend(vel, 1, mesh), cfg))
 
-    # 14-15, particles split by index: every shard gathers the velocity
-    # field, moves its particles, scatters their occupancy over the whole
-    # detailed grid; the sum over shards lands on the x-slabs
-    vel_full = all_gather_x(vel, mesh, axis=1)
-    pos = particles.move_particles(vel_full, state.positions, state.active,
-                                   cfg)
-    occ_full = particles.detailed_occupancy(pos, state.active, cfg)
-    occ = (psum_scatter_x(occ_full, mesh) > 0).to(torch.uint8)
+    # 14-15
+    if cfg.particle_sharding == "domain":
+        # each shard moves the particles of its slab, hands the border
+        # crossers to its neighbours and scatters onto its detailed slab
+        pos = move_particles_local(vel, state.positions, state.active, cfg,
+                                   x0, mesh)
+        pos, active, ndrop = migrate(pos, state.active, x0, lx,
+                                     migrate_capacity(pos.shape[0], cfg),
+                                     mesh)
+        dropped = state.dropped + psum(ndrop, mesh)
+        r = cfg.surface_render_resolution
+        occ = detailed_occupancy_local(pos, active, cfg, x0 * r, lx * r)
+    else:
+        # particles split by index: every shard gathers the velocity field,
+        # moves its particles, scatters their occupancy over the whole
+        # detailed grid; the sum over shards lands on the x-slabs
+        active, dropped = state.active, state.dropped
+        vel_full = all_gather_x(vel, mesh, axis=1)
+        pos = particles.move_particles(vel_full, state.positions, active,
+                                       cfg)
+        occ_full = particles.detailed_occupancy(pos, active, cfg)
+        occ = (psum_scatter_x(occ_full, mesh) > 0).to(torch.uint8)
 
     # 16-18
     if cfg.surface_enabled:
@@ -276,10 +304,10 @@ def _local_step(state: FluidState, cfg: FluidConfig,
         float_dens_1=f1,
         float_dens_2=f2,
         positions=pos,
-        active=state.active,
+        active=active,
         detailed_occ=occ,
         step=state.step + 1,
-        dropped=state.dropped,
+        dropped=dropped,
     )
 
 
@@ -292,11 +320,15 @@ def validate_spmd_config(cfg: FluidConfig, n_shards: int) -> None:
         raise ValueError(f"grid x size {gx} must divide the mesh "
                          f"({n_shards} shards)")
     if cfg.particle_sharding == "domain":
-        raise NotImplementedError("particle_sharding='domain' is not ported")
-    if cfg.particle_sharding != "index":
+        # every shard allocates the same slots (domain_shard_state), and
+        # the local move samples a slab-local packed table
+        if cfg.particle_sampler != "packed":
+            raise ValueError("particle_sharding='domain' requires the "
+                             "packed sampler")
+    elif cfg.particle_sharding != "index":
         raise ValueError(f"unknown particle_sharding "
                          f"{cfg.particle_sharding!r}")
-    if cfg.particle_count % n_shards:
+    elif cfg.particle_count % n_shards:
         raise ValueError(f"particle_count {cfg.particle_count} must divide "
                          f"the mesh ({n_shards} shards)")
     lx = gx // n_shards
@@ -311,7 +343,8 @@ def validate_spmd_config(cfg: FluidConfig, n_shards: int) -> None:
 
 def spmd_step(cfg: FluidConfig, mesh: Mesh, scene=None):
     """This shard's step: a function local_state -> local_state over the
-    slabs `mesh/shard_state` cuts, run with autograd off.  Every shard of
+    slabs `mesh.shard_state` cuts (`particles_domain.domain_shard_state`
+    with domain-sharded particles), run with autograd off.  Every shard of
     the mesh calls its own in lockstep."""
     validate_spmd_config(cfg, mesh.size)
     if scene is not None:
