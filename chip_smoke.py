@@ -8,8 +8,15 @@ Phases, one line each (more for the parity and scene phases):
   2 build     compile the CUDA kernels from tpu_fluid_torch/csrc
   3 parity    each kernel against its plain PyTorch version on the card, at
               the shapes of the three scenes (K6 at the large one only), on
-              numpy-seeded inputs: every output must match bitwise
-              (tolerance 0); times by CUDA events
+              numpy-seeded inputs, and K2 and K5 also at two odd non-cubic
+              shapes (5 and 199 sweeps; 0, 1, 4 and 12 blur passes, u8
+              and int32 inertia): every output must match bitwise
+              (tolerance 0); times by CUDA events beside each call's bound
+              (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s);
+              and the kernel launches each K2 and K5 call makes, read from
+              the C counters: one for K2's one-block route (20^3) and for
+              K5 up to 8 blur passes (12 take two), one a pass of k >= 2
+              sweeps on K2's blocked route
   4 reference FluidConfig.reference_scene() (20^3, 1M particles), 20 steps,
               invariants; then 3 steps with the kernels and 3 with
               pallas_mode="off" from the same state must agree
@@ -51,8 +58,10 @@ Phases, one line each (more for the parity and scene phases):
               and the host-staged transport of each step: the halo planes
               beside the migration exchange.
 The line before the last is a JSON object with the kernels' numbers (times
-at the large scene, the halo forms' and the local-slab form's at shard 1 of
-phases 8 and 9); the last line is {"ok": true, "device": {...}}.  Any
+and bounds at the large scene, the halo forms' and the local-slab form's at
+shard 1 of phases 8 and 9; library_ms is null: no single PyTorch call
+computes any of these functions); the last line is
+{"ok": true, "device": {...}}.  Any
 failed check raises, so the script then exits nonzero without that line;
 without CUDA it exits 2.
 """
@@ -76,6 +85,7 @@ LARGE_COMPARE_STEPS = 2
 SHARDS = 4
 SHARDED_STEPS = 2
 PARITY_SHARDS = (0, 1, 3)
+ODD_SHAPES = ((13, 22, 17), (37, 45, 29))
 RANK_TIMEOUT = 480.0
 # f32 tolerances of the kernel path against pallas_mode="off" where the two
 # are not bitwise equal (tests/test_full_step_oracle.py)
@@ -126,6 +136,65 @@ STRAGGLERS = 20_000
 # scene alone falls straight down, so no particle would cross a border in
 # 2 steps and the migration exchange would carry nothing
 BORDER_FORCE = 20000.0
+
+
+# The bound of a kernel call (kernels' "bound_ms"): the larger of the bytes
+# it must move (each tensor argument read once, each output written once)
+# over the H100's 3.35 TB/s and its f32 operations over 67 TFLOP/s (the
+# published SXM peaks at 700 W).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def _pass_ops(args, kw, outs):
+    """K2's sharded pass: kk sweeps on the trapezoid of an (lx + 2h)-row
+    slab, 7 operations a cell a sweep."""
+    q, h, kk = args[0], args[3], args[4]
+    plane = q.shape[1] * q.shape[2]
+    lx = q.shape[0] - 2 * h
+    return 7 * plane * sum(lx + 2 * (kk - s) for s in range(1, kk + 1))
+
+
+# f32 operations a call needs, counted from each kernel's arithmetic (adds,
+# multiplies, divisions, min/max; index and integer work not counted):
+# K1 65 a component a cell (face velocity, clamped back-trace, 8 weighted
+# taps); K2 7 a cell a sweep (5 adds, a multiply, an add); K3+K4 110 a
+# particle (hat weights, 24 weighted taps, the move); K5 4 a cell for the
+# signed field and 8 a cell a blur pass; K6a 15, K6b 15 and K6c 9 a cell.
+OPS = {
+    "advect_all_cuda": lambda a, kw, o: 65 * o[0].numel(),
+    "jacobi_sweeps_cuda": lambda a, kw, o: 7 * a[0].numel() * a[3],
+    "jacobi_pass_cuda": _pass_ops,
+    "particle_move_cuda": lambda a, kw, o: 110 * o[0].shape[0],
+    "surface_fused_cuda": lambda a, kw, o: (4 + 8 * kw["steps"])
+    * o[1].numel(),
+    "classify_extrap_cuda": lambda a, kw, o: 15 * o[0].numel(),
+    "forces_solids_div_cuda": lambda a, kw, o: 15 * o[1].numel(),
+    "project_cuda": lambda a, kw, o: 3 * o[0].numel(),
+}
+for _name in ("advect_all", "surface_fused", "classify_extrap",
+              "forces_solids_div", "project"):
+    OPS[f"{_name}_halo_cuda"] = OPS[f"{_name}_cuda"]
+OPS["particle_move_local_cuda"] = OPS["particle_move_cuda"]
+
+
+def tensor_bytes(obj) -> int:
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, (tuple, list)):
+        return sum(tensor_bytes(o) for o in obj)
+    if isinstance(obj, dict):
+        return sum(tensor_bytes(o) for o in obj.values())
+    return 0
+
+
+def bound(name: str, args, kw, outs) -> tuple:
+    """(bound_ms, "bytes" or "operations") of one call from its inputs and
+    outputs."""
+    byte_ms = (tensor_bytes(args) + tensor_bytes(kw) + tensor_bytes(outs)) \
+        / HBM_BYTES_PER_S * 1e3
+    op_ms = OPS[name](args, kw, outs) / F32_OPS_PER_S * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
 
 class CheckFailed(RuntimeError):
@@ -259,28 +328,142 @@ def kernel_cases(device, scenes):
     return cases
 
 
+def odd_cases(device):
+    """K2 and K5 at odd non-cubic shapes: K2 on its one-block route
+    (13, 22, 17) and its blocked route (37, 45, 29), 5 sweeps (a remainder
+    pass) and 199; K5 with 0, 1 and 4 blur passes, and int32 inertia, and
+    with 12 (a second launch of blur passes only)."""
+    from tpu_fluid_torch import FluidConfig
+    from tpu_fluid_torch.kernels.jacobi import (jacobi_sweeps_cuda,
+                                                jacobi_sweeps_plain)
+    from tpu_fluid_torch.kernels.surface_fused import (surface_fused_cuda,
+                                                       surface_fused_plain)
+    from tpu_fluid_torch.stages.pressure import jacobi_fold
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    cfg = FluidConfig()
+    cases = []
+    for shape in ODD_SHAPES:
+        rng = np.random.default_rng(SEED + 20)
+        types = np.where(rng.random(shape) < 0.4, 2, 1).astype(np.uint8)
+        types[0], types[-1], types[:, 0], types[:, -1] = (3,) * 4
+        types[:, :, 0], types[:, :, -1] = 3, 3
+        rhs = (rng.standard_normal(shape) * 100).astype(np.float32)
+        _, q0, code, c2 = jacobi_fold(t(types), t(rhs), cfg,
+                                      cfg.air_pressure)
+        for n in (5, 199):
+            cases.append((f"{shape} n={n}", jacobi_sweeps_cuda,
+                          jacobi_sweeps_plain, (q0, code, c2, n), {}))
+        for steps, dtype, top in ((0, np.uint8, 100), (1, np.uint8, 100),
+                                  (4, np.uint8, 100), (4, np.int32, 300),
+                                  (12, np.uint8, 100)):
+            kw = dict(steps=steps, k=cfg.float_density_diffuse_coefficient,
+                      inc_filled=cfg.inertia_increase_filled,
+                      inc_neigh=cfg.inertia_increase_neighbour,
+                      required_hits=cfg.inertia_required_neighbour_hits,
+                      dec=cfg.inertia_decrease, max_inertia=top,
+                      div_coef=cfg.float_density_division_coefficient)
+            fields = (t((rng.random(shape) < 0.3).astype(np.uint8)),
+                      t(rng.integers(0, top + 1, shape).astype(dtype)),
+                      t(rng.standard_normal(shape).astype(np.float32)),
+                      t((rng.random(shape) < 0.2).astype(np.uint8)))
+            cases.append((f"{shape} steps={steps} {np.dtype(dtype).name}",
+                          surface_fused_cuda, surface_fused_plain, fields,
+                          kw))
+    return cases
+
+
+def expected_device_launches(kernel, args, kw) -> tuple:
+    """(C launches one call of K2 or K5 must make, the route) from the
+    wrapper's plan."""
+    from tpu_fluid_torch.kernels import build, tiling
+    sms = build.sm_count(args[0].device.index)
+    if kernel.__name__ == "jacobi_sweeps_cuda":
+        plan = tiling.jacobi_plan(args[0].shape, args[3], sms=sms)
+        return (1 if plan.route == "whole" else len(plan.passes)), \
+            f"{plan.route} k={max((p.levels for p in plan.passes), default=0)}"
+    if kernel.__name__ == "jacobi_pass_cuda":
+        plan = tiling.jacobi_plan(args[0].shape, args[4], halo=args[3],
+                                  sms=sms)
+        return len(plan.passes), f"pass k={args[4]}"
+    steps = kw["steps"]
+    h = steps + 1 if "halos" in kw else 0
+    plan = tiling.surface_plan((args[0].shape[0] + 2 * h,) + args[0].shape[1:],
+                               steps, halo=h, sms=sms)
+    return len(plan), f"steps={steps}"
+
+
+def device_launch_counter(kernel):
+    """The C launch counter behind K2's and K5's wrappers, else None."""
+    from tpu_fluid_torch.kernels import jacobi, surface_fused
+    name = kernel.__name__
+    if name.startswith("jacobi_"):
+        return jacobi.device_launches
+    if name.startswith("surface_fused"):
+        return surface_fused.device_launches
+    return None
+
+
+def run_case(label: str, kernel, plain, args, kw, reps: int) -> dict:
+    """Hold one kernel call against its plain version bitwise; time both;
+    compute the bound; for K2 and K5, count the launches the call made."""
+    name = kernel.__name__
+    counter = device_launch_counter(kernel)
+    before = counter() if counter else None
+    got = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    launched = counter() - before if counter else None
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max(max_abs_err(a, b) for a, b in zip(got, want))
+    bitwise = all(a.dtype == b.dtype and torch.equal(a, b)
+                  for a, b in zip(got, want))
+    ms = time_ms(lambda: kernel(*args, **kw), reps=reps)
+    plain_ms = time_ms(lambda: plain(*args, **kw), reps=3, warmup=1)
+    bound_ms, bound_by = bound(name, args, kw, got)
+    extra = ""
+    if counter:
+        want_n, route = expected_device_launches(kernel, args, kw)
+        extra = f" launches={launched} ({route})"
+        check(launched == want_n, f"{name} {label}: {launched} kernel "
+                                  f"launches, the plan has {want_n}")
+    print(f"[{label}] {name} shapes={[tuple(a.shape) for a in got]} "
+          f"max_abs_err={err!r} bitwise={bitwise} (tolerance 0) "
+          f"kernel_ms={ms!r} plain_ms={plain_ms!r} bound_ms={bound_ms!r} "
+          f"({bound_by}) share={bound_ms / ms!r}{extra}", flush=True)
+    check(bitwise, f"{name} {label} differs from its plain version (max "
+                   f"abs err {err!r})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err, "launches": launched}
+
+
 def phase_parity(device, scenes) -> dict:
+    from tpu_fluid_torch.kernels.jacobi import jacobi_sweeps_cuda
+    from tpu_fluid_torch.kernels.surface_fused import surface_fused_cuda
     results = {}
     for scene, kernel, plain, args, kw in kernel_cases(device, scenes):
         name = kernel.__name__
-        got, want = kernel(*args, **kw), plain(*args, **kw)
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = max(max_abs_err(a, b) for a, b in zip(got, want))
-        bitwise = all(a.dtype == b.dtype and torch.equal(a, b)
-                      for a, b in zip(got, want))
-        ms = time_ms(lambda: kernel(*args, **kw), reps=20)
-        plain_ms = time_ms(lambda: plain(*args, **kw), reps=3, warmup=1)
-        print(f"[3 parity] {name} {scene} shapes="
-              f"{[tuple(a.shape) for a in got]} max_abs_err={err!r} "
-              f"bitwise={bitwise} (tolerance 0) kernel_ms={ms!r} "
-              f"plain_ms={plain_ms!r}", flush=True)
-        check(bitwise, f"{name} at the {scene} scene differs from its plain "
-                       f"version (max abs err {err!r})")
+        r = run_case(f"3 parity {scene}", kernel, plain, args, kw, 20)
         entry = results.setdefault(name, {"max_abs_err": 0.0})
-        entry["max_abs_err"] = max(entry["max_abs_err"], err)
-        entry[scene] = (ms, plain_ms)
+        entry["max_abs_err"] = max(entry["max_abs_err"], r["max_abs_err"])
+        entry[scene] = r
+    k2 = results["jacobi_sweeps_cuda"]
+    check(k2["reference"]["launches"] == 1,
+          "the one-block route did not solve 20^3 in one launch")
+    check(all(199 / k2[s]["launches"] >= 2 for s in ("bench", "large")),
+          "the blocked route ran fewer than 2 sweeps a launch")
+    check(all(results["surface_fused_cuda"][s]["launches"] == 1
+              for s, _ in scenes), "K5 took more than one launch")
+    for label, kernel, plain, args, kw in odd_cases(device):
+        r = run_case(f"3 parity odd {label}", kernel, plain, args, kw, 10)
+        entry = results[kernel.__name__]
+        entry["max_abs_err"] = max(entry["max_abs_err"], r["max_abs_err"])
+    check(jacobi_sweeps_cuda.launches > 0 and surface_fused_cuda.launches > 0,
+          "K2 or K5 never launched in phase 3")
     return results
 
 
@@ -511,24 +694,11 @@ def phase_halo_parity(device, cfg) -> dict:
     results = {}
     for kernel, plain, args, kw, shard in halo_cases(device, cfg):
         name = kernel.__name__
-        got, want = kernel(*args, **kw), plain(*args, **kw)
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = max(max_abs_err(a, b) for a, b in zip(got, want))
-        bitwise = all(a.dtype == b.dtype and torch.equal(a, b)
-                      for a, b in zip(got, want))
-        ms = time_ms(lambda: kernel(*args, **kw), reps=10)
-        plain_ms = time_ms(lambda: plain(*args, **kw), reps=3, warmup=1)
-        print(f"[8 parity] {name} shard {shard}/{SHARDS} shapes="
-              f"{[tuple(a.shape) for a in got]} max_abs_err={err!r} "
-              f"bitwise={bitwise} (tolerance 0) kernel_ms={ms!r} "
-              f"plain_ms={plain_ms!r}", flush=True)
-        check(bitwise, f"{name} at shard {shard} differs from its plain "
-                       f"version (max abs err {err!r})")
+        r = run_case(f"8 parity shard {shard}/{SHARDS}", kernel, plain, args,
+                     kw, 10)
         entry = results.setdefault(name, {"max_abs_err": 0.0})
-        entry["max_abs_err"] = max(entry["max_abs_err"], err)
-        entry[shard] = (ms, plain_ms)
+        entry["max_abs_err"] = max(entry["max_abs_err"], r["max_abs_err"])
+        entry[shard] = r
     return results
 
 
@@ -688,23 +858,14 @@ def phase_local_parity(device, cfg, state0) -> dict:
         particle_move_local_cuda, particle_move_local_plain)
     results = {"max_abs_err": 0.0}
     for shard, args in local_move_cases(device, cfg, state0):
-        got = particle_move_local_cuda(*args)
-        want = particle_move_local_plain(*args)
-        torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        bitwise = got.dtype == want.dtype and torch.equal(got, want)
-        ms = time_ms(lambda: particle_move_local_cuda(*args), reps=20)
-        plain_ms = time_ms(lambda: particle_move_local_plain(*args), reps=3,
-                           warmup=1)
-        print(f"[9 parity] particle_move_local_cuda shard {shard}/{SHARDS} "
-              f"vel_e={tuple(args[0].shape)} particles={args[1].shape[0]} "
-              f"(active {int(args[2].sum())}) max_abs_err={err!r} "
-              f"bitwise={bitwise} (tolerance 0) kernel_ms={ms!r} "
-              f"plain_ms={plain_ms!r}", flush=True)
-        check(bitwise, f"particle_move_local_cuda at shard {shard} differs "
-                       f"from its plain version (max abs err {err!r})")
-        results["max_abs_err"] = max(results["max_abs_err"], err)
-        results[shard] = (ms, plain_ms)
+        r = run_case(f"9 parity shard {shard}/{SHARDS} vel_e="
+                     f"{tuple(args[0].shape)} particles={args[1].shape[0]} "
+                     f"(active {int(args[2].sum())})",
+                     particle_move_local_cuda, particle_move_local_plain,
+                     args, {}, 20)
+        results["max_abs_err"] = max(results["max_abs_err"],
+                                     r["max_abs_err"])
+        results[shard] = r
     return results
 
 
@@ -1025,28 +1186,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     domain_launches = phase_domain(domain_cfg, card, device)
 
-    kernels = []
-    for w in wrappers + fused_wrappers:
-        name = w.__name__
-        source, replaces = sources[name]
-        ms, plain_ms = parity[name]["large"]
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": parity[name]["max_abs_err"],
-                        "ms": ms, "plain_ms": plain_ms})
-    for name, (source, replaces) in HALO_SOURCES.items():
-        ms, plain_ms = halo_parity[name][1]
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces,
-                        "launches": sharded_launches[name],
-                        "max_abs_err": halo_parity[name]["max_abs_err"],
-                        "ms": ms, "plain_ms": plain_ms})
-    ms, plain_ms = local_parity[1]
-    kernels.append({"name": "particle_move_local_cuda", "route": "cuda",
-                    "source": LOCAL_SOURCE[0], "replaces": LOCAL_SOURCE[1],
-                    "launches": domain_launches["particle_move_local_cuda"],
-                    "max_abs_err": local_parity["max_abs_err"],
-                    "ms": ms, "plain_ms": plain_ms})
+    def entry(name, source, replaces, n, results, key):
+        r = results[key]
+        # no single PyTorch call computes any of these functions
+        # (F.conv3d: an unmasked 6-neighbour sum; F.grid_sample: the
+        # trilinear part of K1 and K3+K4 only), so library_ms is null
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n,
+                "max_abs_err": results["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None}
+
+    kernels = [entry(w.__name__, *sources[w.__name__],
+                     launches[w.__name__], parity[w.__name__], "large")
+               for w in wrappers + fused_wrappers]
+    kernels += [entry(name, source, replaces, sharded_launches[name],
+                      halo_parity[name], 1)
+                for name, (source, replaces) in HALO_SOURCES.items()]
+    kernels.append(entry("particle_move_local_cuda", *LOCAL_SOURCE,
+                         domain_launches["particle_move_local_cuda"],
+                         local_parity, 1))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

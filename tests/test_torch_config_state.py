@@ -97,7 +97,7 @@ def _assert_state_matches(port, jax_state):
 @pytest.mark.parametrize("kw", [SMALL, MULTI,
                                 dict(SMALL, max_inertia=300)])
 def test_initial_state_matches_jax(kw):
-    _assert_state_matches(initial_state(FluidConfig(**kw)),
+    _assert_state_matches(initial_state(FluidConfig(**kw), device="cpu"),
                           jax_initial_state(JaxConfig(**kw)))
 
 
@@ -105,14 +105,14 @@ def test_initial_state_reference_cube_prefix():
     """The reference scene's spawn math on a prefix of its ids: the id
     arithmetic (int64 here, uint32 in JAX) places the same particles."""
     kw = dict(particle_count=20_000, surface_render_resolution=1)
-    _assert_state_matches(initial_state(FluidConfig(**kw)),
+    _assert_state_matches(initial_state(FluidConfig(**kw), device="cpu"),
                           jax_initial_state(JaxConfig(**kw)))
 
 
 def test_state_numpy_round_trip_from_jax():
     jax_state = jax_initial_state(JaxConfig(**SMALL))
     arrays = {k: np.asarray(v) for k, v in jax_state._asdict().items()}
-    port = state_from_numpy(arrays)
+    port = state_from_numpy(arrays, device="cpu")
     assert port.positions.is_contiguous() and port.active.dtype == torch.bool
     back = state_to_numpy(port)
     for name, value in arrays.items():

@@ -435,7 +435,33 @@ def halo_calls(device):
         _, vel_e, pos, act, x0, _ = local_particle_case(shard, 70 + shard)
         calls.append((particle_move_local_cuda, particle_move_local_plain,
                       (dev(vel_e), dev(pos), dev(act), 0.01, x0, GRID), {}))
+    # the first shard too, K5 with 0, 1 and 12 blur passes (12: a second
+    # launch of blur passes only), and K2 passes of 5, 10 and 7 sweeps (2, 3
+    # and 2 launches of at most 4)
+    for shard, steps, h, kk in ((0, 0, 8, 5), (1, 1, 10, 10),
+                                (2, 4, 10, 10), (2, 12, 8, 7)):
+        fields, kw = surface_case(steps, 80 + shard)
+        parts = [slab(a, shard, h=steps + 1) for a in fields]
+        calls.append((surface_fused_halo_cuda, surface_fused_halo_plain,
+                      tuple(dev(q[0]) for q in parts),
+                      dict(halos=tuple((dev(q[1][0]), dev(q[1][1]))
+                                       for q in parts),
+                           x0=shard * fields[0].shape[0] // N_SHARDS,
+                           global_gx=fields[0].shape[0], **kw)))
+        r = np.random.default_rng(90 + shard)
+        _, q0, code, c2 = jacobi_fold(
+            T(random_types(r, GRID)),
+            T((r.standard_normal(GRID) * 50).astype(np.float32)),
+            FluidConfig(), 1.0)
+        ext = [torch.cat([T(q[1][0]), T(q[0]), T(q[1][1])]).to(device)
+               for q in (slab(a.numpy(), shard, h=h)
+                         for a in (q0, code, fold_c2e(q0, code, c2)))]
+        calls.append((jacobi_pass_cuda, jacobi_pass_plain,
+                      tuple(ext) + (h, kk), {}))
     return calls
+
+
+N_HALO_CALLS = 22
 
 
 @pytest.fixture
@@ -447,7 +473,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", range(14))
+@pytest.mark.parametrize("case", range(N_HALO_CALLS))
 def test_cuda_halo_kernel_matches_plain_bitwise(cuda_device, case):
     wrapper, plain, args, kw = halo_calls(cuda_device)[case]
     before = wrapper.launches
@@ -460,7 +486,7 @@ def test_cuda_halo_kernel_matches_plain_bitwise(cuda_device, case):
         assert g.device == cuda_device and torch.equal(g, w)
 
 
-@pytest.mark.parametrize("case", range(14))
+@pytest.mark.parametrize("case", range(N_HALO_CALLS))
 def test_halo_wrapper_on_cpu_runs_plain_version_without_launch(case):
     wrapper, plain, args, kw = halo_calls("cpu")[case]
     before = wrapper.launches

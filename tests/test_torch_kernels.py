@@ -82,9 +82,10 @@ def advect_inputs(shape, seed):
 
 
 def jacobi_inputs(n, seed):
+    shape = n if isinstance(n, tuple) else (n, n, n)
     r = np.random.default_rng(seed)
-    types = T(random_types(r, (n, n, n)))
-    rhs = T((r.standard_normal((n, n, n)) * 50).astype(np.float32))
+    types = T(random_types(r, shape))
+    rhs = T((r.standard_normal(shape) * 50).astype(np.float32))
     _, q0, code, c2 = jacobi_fold(types, rhs, FluidConfig(), 1.0)
     return q0, code, c2
 
@@ -269,8 +270,19 @@ def test_surface_plain_noncubic_obstacles(inertia_dtype):
 
 
 # ------------------------------------------------------------------ wrappers
+# K2 and K5 at odd non-cubic shapes: K2's one-block route ((13, 22, 17))
+# and blocked route ((37, 45, 29): 37 rows), with a remainder pass (5 =
+# 4 + 1 sweeps) and a whole solve; K5 with 0, 1, 4, 6 and 8 blur passes
+# in one launch, 12 and 17 in two and three, u8 and int32 inertia
+ODD_JACOBI = [((13, 22, 17), 5), ((13, 22, 17), 199), ((37, 45, 29), 5),
+              ((37, 45, 29), 199)]
+ODD_SURFACE = [(0, np.uint8), (1, np.int32), (4, np.uint8), (4, np.int32),
+               (6, np.uint8), (8, np.int32), (12, np.uint8), (17, np.int32)]
+
+
 def _wrapper_calls(device="cpu"):
-    """(wrapper, plain, args, kwargs) at small shapes."""
+    """(wrapper, plain, args, kwargs) at small shapes, then K2 and K5 at
+    the odd shapes."""
     vel, cond3 = advect_inputs((6, 7, 8), 7)
     q0, code, c2 = jacobi_inputs(6, 8)
     pvel, pos, act = particle_inputs((6, 7, 8), 300, 9)
@@ -290,10 +302,26 @@ def _wrapper_calls(device="cpu"):
         (surface_fused_cuda, surface_fused_plain,
          dev(occ, inertia, f2, skip), surface_kw(cfg)),
     ] + [(wrapper, plain, args, {})
-         for wrapper, plain, args in grid_fused_calls(device)]
+         for wrapper, plain, args in grid_fused_calls(device)] + [
+        (jacobi_sweeps_cuda, jacobi_sweeps_plain,
+         dev(*jacobi_inputs(shape, 20 + i)) + (n,), {})
+        for i, (shape, n) in enumerate(ODD_JACOBI)] + [
+        (surface_fused_cuda, surface_fused_plain,
+         dev(*surface_inputs(odd_surface_cfg(steps, dtype), 30 + i, dtype)),
+         surface_kw(odd_surface_cfg(steps, dtype)))
+        for i, (steps, dtype) in enumerate(ODD_SURFACE)]
 
 
-@pytest.mark.parametrize("case", range(7))
+def odd_surface_cfg(steps, inertia_dtype):
+    cfg = FluidConfig(grid_size=(13, 11, 9), surface_render_resolution=2,
+                      float_density_diffuse_steps=steps)
+    return cfg.replace(max_inertia=300) if inertia_dtype == np.int32 else cfg
+
+
+N_CALLS = 7 + len(ODD_JACOBI) + len(ODD_SURFACE)
+
+
+@pytest.mark.parametrize("case", range(N_CALLS))
 def test_wrapper_on_cpu_runs_plain_version_without_launch(case):
     wrapper, plain, args, kw = _wrapper_calls()[case]
     before = wrapper.launches
@@ -353,7 +381,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", range(7))
+@pytest.mark.parametrize("case", range(N_CALLS))
 def test_cuda_kernel_matches_plain_bitwise(cuda_device, case):
     wrapper, plain, args, kw = _wrapper_calls(cuda_device)[case]
     before = wrapper.launches

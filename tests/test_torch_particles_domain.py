@@ -131,7 +131,7 @@ def _rank(rank, n, init_method):
     rank 0), the collectives and crossers counted in them, and each migrate
     case's gathered result."""
     torch.set_num_threads(1)
-    mesh = make_mesh(n, rank, init_method)
+    mesh = make_mesh(n, rank, init_method, device="cpu")
     calls = {"all_gather_x": 0, "psum_scatter_x": 0}
     for helper in calls:
         def counted(*args, _name=helper, _fn=getattr(spmd_module, helper)):
@@ -150,7 +150,8 @@ def _rank(rank, n, init_method):
     out = {}
     for name in SCENARIOS:
         cfg = cfg_of(name)
-        local = pd.domain_shard_state(initial_state(cfg), rank, n, cfg)
+        local = pd.domain_shard_state(initial_state(cfg, device="cpu"),
+                                      rank, n, cfg)
         crossers.clear()
         local = spmd_multi_step(cfg, mesh, STEPS)(local)
         full = gather_state(local, mesh)
@@ -186,7 +187,7 @@ def single():
     out = {}
     for name in SCENARIOS:
         cfg = cfg_of(name)
-        state = initial_state(cfg)
+        state = initial_state(cfg, device="cpu")
         for _ in range(STEPS):
             state = step(state, cfg)
         out[name] = state_to_numpy(state)
@@ -236,8 +237,9 @@ def test_one_shard_without_spawning_exchanges_nothing(single, monkeypatch):
                "reduce_scatter_tensor"):
         monkeypatch.setattr(torch.distributed, fn, refuse)
     cfg = cfg_of("off")
-    mesh = make_mesh(1)
-    local = pd.domain_shard_state(initial_state(cfg), 0, 1, cfg)
+    mesh = make_mesh(1, device="cpu")
+    local = pd.domain_shard_state(initial_state(cfg, device="cpu"), 0, 1,
+                                  cfg)
     local = spmd_multi_step(cfg, mesh, STEPS)(local)
     assert_matches_single(state_to_numpy(gather_state(local, mesh)),
                           single["off"], "n=1")
@@ -370,7 +372,7 @@ def test_migrate_multi_slab_crosser_one_hop_per_exchange(sharded):
 @pytest.mark.parametrize("n", [1, 2, 4, 8])
 def test_domain_shard_state_equals_jax(n):
     cfg, jcfg = cfg_of("off"), cfg_of("off", JaxConfig)
-    state = initial_state(cfg)
+    state = initial_state(cfg, device="cpu")
     parts = [pd.domain_shard_state(state, r, n, cfg) for r in range(n)]
     want = jpd.domain_shard_state(jax_initial_state(jcfg), jax_make_mesh(n),
                                   jcfg)
@@ -383,7 +385,7 @@ def test_domain_shard_state_equals_jax(n):
 
 def test_domain_shard_state_packs_by_slab():
     cfg = cfg_of("off")
-    state = initial_state(cfg)
+    state = initial_state(cfg, device="cpu")
     lx = 32 // 8
     total = 0
     for i in range(8):
@@ -403,7 +405,7 @@ def test_domain_shard_state_census_sizing_uneven_scene():
     cut to a quarter."""
     cfg = cfg_of("off").replace(particle_init_cube_offset=(4.1, 2.0, 2.0),
                                 particle_init_cube_size=(3.8, 9.0, 5.0))
-    state = initial_state(cfg)
+    state = initial_state(cfg, device="cpu")
     parts = [pd.domain_shard_state(state, i, 8, cfg) for i in range(8)]
     assert sum(int(p.active.sum()) for p in parts) == 4096   # zero drops
     assert parts[1].active.sum() == 4096
@@ -419,7 +421,7 @@ def test_domain_shard_state_flagship_scene_zero_drops():
     cfg = FluidConfig.scaled_scene(128, particle_count=1_000_000,
                                    jacobi_iters=1).replace(
         particle_sharding="domain")
-    state = initial_state(cfg)
+    state = initial_state(cfg, device="cpu")
     held = sum(int(pd.domain_shard_state(state, i, 8, cfg).active.sum())
                for i in range(8))
     assert held == 1_000_000

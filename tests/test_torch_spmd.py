@@ -97,11 +97,11 @@ def _rank(rank, n, init_method):
     """Every scenario on this rank: the gathered states (on rank 0), the
     sharded sweeps and the helpers' results."""
     torch.set_num_threads(1)
-    mesh = make_mesh(n, rank, init_method)
+    mesh = make_mesh(n, rank, init_method, device="cpu")
     out = {}
     for name in SCENARIOS:
         cfg = cfg_of(name)
-        local = shard_state(initial_state(cfg), rank, n)
+        local = shard_state(initial_state(cfg, device="cpu"), rank, n)
         local = spmd_multi_step(cfg, mesh, STEPS)(local)
         full = gather_state(local, mesh)
         out[name] = state_to_numpy(full) if rank == 0 else None
@@ -149,7 +149,7 @@ def single():
     out = {}
     for name in SCENARIOS:
         cfg = cfg_of(name)
-        state = initial_state(cfg)
+        state = initial_state(cfg, device="cpu")
         for _ in range(STEPS):
             state = step(state, cfg)
         out[name] = state_to_numpy(state)
@@ -287,9 +287,9 @@ def test_ppermute_neighbours(sharded):
 # ------------------------------------------------------------- one shard
 def test_one_shard_without_spawning_equals_single_device(single):
     cfg = cfg_of("fused")
-    mesh = make_mesh(1)
+    mesh = make_mesh(1, device="cpu")
     state = spmd_multi_step(cfg, mesh, STEPS)(
-        shard_state(initial_state(cfg), 0, 1))
+        shard_state(initial_state(cfg, device="cpu"), 0, 1))
     assert_bitwise(state_to_numpy(gather_state(state, mesh)),
                    single["fused"], "n=1")
 
@@ -314,16 +314,17 @@ def test_validate_spmd_config_rejections():
         with pytest.raises(NotImplementedError):
             validate_spmd_config(cfg.replace(**change), 2)
     with pytest.raises(NotImplementedError):
-        spmd_step(cfg, make_mesh(1), scene=object())
+        spmd_step(cfg, make_mesh(1, device="cpu"), scene=object())
     bad = cfg.replace(pressure_solver="redblack")
     with pytest.raises(NotImplementedError):
-        spmd_step(bad, make_mesh(1))(initial_state(bad))
+        spmd_step(bad, make_mesh(1, device="cpu"))(
+            initial_state(bad, device="cpu"))
 
 
 def test_make_mesh_rejections():
     with pytest.raises(RuntimeError):
         make_mesh(torch.cuda.device_count() + 1, backend="nccl")
     with pytest.raises(ValueError):
-        make_mesh(2, rank=2)
+        make_mesh(2, rank=2, device="cpu")
     with pytest.raises(ValueError):
-        make_mesh(2, rank=0)                # no init_method
+        make_mesh(2, rank=0, device="cpu")  # no init_method

@@ -60,7 +60,7 @@ def jax_numpy(state) -> dict:
 def test_three_steps_match_jax_and_oracle():
     jcfg = JAX_ORACLE_CFG.replace(pallas_mode="off")
     jstate = jax_initial_state(jcfg)
-    state = initial_state(ORACLE_CFG)
+    state = initial_state(ORACLE_CFG, device="cpu")
     s_np = tuple(np.asarray(getattr(jstate, f)) for f in (
         "velocity", "cell_types", "inertia", "float_dens_1",
         "float_dens_2", "positions", "active"))
@@ -91,7 +91,7 @@ def test_state_carried_from_jax_steps_alike():
     jstate = jax_initial_state(jcfg)
     for _ in range(2):
         jstate = jstep(jstate, jcfg)
-    state = state_from_numpy(jax_numpy(jstate))
+    state = state_from_numpy(jax_numpy(jstate), device="cpu")
     assert_states_close(state_to_numpy(step(state, CFG)),
                         jax_numpy(jstep(jstate, jcfg)), "carried")
 
@@ -111,7 +111,7 @@ def test_fused_grid_slice_matches_jax_interpret():
     jcfg, cfg = JaxConfig(**kw), FluidConfig(**kw)
     assert fuse_grid_choice(cfg, torch.device("cpu"))
     jstate = jax_initial_state(jcfg)
-    state = state_from_numpy(jax_numpy(jstate))
+    state = state_from_numpy(jax_numpy(jstate), device="cpu")
     launches = [w.launches for w in (classify_extrap_cuda,
                                      forces_solids_div_cuda, project_cuda)]
     for k in range(2):
@@ -134,7 +134,7 @@ def test_fused_grid_slice_matches_jax_interpret():
 @pytest.fixture(scope="module")
 def run():
     """States of the CFG scene after 0 to 30 steps."""
-    state = initial_state(CFG)
+    state = initial_state(CFG, device="cpu")
     out = {0: state}
     for k in range(1, 31):
         state = step(state, CFG)
@@ -177,7 +177,7 @@ def test_inertia_bounds(run):
 
 
 def test_determinism_bitwise(run):
-    state = initial_state(CFG)
+    state = initial_state(CFG, device="cpu")
     for _ in range(3):
         state = simulation_step(state, CFG)
     for a, b in zip(state, run[3]):
@@ -185,7 +185,7 @@ def test_determinism_bitwise(run):
 
 
 def test_pallas_mode_off_equals_auto_on_cpu(run):
-    state = initial_state(CFG)
+    state = initial_state(CFG, device="cpu")
     off = CFG.replace(pallas_mode="off")
     for _ in range(3):
         state = step(state, off)
@@ -197,7 +197,7 @@ def test_fountain_erupts():
     cfg = CFG.replace(fountain_force=-3000.0, jacobi_iters=60,
                       particle_init_cube_offset=(3.0, 6.0, 4.0),
                       particle_init_cube_size=(6.0, 4.5, 4.0))
-    state = initial_state(cfg)
+    state = initial_state(cfg, device="cpu")
     for _ in range(25):
         state = step(state, cfg)
     fx, fy, fz = cfg.fountain
@@ -206,7 +206,7 @@ def test_fountain_erupts():
 
 def test_sim_only_mode():
     cfg = CFG.replace(surface_enabled=False)
-    state = initial_state(cfg)
+    state = initial_state(cfg, device="cpu")
     for _ in range(5):
         state = step(state, cfg)
     assert int(state.step) == 5
@@ -222,9 +222,9 @@ def test_sim_only_mode():
 def test_unported_options_raise(change):
     cfg = CFG.replace(**change)
     with pytest.raises(NotImplementedError):
-        step(initial_state(cfg), cfg)
+        step(initial_state(cfg, device="cpu"), cfg)
 
 
 def test_scene_fields_raise():
     with pytest.raises(NotImplementedError):
-        step(initial_state(CFG), CFG, scene=object())
+        step(initial_state(CFG, device="cpu"), CFG, scene=object())

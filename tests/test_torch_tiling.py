@@ -1,0 +1,352 @@
+"""The launch plans of the marching kernels (`kernels/tiling.py`): K2's
+routes and passes and K5's launches, checked on the CPU before any card
+runs them.
+
+A torch emulation follows a plan block by block, as the CUDA kernels do:
+each block computes its levels from its own window (its output rows and
+tile with `halo` planes and rings around them, clipped to the grid, zero
+beyond the window) with the plain PyTorch arithmetic, and only its output
+box is stitched into outputs that start as NaN.  That must equal the plain
+version on the whole grid bitwise: a lead-in, halo, segment or remainder
+that is one short leaves a stale ring or a NaN in the result.  The
+geometry is what the kernels are given (`Pass.blocks` lists each block's
+box as the kernel derives it from its block index)."""
+
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_fluid_torch.core.config import FluidConfig
+from tpu_fluid_torch.core.state import initial_state, state_from_numpy
+from tpu_fluid_torch.kernels import tiling
+from tpu_fluid_torch.kernels.jacobi import (fold_c2e, jacobi_pass_plain,
+                                            jacobi_sweeps_plain)
+from tpu_fluid_torch.kernels.surface_fused import (_blur, _surface,
+                                                   surface_fused_halo_plain,
+                                                   surface_fused_plain)
+from tpu_fluid_torch.parallel.mesh import make_mesh
+from tpu_fluid_torch.stages.pressure import jacobi_fold
+from tpu_fluid_torch.stages.surface_fields import solid_parent_mask
+
+torch.set_num_threads(2)
+SMS = (132, 3)            # the card's count, and a few: more x segments
+SHARDS = 4
+
+
+def T(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def random_types(r, shape):
+    t = np.where(r.random(shape) < 0.4, 2, 0).astype(np.uint8)
+    t[0], t[-1], t[:, 0], t[:, -1], t[:, :, 0], t[:, :, -1] = (3,) * 6
+    t[(t == 0) & (r.random(shape) < 0.3)] = 1
+    return t
+
+
+def window(p: tiling.Pass, box):
+    """A block's input window: its box with p.halo planes and rings a
+    side, clipped to the input."""
+    return tuple(slice(max(lo - p.halo, 0), min(hi + p.halo, n))
+                 for (lo, hi), n in zip(box, p.shape))
+
+
+def stitch(p: tiling.Pass, outs, box, win, got):
+    """Copy each result's box (window coordinates) into its output, whose
+    row 0 is input row p.out_x0."""
+    (x0, x1), (y0, y1), (z0, z1) = box
+    wx, wy, wz = (w.start for w in win)
+    for out, g in zip(outs, got):
+        out[x0 - p.out_x0:x1 - p.out_x0, y0:y1, z0:z1] = \
+            g[x0 - wx:x1 - wx, y0 - wy:y1 - wy, z0 - wz:z1 - wz]
+
+
+def nan_like(a, rows):
+    out = torch.empty((rows,) + tuple(a.shape[1:]), dtype=a.dtype)
+    if a.dtype.is_floating_point:
+        out.fill_(float("nan"))
+    else:
+        out.fill_(-1 if a.dtype != torch.uint8 else 255)
+    return out
+
+
+def out_rows(p: tiling.Pass) -> int:
+    return p.shape[0] if p.out_x0 == 0 else p.xe - p.out_x0
+
+
+# ------------------------------------------------------------------ K2
+def emulate_jacobi(plan: tiling.Plan, q0, code, c2, n_iters):
+    """q0 after the plan's sweeps, every block from its own window."""
+    if plan.route == "copy":
+        return q0
+    if plan.route == "whole":
+        # one block, whose window is the grid
+        return jacobi_pass_plain(q0, code, fold_c2e(q0, code, c2), 0,
+                                 n_iters)
+    c2e = nan_like(q0, q0.shape[0])
+    src = q0
+    for p in plan.passes:
+        dst = nan_like(q0, out_rows(p))
+        for box in p.blocks():
+            win = window(p, box)
+            if p.fold:
+                ce = fold_c2e(src[win], code[win], c2[win])
+                stitch(p, (c2e,), box, win, (ce,))
+            else:
+                ce = c2[win]
+            stitch(p, (dst,), box, win,
+                   (jacobi_pass_plain(src[win], code[win], ce, 0,
+                                      p.levels),))
+        if p.fold:
+            c2 = c2e
+        src = dst
+    return src
+
+
+def jacobi_case(shape, seed):
+    r = np.random.default_rng(seed)
+    types = T(random_types(r, shape))
+    rhs = T((r.standard_normal(shape) * 50).astype(np.float32))
+    _, q0, code, c2 = jacobi_fold(types, rhs, FluidConfig(), 1.0)
+    return q0, code, c2
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("n_iters", [0, 1, 5, 6, 7, "k+1"])
+@pytest.mark.parametrize("shape", [(25, 20, 20), (13, 33, 31), (37, 45, 29),
+                                   (7, 9, 130)])
+def test_jacobi_blocked_plan_equals_plain(shape, n_iters, sms):
+    """The blocked route at grids the one-block route cannot hold: 20^2
+    planes with 13-row column chunks, an odd non-cubic grid with a
+    1023-cell plane, one that needs several y tiles and one that needs
+    several z tiles; the sweeps end in a remainder pass of 1, 2 or 3 where
+    k does not divide them."""
+    k = tiling.BLOCKED_K
+    n = k + 1 if n_iters == "k+1" else n_iters
+    q0, code, c2 = jacobi_case(shape, 1)
+    plan = tiling.jacobi_plan(shape, n, sms=sms)
+    assert tiling.whole_grid_parts(shape) is None
+    if n:
+        assert plan.route == "blocked"
+        assert [p.levels for p in plan.passes] == \
+            [k] * (n // k) + ([n % k] if n % k else [])
+        assert [p.fold for p in plan.passes] == \
+            [True] + [False] * (len(plan.passes) - 1)
+    got = emulate_jacobi(plan, q0, code, c2, n)
+    assert torch.equal(got, jacobi_sweeps_plain(q0, code, c2, n))
+
+
+@pytest.mark.parametrize("shape", [(20, 20, 20), (13, 22, 17)])
+def test_jacobi_whole_route_takes_the_small_grids(shape):
+    plan = tiling.jacobi_plan(shape, 199)
+    assert plan.route == "whole" and plan.passes == () and plan.parts == 2
+    q0, code, c2 = jacobi_case(shape, 4)
+    assert torch.equal(emulate_jacobi(plan, q0, code, c2, 9),
+                       jacobi_sweeps_plain(q0, code, c2, 9))
+    assert tiling.jacobi_plan(shape, 0).route == "copy"
+    assert tiling.jacobi_plan((40, 20, 20), 5).route == "blocked"
+    for shape, parts in (((5, 10, 10), 5), ((30, 6, 5), 30),
+                         ((24, 20, 20), 2), ((40, 10, 10), 10)):
+        chunk = -(-shape[0] // parts)
+        assert tiling.whole_grid_parts(shape) == parts
+        assert (parts - 1) * chunk < shape[0] and chunk <= 12
+    assert tiling.whole_grid_parts((25, 20, 20)) is None
+    assert tiling.whole_grid_parts((4, 40, 40)) is None
+
+
+@pytest.mark.parametrize("n", [128, 256])
+def test_jacobi_large_grids_run_k_sweeps_a_launch(n):
+    plan = tiling.jacobi_plan((n, n, n), 199)
+    k = tiling.BLOCKED_K
+    assert plan.route == "blocked" and k >= 2
+    assert len(plan.passes) == -(-199 // k)
+    assert sum(p.levels for p in plan.passes) == 199
+    p = plan.passes[0]
+    assert p.inner_y == tiling.TILE - 2 * k
+    assert p.inner_z == tiling.PAIR_TILE_Z - 2 * k
+    assert all(q.xs == 0 and q.xe == n for q in plan.passes)
+
+
+def sharded_slab(shape, shard, h, seed):
+    """Shard `shard` of SHARDS of a folded solve's inputs, extended by h
+    planes a side, zero planes with code 0 past the domain."""
+    q0, code, c2 = jacobi_case(shape, seed)
+    c2e = fold_c2e(q0, code, c2)
+    lx = shape[0] // SHARDS
+    rows = np.arange(shard * lx - h, (shard + 1) * lx + h)
+    inside = T((rows >= 0) & (rows < shape[0]))
+    idx = T(np.clip(rows, 0, shape[0] - 1))
+    return [torch.where(inside[:, None, None], a[idx],
+                        torch.zeros_like(a[idx])) for a in (q0, code, c2e)]
+
+
+@pytest.mark.parametrize("shard", [0, 1, 3])
+@pytest.mark.parametrize("h,kk", [(3, 1), (3, 3), (8, 5), (10, 10)])
+def test_jacobi_pass_plan_equals_plain(shard, h, kk):
+    """The sharded pass at the first, a middle and the last of 4 shards of
+    a (32, 22, 17) grid; 5 and 10 sweeps need 2 and 3 launches of at most
+    BLOCKED_K."""
+    q, code, c2e = sharded_slab((32, 22, 17), shard, h, 2 + shard)
+    plan = tiling.jacobi_plan(q.shape, kk, halo=h, sms=3)
+    assert len(plan.passes) == -(-kk // tiling.BLOCKED_K)
+    assert plan.passes[-1].xs == h and plan.passes[-1].out_x0 == h
+    got = emulate_jacobi(plan, q, code, c2e, kk)
+    assert torch.equal(got, jacobi_pass_plain(q, code, c2e, h, kk))
+
+
+def test_jacobi_plan_rejects_what_no_kernel_runs():
+    with pytest.raises(ValueError):
+        tiling.jacobi_plan((10, 8, 8), 4, halo=3)
+    with pytest.raises(ValueError):
+        tiling.jacobi_plan((10, 8, 8), 6, halo=5)
+
+
+# ------------------------------------------------------------------ K5
+def surface_kw(cfg, steps):
+    return dict(steps=steps, k=cfg.float_density_diffuse_coefficient,
+                inc_filled=cfg.inertia_increase_filled,
+                inc_neigh=cfg.inertia_increase_neighbour,
+                required_hits=cfg.inertia_required_neighbour_hits,
+                dec=cfg.inertia_decrease, max_inertia=cfg.max_inertia,
+                div_coef=cfg.float_density_division_coefficient)
+
+
+def emulate_surface(plan, fields, xb, gx, h, kw):
+    """(inertia', f1', f2') of K5's launches `plan` on `fields` (the rows of
+    each input; row 0 at global x xb of a domain gx rows wide, h halo
+    planes a side): the first launch from (occ, inertia, f2, skip), each
+    later one blur passes only from the (f1, f2) pair of the one before."""
+    skip, x0 = fields[3], 0
+    for i, p in enumerate(plan):
+        f = fields[2] if i == 0 else fields[0]
+        outs = [nan_like(f, out_rows(p)), nan_like(f, out_rows(p))]
+        if i == 0:
+            outs.insert(0, nan_like(fields[1], out_rows(p)))
+            first = p
+        for box in p.blocks():
+            win = window(p, box)
+            rows = torch.arange(win[0].start, win[0].stop) + xb + x0
+            in_dom = ((rows >= 0) & (rows < gx)).reshape(-1, 1, 1)
+            if i == 0:
+                got = _surface(*(a[win] for a in fields), in_dom,
+                               **dict(kw, steps=p.levels))
+            else:
+                got = _blur(fields[0][win], fields[1][win],
+                            skip[x0:][win], in_dom, p.levels, kw["k"])
+            stitch(p, outs, box, win, got)
+        if i == 0:
+            inertia, outs = outs[0], outs[1:]
+        fields = outs
+        x0 += p.xs
+    lo = h - first.xs
+    return (inertia[lo:lo + inertia.shape[0] - 2 * lo],) + tuple(fields)
+
+
+def surface_case(shape, inertia_dtype, seed):
+    cfg = FluidConfig()
+    if inertia_dtype == np.int32:
+        cfg = cfg.replace(max_inertia=300)
+    r = np.random.default_rng(seed)
+    occ = (r.random(shape) < 0.3).astype(np.uint8)
+    inertia = r.integers(0, cfg.max_inertia + 1, shape).astype(inertia_dtype)
+    f2 = r.normal(size=shape).astype(np.float32)
+    skip = (r.random(shape) < 0.2).astype(np.uint8)
+    return cfg, [T(occ), T(inertia), T(f2), T(skip)]
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("inertia_dtype", [np.uint8, np.int32])
+@pytest.mark.parametrize("steps", [0, 1, 2, 4, 6, 12])
+@pytest.mark.parametrize("shape", [(20, 20, 20), (13, 22, 17),
+                                   (13, 22, 70)])
+def test_surface_plan_equals_plain(shape, steps, inertia_dtype, sms):
+    """Up to 8 blur passes in one launch; 12 in a second launch of blur
+    passes only."""
+    cfg, fields = surface_case(shape, inertia_dtype, 3 + steps)
+    kw = surface_kw(cfg, steps)
+    plan = tiling.surface_plan(shape, steps, sms=sms)
+    assert [p.levels for p in plan] == ([steps] if steps <= 8 else [8, 4])
+    assert all(p.halo == p.levels + 1 and (p.xs, p.xe) == (0, shape[0])
+               for p in plan)
+    got = emulate_surface(plan, fields, 0, shape[0], 0, kw)
+    want = surface_fused_plain(*fields, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shard", [0, 1, 3])
+@pytest.mark.parametrize("inertia_dtype", [np.uint8, np.int32])
+@pytest.mark.parametrize("steps", [0, 1, 4, 12])
+def test_surface_halo_plan_equals_plain(steps, inertia_dtype, shard):
+    """The halo form at the first, a middle and the last of 4 detailed
+    slabs of (40, 22, 17), with steps + 1 neighbour planes a side (zeros
+    past the domain) and the skip mask of a solid-parent field; 12 blur
+    passes take two launches, the first writing the rows the second
+    reads."""
+    shape = (40, 22, 17)
+    cfg, fields = surface_case(shape, inertia_dtype, 7 + shard)
+    types = np.random.default_rng(shard).integers(0, 4, (20, 11, 9))
+    fields[3] = solid_parent_mask(T(types.astype(np.uint8)),
+                                  cfg.replace(surface_render_resolution=2)
+                                  )[:, :22, :17].to(torch.uint8).contiguous()
+    kw = surface_kw(cfg, steps)
+    h, lx = steps + 1, shape[0] // SHARDS
+    x0 = shard * lx
+    rows = np.arange(x0 - h, x0 + lx + h)
+    inside = T((rows >= 0) & (rows < shape[0]))[:, None, None]
+    idx = T(np.clip(rows, 0, shape[0] - 1))
+    ext = [torch.where(inside, a[idx], torch.zeros_like(a[idx]))
+           for a in fields]
+    plan = tiling.surface_plan(ext[0].shape, steps, halo=h, sms=3)
+    assert len(plan) == (1 if steps <= 8 else 2)
+    assert plan[-1].xe - plan[-1].xs == lx
+    got = emulate_surface(plan, ext, x0 - h, shape[0], h, kw)
+    want = surface_fused_halo_plain(
+        *(a[h:h + lx] for a in ext), halos=tuple(
+            (a[:h], a[h + lx:]) for a in ext), x0=x0, global_gx=shape[0],
+        **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_surface_plan_chains_launches_beyond_max_levels():
+    (p,) = tiling.surface_plan((100, 100, 100), 4)
+    assert p.inner_y == p.inner_z == tiling.TILE - 10 and p.levels == 4
+    plan = tiling.surface_plan((20, 20, 20), 2 * tiling.MAX_LEVELS + 1)
+    assert [p.levels for p in plan] == [tiling.MAX_LEVELS] * 2 + [1]
+    # halo form: each launch keeps the rows the rest still lose
+    plan = tiling.surface_plan((60, 20, 20), 17, halo=18)
+    assert [(p.shape[0], p.xs, p.xe) for p in plan] == \
+        [(60, 9, 51), (42, 8, 34), (26, 1, 25)]
+    with pytest.raises(ValueError):
+        tiling.surface_plan((20, 20, 20), -1)
+    with pytest.raises(ValueError):
+        tiling.surface_plan((60, 20, 20), 4, halo=4)
+
+
+def test_segments_fill_the_card():
+    """Few tiles get many x segments, many tiles few; every row is in
+    exactly one segment."""
+    assert tiling.segment_rows(20, 4, 1, 132) == 1
+    assert tiling.segment_rows(256, 4, 121, 132) == 256
+    for rows, halo, tiles, sms in ((128, 4, 36, 132), (512, 5, 576, 132),
+                                   (7, 3, 2, 3)):
+        seg = tiling.segment_rows(rows, halo, tiles, sms)
+        assert 1 <= seg <= rows
+
+
+# ------------------------------------------------------- entry points
+def test_entry_points_default_to_the_card():
+    """initial_state, state_from_numpy and make_mesh put tensors on the
+    card unless the caller passes device="cpu"."""
+    for fn in (initial_state, state_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert inspect.signature(make_mesh).parameters["device"].default == \
+        "cuda"
+    mesh = make_mesh(1, device="cpu")
+    assert mesh.device == torch.device("cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            make_mesh(1)

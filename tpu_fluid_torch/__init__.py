@@ -6,7 +6,7 @@ Quick start:
 
     from tpu_fluid_torch import FluidConfig, initial_state, step
     cfg = FluidConfig.reference_scene()
-    state = initial_state(cfg, "cuda")
+    state = initial_state(cfg)        # on the card; device="cpu" else
     for _ in range(100):
         state = step(state, cfg)
 """

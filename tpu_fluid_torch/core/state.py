@@ -77,8 +77,9 @@ def init_particles(cfg: FluidConfig, device=None):
     return pos.to(cfg.torch_dtype), active
 
 
-def initial_state(cfg: FluidConfig, device="cpu") -> FluidState:
-    """Allocate and initialize all state on `device`: zero velocities,
+def initial_state(cfg: FluidConfig, device="cuda") -> FluidState:
+    """Allocate and initialize all state on `device` (the card unless the
+    caller passes "cpu"): zero velocities,
     INACTIVE cells, zero inertia and float fields, the spawned particles
     and their occupancy."""
     from tpu_fluid_torch.stages.particles import detailed_occupancy
@@ -109,8 +110,9 @@ def state_to_numpy(state: FluidState) -> dict:
             for name, value in state._asdict().items()}
 
 
-def state_from_numpy(arrays: dict, device="cpu") -> FluidState:
-    """A state from numpy arrays keyed by field name (a JAX `FluidState`
+def state_from_numpy(arrays: dict, device="cuda") -> FluidState:
+    """A state on `device` (the card unless the caller passes "cpu") from
+    numpy arrays keyed by field name (a JAX `FluidState`
     converts with `{k: np.asarray(v) for k, v in s._asdict().items()}`)."""
     device = torch.device(device)
     return FluidState(**{

@@ -114,13 +114,29 @@ def library() -> ctypes.CDLL:
 
 
 @functools.cache
-def kernel_function(name: str, argtypes: tuple) -> ctypes._CFuncPtr:
+def kernel_function(name: str, argtypes: tuple,
+                    restype=INT) -> ctypes._CFuncPtr:
     """The C entry point `name`, with every pointer and the stream declared
     as c_void_p so that ctypes passes them at full width."""
     fn = getattr(library(), name)
     fn.argtypes = list(argtypes)
-    fn.restype = INT
+    fn.restype = restype
     return fn
+
+
+def launches(name: str) -> int:
+    """The count of kernels launched so far that the C entry point `name`
+    keeps (`tf_jacobi_launches`, `tf_surface_launches`): what one wrapper
+    call launched on the card, read before and after it."""
+    return int(kernel_function(name, (), INT64)())
+
+
+@functools.cache
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index`."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def call(name: str, argtypes: tuple, *args) -> None:

@@ -2,22 +2,25 @@
 
 Replaces `tpu_fluid/kernels/jacobi.py:_whole_grid_jacobi` (kernel
 `_whole_grid_kernel`, reached by `jacobi_sweeps_pallas` for grids of up to
-128^3 cells); CUDA source `csrc/jacobi.cu`.  One sweep is
+128^3 cells) and its slab branch `_one_pass` (`jacobi.py:263`, above
+128^3); CUDA source `csrc/jacobi.cu`.  One sweep is
 q' = rd * (sum of the 6 zero-padded neighbours, x+1, x-1, y+1, y-1, z+1,
 z-1) + c2e, with rd decoded from the u8 aii code and c2e = where(rd > 0,
 c2, q0) folded once (`stages/pressure.poisson_solve` builds the inputs).
-The TPU kernel holds the whole grid in VMEM for every sweep; the card has
-no such memory, but at 128^3 both q buffers, c2e and the code (26 MB) stay
-in the 50 MB L2, so each of the one-launch-per-sweep passes is L2-bound,
-and at 20^3 the 199 launches themselves are the cost.
 
-K2 also covers the slab branch of `jacobi_sweeps_pallas` (`_one_pass`,
-`jacobi.py:263`), which JAX runs above 128^3 cells: k sweeps per pass over
-x-slabs with k-row halos, summing in the same order as the whole-grid
-kernel.  At 256^3 the working set (two q buffers and c2e at 67 MB each, the
-code at 17 MB) no longer fits the L2, so each sweep streams it from HBM;
-PERF.md has the time.  tests/test_torch_kernels.py holds the slab branch
-against `jacobi_sweeps_plain`.
+What bounds it: 7 flops a cell a sweep, against 13 bytes a cell a sweep
+if each sweep streams q, c2e and the code through device memory.  Like
+the TPU kernels, both routes keep the sweeps of a launch on chip
+(`kernels/tiling.jacobi_plan` picks the route and the geometry):
+- "whole": a grid that fits one block of 1024 threads (the 20^3 reference
+  scene) runs all sweeps in one launch, the columns in registers and q in
+  shared memory;
+- "blocked": passes of `tiling.BLOCKED_K` sweeps (and a remainder pass),
+  each one launch that marches 32 x 64-cell y-z tiles (32 x 32 threads,
+  two z cells each) with K-cell halos along x, so a pass moves q, c2e and
+  the code once for K sweeps; the whole solve is one C call.
+tests/test_torch_tiling.py holds the plans against the plain version on
+the CPU; on the card both routes match `jacobi_sweeps_plain` bitwise.
 
 `jacobi_sweeps_plain` is the same function in plain PyTorch.
 
@@ -25,13 +28,13 @@ The sharded form replaces `jacobi_sweeps_sharded` (`jacobi.py:367`, the
 halo branch of `_one_pass` with `_halo_blocks` and `edges`) in the x-slab
 multi-device step.  `jacobi_sweeps_sharded_cuda` runs ceil(n / k) passes:
 each exchanges k boundary planes of q with the neighbours and runs
-`jacobi_pass_cuda`, k sweeps of the same body on the (lx + 2k)-row slab;
-code and c2e exchange their k planes once a solve.  The end shards' zero
-planes carry code 0 and stay 0: the single-device zero pad.  The result is
-bitwise independent of k, so k trades exchanges against ghost rows:
-`SHARDED_K` = 8 gives 25 exchanges for the 199 sweeps of a solve and
-(k - 1) / lx = 11% extra rows a sweep at lx = 64.  `jacobi_pass_plain` and
-`jacobi_sweeps_sharded_plain` are the plain versions; with k = 1 the
+`jacobi_pass_cuda`, k sweeps of the same body on the (lx + 2k)-row slab,
+now ceil(k / `tiling.BLOCKED_K`) blocked launches instead of k; code and
+c2e exchange their k planes once a solve.  The end shards' zero planes carry
+code 0 and stay 0: the single-device zero pad.  The result is bitwise
+independent of k, so k trades exchanges against ghost rows: `SHARDED_K` =
+8 gives 25 exchanges for the 199 sweeps of a solve.  `jacobi_pass_plain`
+and `jacobi_sweeps_sharded_plain` are the plain versions; with k = 1 the
 latter exchanges one plane a sweep, as JAX's XLA-path sharded solve does
 (`tpu_fluid/parallel/halo.py:jacobi_solve_halo`).
 """
@@ -40,12 +43,15 @@ from __future__ import annotations
 
 import torch
 
-from tpu_fluid_torch.kernels import build, on_cuda, require
+from tpu_fluid_torch.kernels import build, on_cuda, require, tiling
 from tpu_fluid_torch.ops.stencil import AXIS_MOVES, neighbor_sum
 from tpu_fluid_torch.parallel.halo import halo_extend
 
-_ARGTYPES = (build.POINTER,) * 6 + (build.INT,) * 4 + (build.POINTER,)
-_PASS_ARGTYPES = (build.POINTER,) * 5 + (build.INT,) * 5 + (build.POINTER,)
+_WHOLE_ARGTYPES = (build.POINTER,) * 4 + (build.INT,) * 5 + (build.POINTER,)
+_MARCH_ARGTYPES = ((build.POINTER,) * 5 + (build.INT,) * 9
+                   + (build.POINTER,))
+_BLOCKED_ARGTYPES = ((build.POINTER,) * 6 + (build.INT,) * 7
+                     + (build.POINTER,))
 
 # Sweeps per pass (and planes per exchange) of the sharded solve.
 SHARDED_K = 8
@@ -78,11 +84,28 @@ def jacobi_sweeps_plain(q0: torch.Tensor, code: torch.Tensor,
     return q
 
 
+def _march(p: tiling.Pass, q, code, c2, c2e, out) -> None:
+    """One blocked pass (`tiling.Pass`) on the current stream."""
+    nx, gy, gz = p.shape
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    build.call("tf_jacobi_march", _MARCH_ARGTYPES, q.data_ptr(),
+               code.data_ptr(), c2.data_ptr(),
+               c2e.data_ptr() if c2e is not None else None, out.data_ptr(),
+               nx, gy, gz, p.xs, p.xe, p.seg, p.out_x0, p.levels,
+               int(p.fold), stream)
+
+
+def device_launches() -> int:
+    """Kernels the C entry points of `csrc/jacobi.cu` have launched."""
+    return build.launches("tf_jacobi_launches")
+
+
 def jacobi_sweeps_cuda(q0: torch.Tensor, code: torch.Tensor,
                        c2: torch.Tensor, n_iters: int) -> torch.Tensor:
-    """K2 wrapper: n_iters sweeps by the CUDA kernel for CUDA tensors,
-    `jacobi_sweeps_plain` for CPU tensors.  q0 and c2 are f32 (X,Y,Z), code
-    the u8 aii code of the same shape."""
+    """K2 wrapper: n_iters sweeps by the CUDA kernels for CUDA tensors
+    (the route of `tiling.jacobi_plan`), `jacobi_sweeps_plain` for CPU
+    tensors.  q0 and c2 are f32 (X,Y,Z), code the u8 aii code of the same
+    shape."""
     require(q0, "q0", torch.float32)
     if q0.ndim != 3:
         raise ValueError(f"q0: shape {tuple(q0.shape)}, expected (X,Y,Z)")
@@ -90,16 +113,28 @@ def jacobi_sweeps_cuda(q0: torch.Tensor, code: torch.Tensor,
     require(c2, "c2", torch.float32, q0.shape, q0.device)
     if not on_cuda(q0):
         return jacobi_sweeps_plain(q0, code, c2, n_iters)
-    c2e = torch.empty_like(q0)
-    out = torch.empty_like(q0)
-    tmp = torch.empty_like(q0)
-    gx, gy, gz = q0.shape
     with torch.cuda.device(q0.device):
-        stream = torch.cuda.current_stream(q0.device).cuda_stream
-        build.call("tf_jacobi_sweeps", _ARGTYPES, q0.data_ptr(),
-                   code.data_ptr(), c2.data_ptr(), c2e.data_ptr(),
-                   out.data_ptr(), tmp.data_ptr(), gx, gy, gz, n_iters,
-                   stream)
+        plan = tiling.jacobi_plan(q0.shape, n_iters,
+                                  sms=build.sm_count(q0.device.index))
+        if plan.route == "copy":
+            return q0.clone()
+        out = torch.empty_like(q0)
+        if plan.route == "whole":
+            stream = torch.cuda.current_stream(q0.device).cuda_stream
+            build.call("tf_jacobi_whole", _WHOLE_ARGTYPES, q0.data_ptr(),
+                       code.data_ptr(), c2.data_ptr(), out.data_ptr(),
+                       *q0.shape, plan.parts, n_iters, stream)
+        else:
+            # the passes of the plan in one C call: k sweeps each, then the
+            # remainder, the first folding c2e
+            first, last = plan.passes[0], plan.passes[-1]
+            c2e = torch.empty_like(q0)
+            other = torch.empty_like(q0) if len(plan.passes) > 1 else out
+            stream = torch.cuda.current_stream(q0.device).cuda_stream
+            build.call("tf_jacobi_blocked", _BLOCKED_ARGTYPES, q0.data_ptr(),
+                       code.data_ptr(), c2.data_ptr(), c2e.data_ptr(),
+                       out.data_ptr(), other.data_ptr(), *q0.shape, n_iters,
+                       first.levels, first.seg, last.seg, stream)
     jacobi_sweeps_cuda.launches += 1
     return out
 
@@ -121,8 +156,8 @@ def jacobi_pass_plain(q: torch.Tensor, code: torch.Tensor, c2e: torch.Tensor,
 def jacobi_pass_cuda(q: torch.Tensor, code: torch.Tensor, c2e: torch.Tensor,
                      h: int, kk: int) -> torch.Tensor:
     """K2 sharded-pass wrapper (arguments as `jacobi_pass_plain`): the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors.  The result
-    is a view of the interior rows of an extended buffer."""
+    kernel for CUDA tensors, one blocked launch for each
+    `tiling.BLOCKED_K` sweeps; the plain version for CPU tensors."""
     require(q, "q", torch.float32)
     if q.ndim != 3:
         raise ValueError(f"q: shape {tuple(q.shape)}, expected (X,Y,Z)")
@@ -133,16 +168,18 @@ def jacobi_pass_cuda(q: torch.Tensor, code: torch.Tensor, c2e: torch.Tensor,
                          f"with {h}-plane halos")
     if not on_cuda(q):
         return jacobi_pass_plain(q, code, c2e, h, kk)
-    out = torch.empty_like(q)
-    tmp = torch.empty_like(q)
     nx, gy, gz = q.shape
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        build.call("tf_jacobi_pass", _PASS_ARGTYPES, q.data_ptr(),
-                   code.data_ptr(), c2e.data_ptr(), out.data_ptr(),
-                   tmp.data_ptr(), nx, gy, gz, h, kk, stream)
+        plan = tiling.jacobi_plan(q.shape, kk, halo=h,
+                                  sms=build.sm_count(q.device.index))
+        src = q
+        for p in plan.passes:
+            rows = nx - 2 * h if p.out_x0 else nx
+            dst = torch.empty((rows, gy, gz), dtype=q.dtype, device=q.device)
+            _march(p, src, code, c2e, None, dst)
+            src = dst
     jacobi_pass_cuda.launches += 1
-    return out[h:nx - h]
+    return src
 
 
 jacobi_pass_cuda.launches = 0

@@ -7,10 +7,17 @@ Replaces `tpu_fluid/kernels/surface_fused.py:surface_fused_pallas`
 it in its own dtype; stage 17 makes the signed field
 f = nzi * (I / div) + (nzi - 1); stage 18 runs `steps` ping-pong blur passes
 f' = (1 - 6k) f + k * (x+1, x-1, y+1, y-1, z+1, z-1 neighbours, 0 outside),
-where cells under a SOLID parent keep their value.  The TPU kernel fuses
-all of it over VMEM x-slabs; here one launch does 16+17 and one launch per
-blur pass streams the grid, so the work is bandwidth-bound at about 13
-bytes per cell per pass (67 MB per f32 field at 256^3).
+where cells under a SOLID parent keep their value.
+
+What bounds it: memory, 16 bytes a cell with u8 inertia (occ, inertia,
+f2 and the skip mask read once, inertia, f1 and f2 written once).  As the
+TPU kernel does over VMEM x-slabs, the CUDA kernel runs all of it in one
+launch (`tiling.surface_plan`): 32 x 32-thread y-z tiles with a
+steps + 1 cell halo march along x and hold every level's newest plane in
+shared memory, so only the inputs and the outputs cross device memory.
+A launch holds up to `tiling.MAX_LEVELS` blur passes; each further launch
+continues the blur from the (f1, f2) pair the one before it wrote
+(`_blur` is its plain counterpart).
 
 K5 also covers `surface_fused_2d` (`surface_fused.py:266`), the (x, y)-tiled
 form JAX runs for detailed planes above `MAX_PLANE` (the 512^3 detailed
@@ -36,10 +43,10 @@ from __future__ import annotations
 
 import torch
 
-from tpu_fluid_torch.kernels import build, on_cuda, require
+from tpu_fluid_torch.kernels import build, on_cuda, require, tiling
 from tpu_fluid_torch.ops.stencil import AXIS_MOVES, div_scalar, neighbor_sum
 
-_ARGTYPES = ((build.POINTER,) * 7 + (build.INT,) * 8
+_ARGTYPES = ((build.POINTER,) * 8 + (build.INT,) * 10
              + (build.FLOAT, build.FLOAT) + (build.INT,) * 5
              + (build.FLOAT, build.POINTER))
 
@@ -69,7 +76,13 @@ def _surface(occ, inertia, f2, skip, in_dom, *, steps, k, inc_filled,
     a = nzi * div_scalar(new.to(torch.float32), div_coef) + (nzi - 1.0)
     if in_dom is not None:
         a = torch.where(in_dom, a, 0.0)
-    b = f2
+    return (new.to(inertia.dtype),) + _blur(a, f2, skip, in_dom, steps, k)
+
+
+def _blur(a, b, skip, in_dom, steps, k):
+    """`steps` ping-pong blur passes from the pair (a, b), the first
+    writing into b; returns the new (a, b).  Cells under a SOLID parent
+    keep the value of the buffer a pass writes into."""
     c0, c1 = _blur_constants(k)
     keep = skip != 0
     for it in range(steps):
@@ -82,7 +95,7 @@ def _surface(occ, inertia, f2, skip, in_dom, *, steps, k, inc_filled,
             b = res
         else:
             a = res
-    return new.to(inertia.dtype), a, b
+    return a, b
 
 
 def surface_fused_plain(occ, inertia, f2, skip, *, steps, k, inc_filled,
@@ -130,32 +143,57 @@ def _check(occ, inertia, f2, skip):
     require(skip, "skip", torch.uint8, occ.shape, occ.device)
 
 
+def device_launches() -> int:
+    """Kernels the C entry point of `csrc/surface_fused.cu` has launched."""
+    return build.launches("tf_surface_launches")
+
+
 def _launch(occ, inertia, f2, skip, xb, gx, h, *, steps, k, inc_filled,
             inc_neigh, required_hits, dec, max_inertia, div_coef):
     """K5 on slabs of nx rows (h halo planes a side, row 0 at global x xb);
-    returns the interior rows of the outputs."""
-    inertia_out = torch.empty_like(inertia)
-    f1_out = torch.empty_like(f2)
-    f2_out = torch.empty_like(f2)
+    returns the outputs' interior rows.  The launches of
+    `tiling.surface_plan`: one for up to `tiling.MAX_LEVELS` blur passes;
+    the first writes the inertia, each one after it continues from the
+    (f1, f2) pair of the one before."""
     nx, gy, gz = occ.shape
     c0, c1 = _blur_constants(k)
     with torch.cuda.device(occ.device):
+        plan = tiling.surface_plan(occ.shape, steps, halo=h,
+                                   sms=build.sm_count(occ.device.index))
         stream = torch.cuda.current_stream(occ.device).cuda_stream
-        build.call("tf_surface_fused", _ARGTYPES, occ.data_ptr(),
-                   inertia.data_ptr(), inertia_out.data_ptr(),
-                   f2.data_ptr(), skip.data_ptr(), f1_out.data_ptr(),
-                   f2_out.data_ptr(), inertia.element_size(), nx, gy, gz,
-                   xb, gx, h, steps, c0, c1, inc_filled, inc_neigh,
-                   required_hits, dec, max_inertia, div_coef, stream)
-    return tuple(a[h:nx - h] for a in (inertia_out, f1_out, f2_out))
+        first = plan[0]
+        inertia_out = torch.empty((first.xe - first.xs, gy, gz),
+                                  dtype=inertia.dtype, device=occ.device)
+        f1 = None
+        x0 = 0  # the slab row that a launch's input row 0 is
+        for p in plan:
+            out_shape = (p.xe - p.xs, gy, gz)
+            f1_out = torch.empty(out_shape, dtype=f2.dtype, device=occ.device)
+            f2_out = torch.empty(out_shape, dtype=f2.dtype, device=occ.device)
+            build.call("tf_surface_fused", _ARGTYPES, occ.data_ptr(),
+                       inertia.data_ptr(), inertia_out.data_ptr(),
+                       f1.data_ptr() if f1 is not None else None,
+                       f2.data_ptr(), skip.data_ptr() + x0 * gy * gz,
+                       f1_out.data_ptr(), f2_out.data_ptr(),
+                       inertia.element_size(),
+                       p.shape[0], gy, gz, xb + x0, gx, p.xs, p.xe, p.seg,
+                       p.levels, c0, c1, inc_filled, inc_neigh,
+                       required_hits, dec, max_inertia, div_coef, stream)
+            x0 += p.xs
+            f1, f2 = f1_out, f2_out
+    lo = h - first.xs
+    if lo:  # the halo form's first launch wrote rows a later one needed
+        inertia_out = inertia_out[lo:lo + nx - 2 * h]
+    return inertia_out, f1, f2
 
 
 def surface_fused_cuda(occ, inertia, f2, skip, *, steps, k, inc_filled,
                        inc_neigh, required_hits, dec, max_inertia,
                        div_coef):
     """K5 wrapper: occ u8, inertia u8 or int32, f2 f32 (the stale buffer)
-    and skip u8, all (D,D,D) -> (inertia', f1', f2'); the CUDA kernels for
-    CUDA tensors, `surface_fused_plain` for CPU tensors."""
+    and skip u8, all (D,D,D) -> (inertia', f1', f2'); the CUDA kernel (one
+    launch for up to 8 blur passes) for CUDA tensors,
+    `surface_fused_plain` for CPU tensors."""
     _check(occ, inertia, f2, skip)
     kw = dict(steps=steps, k=k, inc_filled=inc_filled, inc_neigh=inc_neigh,
               required_hits=required_hits, dec=dec, max_inertia=max_inertia,
@@ -173,8 +211,8 @@ surface_fused_cuda.launches = 0
 def surface_fused_halo_cuda(occ, inertia, f2, skip, *, halos, x0, global_gx,
                             steps, **kw):
     """K5 halo-form wrapper (arguments as `surface_fused_halo_plain`): the
-    CUDA kernels for CUDA tensors, the plain version for CPU tensors.  The
-    results are views of the interior rows of extended buffers."""
+    CUDA kernel (one launch for up to 8 blur passes) for CUDA tensors, the
+    plain version for CPU tensors."""
     _check(occ, inertia, f2, skip)
     if not on_cuda(occ):
         return surface_fused_halo_plain(occ, inertia, f2, skip, halos=halos,

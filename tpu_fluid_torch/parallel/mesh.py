@@ -68,12 +68,14 @@ class Mesh:
 
 
 def make_mesh(n_shards: int, rank: int = 0, init_method: str | None = None,
-              device=None, backend: str = "gloo",
+              device="cuda", backend: str = "gloo",
               timeout: timedelta = DEFAULT_TIMEOUT) -> Mesh:
     """Join a process group of `n_shards` ranks as `rank` and return this
-    rank's Mesh.  One shard needs no group.  `device` defaults to the CPU
-    for gloo and to `cuda:<rank>` for nccl, which needs one card per rank
-    and raises, as JAX's `make_mesh` does, when there are fewer."""
+    rank's Mesh.  One shard needs no group.  `device` is the card unless
+    the caller passes "cpu": "cuda" means the current CUDA device for gloo
+    (several ranks may share it; their transport is staged through the
+    host) and `cuda:<rank>` for nccl, which needs one card per rank and
+    raises, as JAX's `make_mesh` does, when there are fewer."""
     if not 0 <= rank < n_shards:
         raise ValueError(f"rank {rank} outside a mesh of {n_shards}")
     if backend == "nccl":
@@ -83,10 +85,12 @@ def make_mesh(n_shards: int, rank: int = 0, init_method: str | None = None,
                 f"requested a {n_shards}-rank nccl mesh but only {visible} "
                 f"CUDA device(s) are visible; several ranks on one card "
                 f"need backend='gloo'")
-        device = torch.device("cuda", rank) if device is None else device
     elif backend != "gloo":
         raise ValueError(f"unknown backend {backend!r}")
-    device = torch.device("cpu" if device is None else device)
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", rank if backend == "nccl"
+                              else torch.cuda.current_device())
     if n_shards == 1:
         return Mesh(0, 1, device)
     if init_method is None:
