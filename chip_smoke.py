@@ -7,16 +7,18 @@ Phases, one line each (more for the parity and scene phases):
   1 device    the card's name and power limit, as nvidia-smi gives them
   2 build     compile the CUDA kernels from tpu_fluid_torch/csrc
   3 parity    each kernel against its plain PyTorch version on the card, at
-              the shapes of the three scenes (K6 at the large one only), on
-              numpy-seeded inputs, and K2 and K5 also at two odd non-cubic
-              shapes (5 and 199 sweeps; 0, 1, 4 and 12 blur passes, u8
-              and int32 inertia): every output must match bitwise
-              (tolerance 0); times by CUDA events beside each call's bound
-              (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s);
-              and the kernel launches each K2 and K5 call makes, read from
-              the C counters: one for K2's one-block route (20^3) and for
-              K5 up to 8 blur passes (12 take two), one a pass of k >= 2
-              sweeps on K2's blocked route
+              the shapes of the three scenes (K6 at the large one only,
+              K6a on the 512^3 detailed occupancy at pool 2), on
+              numpy-seeded inputs, and K2, K5, K6a and K6b also at two odd
+              non-cubic shapes (5 and 199 sweeps; 0, 1, 4 and 12 blur
+              passes, u8 and int32 inertia; K6a at pools 1, 2 and 3):
+              every output must match bitwise (tolerance 0); times by CUDA
+              events beside each call's bound (bytes over 3.35 TB/s or f32
+              operations over 67 TFLOP/s); and the kernel launches each
+              K2, K5 and K6 call makes, read from the C counters: one for
+              K2's one-block route (20^3), for K5 up to 8 blur passes (12
+              take two) and for each K6 call, one a pass of k >= 2 sweeps
+              on K2's blocked route
   4 reference FluidConfig.reference_scene() (20^3, 1M particles), 20 steps,
               invariants; then 3 steps with the kernels and 3 with
               pallas_mode="off" from the same state must agree
@@ -26,7 +28,9 @@ Phases, one line each (more for the parity and scene phases):
   7 large     FluidConfig.scaled_scene(256) (1M particles, 512^3 detailed
               grid, grid_fused on), 1 warm-up and 5 timed steps,
               invariants, steps/s, and every kernel, K6 included, launched
-              in it; then 2 steps with the kernels and 2 with
+              in it (K6 also by its C counter: one launch a wrapper call,
+              the max-pool taken into K6a); then 2 steps with the kernels
+              and 2 with
               pallas_mode="off" (the unfused stage path) must agree
   8 sharded   the x-slab multi-device step (tpu_fluid_torch/parallel/):
               first each halo-form kernel against its plain version,
@@ -39,8 +43,8 @@ Phases, one line each (more for the parity and scene phases):
               gathered state must equal 2 single-device steps from the
               same initial state bitwise in every field, hold the
               invariants, and every halo-form kernel must have launched on
-              every rank.  Its steps/s measures the host-staged transport,
-              not the port.
+              every rank (K6 also by its C counter).  Its steps/s measures
+              the host-staged transport, not the port.
   9 domain    domain-sharded particles (particle_sharding="domain",
               tpu_fluid_torch/parallel/particles_domain.py): first K3+K4's
               local-slab form against its plain version, bitwise, on the
@@ -54,7 +58,8 @@ Phases, one line each (more for the parity and scene phases):
               nothing dropped, at least one particle migrated, the
               invariants held, no velocity all_gather or occupancy
               psum_scatter run, and the local-slab kernel and every
-              halo-form kernel launched on every rank.  It prints steps/s
+              halo-form kernel launched on every rank (K6 also by its C
+              counter).  It prints steps/s
               and the host-staged transport of each step: the halo planes
               beside the migration exchange.
 The line before the last is a JSON object with the kernels' numbers (times
@@ -224,41 +229,57 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
-def random_types(rng, n: int) -> np.ndarray:
-    """A plausible cell-type field: water blob, air shell, solid border."""
+def random_types(rng, n) -> np.ndarray:
+    """A plausible cell-type field of n^3 cells (or of shape n): water blob,
+    air shell, solid border."""
     from tpu_fluid_torch.core.types import CellType
-    water = rng.random((n, n, n)) < 0.4
+    shape = (n,) * 3 if isinstance(n, int) else tuple(n)
+    water = rng.random(shape) < 0.4
     t = np.where(water, CellType.WATER, CellType.INACTIVE).astype(np.uint8)
     t[0], t[-1], t[:, 0], t[:, -1] = (CellType.SOLID,) * 4
     t[:, :, 0], t[:, :, -1] = (CellType.SOLID,) * 2
-    air = (t == CellType.INACTIVE) & (rng.random((n, n, n)) < 0.3)
+    air = (t == CellType.INACTIVE) & (rng.random(shape) < 0.3)
     t[air] = CellType.AIR
     return t
 
 
-def grid_fused_cases(t, rng, cfg):
-    """K6 cases at the grid of `cfg`, with a solid box and an extra force
-    added so that every branch of the kernels runs; the fountain and the
-    extra-force cells are WATER so that their forces land."""
+def sparse_occupancy(rng, shape, pool: int) -> np.ndarray:
+    """Detailed occupancy at `pool` times `shape`, about a third of the
+    pooled cells occupied."""
+    dense = 1 - (2 / 3) ** (1 / pool ** 3)
+    return (rng.random(tuple(pool * n for n in shape)) < dense
+            ).astype(np.uint8)
+
+
+def grid_fused_cases(t, rng, cfg, shape=None, pools=None):
+    """K6 cases at `shape` (the grid of `cfg`), with a solid box and an
+    extra force added so that every branch of the kernels runs; the
+    fountain and the extra-force cells are WATER so that their forces
+    land.  K6a takes the detailed occupancy at each of `pools` (the
+    scene's surface render resolution)."""
     from tpu_fluid_torch.kernels.grid_fused import (
         classify_extrap_cuda, classify_extrap_plain, forces_solids_div_cuda,
         forces_solids_div_plain, project_cuda, project_plain)
-    n = cfg.grid_size[0]
-    box = ((n // 4, n // 4, n // 4), (n // 2, n // 3, n // 2))
-    force_cell = (n // 3, n // 2, n // 3)
+    shape = tuple(shape or cfg.grid_size)
+    pools = pools or (cfg.surface_render_resolution,)
+    gx, gy, gz = shape
+    box = ((gx // 4, gy // 4, gz // 4), (gx // 2, gy // 3, gz // 2))
+    force_cell = (gx // 3, gy // 2, gz // 3)
+    if shape != tuple(cfg.grid_size):
+        cfg = cfg.replace(grid_size=shape, fountain_position=None)
     cfg = cfg.replace(solid_boxes=(box,),
                       extra_forces=((force_cell, (40.0, 0.0, -25.0)),))
-    occ = t((rng.random((n, n, n)) < 0.35).astype(np.uint8))
-    old = t(rng.integers(0, 4, (n, n, n)).astype(np.uint8))
-    vel = t((rng.standard_normal((3, n, n, n)) * 3).astype(np.float32))
-    types_np = random_types(rng, n)
+    old = t(rng.integers(0, 4, shape).astype(np.uint8))
+    vel = t((rng.standard_normal((3,) + shape) * 3).astype(np.float32))
+    types_np = random_types(rng, shape)
     fx, fy, fz = cfg.fountain
     types_np[fx, fy - 1:fy + 1, fz] = 2
     types_np[force_cell] = 2
     types = t(types_np)
-    p = t((rng.standard_normal((n, n, n)) * 50).astype(np.float32))
+    p = t((rng.standard_normal(shape) * 50).astype(np.float32))
     return [(classify_extrap_cuda, classify_extrap_plain,
-             (occ, old, vel, cfg), {}),
+             (t(sparse_occupancy(rng, shape, pool)), old, vel, cfg),
+             {"pool": pool}) for pool in pools] + [
             (forces_solids_div_cuda, forces_solids_div_plain,
              (types, vel, cfg), {}),
             (project_cuda, project_plain, (types, p, vel, cfg), {})]
@@ -329,10 +350,11 @@ def kernel_cases(device, scenes):
 
 
 def odd_cases(device):
-    """K2 and K5 at odd non-cubic shapes: K2 on its one-block route
-    (13, 22, 17) and its blocked route (37, 45, 29), 5 sweeps (a remainder
-    pass) and 199; K5 with 0, 1 and 4 blur passes, and int32 inertia, and
-    with 12 (a second launch of blur passes only)."""
+    """K2, K5, K6a and K6b at odd non-cubic shapes: K2 on its one-block
+    route (13, 22, 17) and its blocked route (37, 45, 29), 5 sweeps (a
+    remainder pass) and 199; K5 with 0, 1 and 4 blur passes, and int32
+    inertia, and with 12 (a second launch of blur passes only); K6a at
+    pools 1, 2 and 3 (several y and z tiles at (37, 45, 29))."""
     from tpu_fluid_torch import FluidConfig
     from tpu_fluid_torch.kernels.jacobi import (jacobi_sweeps_cuda,
                                                 jacobi_sweeps_plain)
@@ -372,14 +394,20 @@ def odd_cases(device):
             cases.append((f"{shape} steps={steps} {np.dtype(dtype).name}",
                           surface_fused_cuda, surface_fused_plain, fields,
                           kw))
+        for kernel, plain, args, kw in grid_fused_cases(
+                t, rng, cfg, shape, pools=(1, 2, 3)):
+            if kernel.__name__ != "project_cuda":
+                cases.append((f"{shape} {kw}", kernel, plain, args, kw))
     return cases
 
 
 def expected_device_launches(kernel, args, kw) -> tuple:
-    """(C launches one call of K2 or K5 must make, the route) from the
+    """(C launches one call of K2, K5 or K6 must make, the route) from the
     wrapper's plan."""
     from tpu_fluid_torch.kernels import build, tiling
     sms = build.sm_count(args[0].device.index)
+    if kernel.__module__.endswith("grid_fused"):
+        return 1, "one pass"
     if kernel.__name__ == "jacobi_sweeps_cuda":
         plan = tiling.jacobi_plan(args[0].shape, args[3], sms=sms)
         return (1 if plan.route == "whole" else len(plan.passes)), \
@@ -396,19 +424,23 @@ def expected_device_launches(kernel, args, kw) -> tuple:
 
 
 def device_launch_counter(kernel):
-    """The C launch counter behind K2's and K5's wrappers, else None."""
-    from tpu_fluid_torch.kernels import jacobi, surface_fused
+    """The C launch counter behind K2's, K5's and K6's wrappers, else
+    None."""
+    from tpu_fluid_torch.kernels import grid_fused, jacobi, surface_fused
     name = kernel.__name__
     if name.startswith("jacobi_"):
         return jacobi.device_launches
     if name.startswith("surface_fused"):
         return surface_fused.device_launches
+    if kernel.__module__ == grid_fused.__name__:
+        return grid_fused.device_launches
     return None
 
 
 def run_case(label: str, kernel, plain, args, kw, reps: int) -> dict:
     """Hold one kernel call against its plain version bitwise; time both;
-    compute the bound; for K2 and K5, count the launches the call made."""
+    compute the bound; for K2, K5 and K6, count the launches the call
+    made."""
     name = kernel.__name__
     counter = device_launch_counter(kernel)
     before = counter() if counter else None
@@ -740,6 +772,7 @@ def sharded_rank(rank, n, init_method, cfg, device):
     wrappers = halo_wrappers()
     run = spmd_multi_step(cfg, mesh, SHARDED_STEPS)
     reset_launches(wrappers)
+    k6_before = k6_device_launches(device)
     dist.barrier()
     sync()
     t0 = time.perf_counter()
@@ -749,7 +782,8 @@ def sharded_rank(rank, n, init_method, cfg, device):
     seconds = time.perf_counter() - t0
     launches = read_launches(wrappers)
     full = gather_state(local, mesh)
-    out = {"launches": launches, "seconds": seconds}
+    out = {"launches": launches, "seconds": seconds,
+           "k6_device": k6_device_launches(device) - k6_before}
     if rank == 0:
         check_invariants(full, cfg, ymax0, "8 sharded")
         ref = run_steps(state0, cfg, SHARDED_STEPS)
@@ -764,6 +798,21 @@ def sharded_rank(rank, n, init_method, cfg, device):
             fields[name] = (same, err)
         out["fields"] = fields
     return out
+
+
+def k6_device_launches(device) -> int:
+    """K6's C launch counter (0 off the card)."""
+    from tpu_fluid_torch.kernels import grid_fused
+    return grid_fused.device_launches() if device.type == "cuda" else 0
+
+
+def check_k6_device(label: str, counted: int, launches: dict) -> None:
+    """One C launch of K6 for each K6 wrapper call."""
+    calls = sum(n for name, n in launches.items()
+                if name.startswith(("classify_extrap", "forces_solids_div",
+                                    "project")))
+    check(counted == calls, f"{label}: K6's C counter says {counted} "
+                            f"launches for {calls} wrapper calls")
 
 
 def phase_sharded(cfg, card: str, device) -> dict:
@@ -787,10 +836,12 @@ def phase_sharded(cfg, card: str, device) -> dict:
           flush=True)
     launches = {}
     for rank, r in enumerate(ranks):
-        print(f"[8 launches] rank {rank}: {r['launches']}", flush=True)
+        print(f"[8 launches] rank {rank}: {r['launches']}, K6 C counter "
+              f"{r['k6_device']}", flush=True)
         check(all(v > 0 for v in r["launches"].values()),
               f"rank {rank}: a kernel of the sharded path never launched: "
               f"{r['launches']}")
+        check_k6_device(f"8 rank {rank}", r["k6_device"], r["launches"])
         for name, count in r["launches"].items():
             launches[name] = launches.get(name, 0) + count
     return launches
@@ -948,6 +999,7 @@ def domain_rank(rank, n, init_method, cfg, device):
     wrappers = halo_wrappers()[:-1] + (particle_move_local_cuda,)
     step = spmd_module.spmd_step(cfg, mesh)
     reset_launches(wrappers)
+    k6_before = k6_device_launches(device)
     dist.barrier()
     sync()
     steps = []
@@ -961,6 +1013,7 @@ def domain_rank(rank, n, init_method, cfg, device):
     full = gather_state(local, mesh)
     out = {"launches": launches, "steps": steps, "crossers": crossers,
            "slots": slots,
+           "k6_device": k6_device_launches(device) - k6_before,
            "capacity": particles_domain.migrate_capacity(slots, cfg)}
     if rank == 0:
         check_invariants(full, cfg, ymax0, "9 domain")
@@ -1027,10 +1080,12 @@ def phase_domain(cfg, card: str, device) -> dict:
                   f"{parts}; the rest {rest!r} s", flush=True)
     launches = {}
     for rank, r in enumerate(ranks):
-        print(f"[9 launches] rank {rank}: {r['launches']}", flush=True)
+        print(f"[9 launches] rank {rank}: {r['launches']}, K6 C counter "
+              f"{r['k6_device']}", flush=True)
         check(all(v > 0 for v in r["launches"].values()),
               f"rank {rank}: a kernel of the domain path never launched: "
               f"{r['launches']}")
+        check_k6_device(f"9 rank {rank}", r["k6_device"], r["launches"])
         for name, count in r["launches"].items():
             launches[name] = launches.get(name, 0) + count
     return launches
@@ -1082,7 +1137,10 @@ def main() -> int:
                                "(surface_fused_2d, covered)"),
         "classify_extrap_cuda": ("tpu_fluid_torch/csrc/grid_fused.cu",
                                  "tpu_fluid/kernels/grid_fused.py:411 "
-                                 "(body :143, pallas_call in _call :340)"),
+                                 "(body :143, pallas_call in _call :340), "
+                                 "with stage 01 "
+                                 "tpu_fluid/stages/particles.py:59 "
+                                 "(occupancy_to_sim_grid, XLA) taken in"),
         "forces_solids_div_cuda": ("tpu_fluid_torch/csrc/grid_fused.cu",
                                    "tpu_fluid/kernels/grid_fused.py:443 "
                                    "(body :209, pallas_call in _call :340)"),
@@ -1151,19 +1209,23 @@ def main() -> int:
     state = initial_state(large_cfg, device)
     ymax0 = float(active_positions(state)[:, 1].max())
     reset_launches(wrappers + fused_wrappers)
+    k6_before = k6_device_launches(device)
     state = run_steps(state, large_cfg, 1)
     start.record()
     state = run_steps(state, large_cfg, LARGE_STEPS)
     end.record()
     torch.cuda.synchronize()
     large_launches = read_launches(wrappers + fused_wrappers)
+    k6_device = k6_device_launches(device) - k6_before
     large_sps = LARGE_STEPS / (start.elapsed_time(end) / 1000.0)
     print(f"[7 large] {LARGE_STEPS} timed steps of scaled_scene(256) after "
           f"1 warm-up: {large_sps!r} steps/s on {card}", flush=True)
     check_invariants(state, large_cfg, ymax0, "7 large")
-    print(f"[6 launches] phase 7: {large_launches}", flush=True)
+    print(f"[6 launches] phase 7: {large_launches}, K6 C counter "
+          f"{k6_device}", flush=True)
     check(all(v > 0 for v in large_launches.values()),
           f"a kernel of the large path never launched: {large_launches}")
+    check_k6_device("7 large", k6_device, large_launches)
     for name, count in large_launches.items():
         launches[name] = launches.get(name, 0) + count
     with_kernels = run_steps(state, large_cfg, LARGE_COMPARE_STEPS)

@@ -1,8 +1,10 @@
 """K6, the fused sim-grid stage groups: each plain PyTorch version against
 the JAX package's Pallas kernel in the Pallas interpreter, at the grid of
 tests/test_grid_fused.py, with and without solid boxes and extra forces;
-the wrappers' checks.  The wrappers' CPU routing and the CUDA kernels
-against their plain versions are cases of tests/test_torch_kernels.py.
+K6a's pooled plain version (stage 01 taken in) against JAX's
+`occupancy_to_sim_grid` followed by its kernel, at pools 1-3; the
+wrappers' checks.  The wrappers' CPU routing and the CUDA kernels against
+their plain versions are cases of tests/test_torch_kernels.py.
 
 Cell types must be equal.  f32 results must agree within 1 ULP of the
 field's scale: XLA:CPU may contract a*b+c into one fused multiply-add
@@ -20,6 +22,7 @@ from tpu_fluid.core.config import FluidConfig as JaxConfig
 from tpu_fluid.kernels.grid_fused import (classify_extrap_pallas,
                                           forces_solids_div_pallas,
                                           project_pallas)
+from tpu_fluid.stages.particles import occupancy_to_sim_grid
 from tpu_fluid_torch.core.config import FluidConfig
 from tpu_fluid_torch.kernels.grid_fused import (classify_extrap_cuda,
                                                 classify_extrap_plain,
@@ -83,6 +86,35 @@ def test_classify_extrap_plain_matches_pallas_interpret(boxes):
     same(got_v, want_v, ulp=1)
 
 
+def sparse_occupancy(r, shape, pool):
+    """Detailed occupancy at `pool` times `shape` with about a third of
+    the pooled cells occupied."""
+    dense = 1 - (2 / 3) ** (1 / pool ** 3)
+    return (r.random(tuple(pool * n for n in shape)) < dense
+            ).astype(np.uint8)
+
+
+@pytest.mark.parametrize("pool", [1, 2, 3])
+@pytest.mark.parametrize("boxes", BOXES)
+def test_pooled_classify_extrap_plain_matches_jax(boxes, pool):
+    """Stages 01-06: the plain version on the detailed occupancy against
+    JAX's stage-01 reduce_window max-pool, then its kernel."""
+    jcfg, cfg = configs(solid_boxes=boxes, surface_render_resolution=pool)
+    _, _, vel, _ = fields(6)
+    r = np.random.default_rng(7 + pool)
+    occ = sparse_occupancy(r, GRID, pool)
+    old = r.integers(0, 4, GRID).astype(np.uint8)
+    occ_sim = occupancy_to_sim_grid(jnp.asarray(occ), jcfg)
+    want_t, want_v = classify_extrap_pallas(
+        occ_sim, jnp.asarray(old), jnp.asarray(vel), jcfg, interpret=True)
+    got_t, got_v = classify_extrap_plain(T(occ), T(old), T(vel), cfg,
+                                         pool=pool)
+    same(got_t, want_t)
+    same(got_v, want_v, ulp=1)
+    # every type occurs, so each branch of stages 02-05 ran
+    assert set(np.unique(got_t.numpy())) == {0, 1, 2, 3}
+
+
 @pytest.mark.parametrize("extra", FORCES)
 @pytest.mark.parametrize("boxes", BOXES)
 def test_forces_solids_div_plain_matches_pallas_interpret(boxes, extra):
@@ -139,6 +171,47 @@ def wrapper_calls(device="cpu"):
     ]
 
 
+# K6a at pools 1-3 and K6b at odd non-cubic grids: several y and z tiles
+# and x segments on the card
+ODD_GRIDS = [(13, 22, 17), (37, 45, 29)]
+POOLS = [1, 2, 3]
+
+
+def odd_wrapper_calls(device="cpu"):
+    """(wrapper, plain, args, kwargs): K6a at each pool and K6b, at each
+    odd grid, with a solid box and an extra force, and the fountain and
+    the force cell wet; then K6a with no solid box: cases of the wrapper
+    tests in tests/test_torch_kernels.py."""
+    calls = []
+    for i, shape in enumerate(ODD_GRIDS):
+        r = np.random.default_rng(50 + i)
+        gx, gy, gz = shape
+        fountain = (gx // 2, gy - 3, gz // 2)
+        force_cell = (gx // 3, gy // 2, gz // 3)
+        cfg = FluidConfig(grid_size=shape, fountain_position=fountain,
+                          solid_boxes=(((gx // 4, 2, 3),
+                                        (gx // 2, gy // 2, gz - 4)),),
+                          extra_forces=((force_cell, (40.0, 0.0, -25.0)),))
+        old = r.integers(0, 4, shape).astype(np.uint8)
+        vel = (3.0 * r.standard_normal((3,) + shape)).astype(np.float32)
+        for pool in POOLS:
+            args = (sparse_occupancy(r, shape, pool), old, vel)
+            calls.append((classify_extrap_cuda, classify_extrap_plain,
+                          tuple(T(a).to(device) for a in args) + (cfg,),
+                          {"pool": pool}))
+        types = r.integers(0, 4, shape).astype(np.uint8)
+        for cell in (fountain, force_cell):
+            types[cell[0], cell[1] - 1:cell[1] + 1, cell[2]] = 2
+        calls.append((forces_solids_div_cuda, forces_solids_div_plain,
+                      (T(types).to(device), T(vel).to(device), cfg), {}))
+    # no solid box, as in the scaled scenes
+    occ = sparse_occupancy(r, shape, 2)
+    calls.append((classify_extrap_cuda, classify_extrap_plain,
+                  tuple(T(a).to(device) for a in (occ, old, vel))
+                  + (cfg.replace(solid_boxes=()),), {"pool": 2}))
+    return calls
+
+
 def test_wrappers_reject_bad_inputs():
     cfg = FluidConfig(grid_size=GRID)
     occ, types, vel, p = map(T, fields(5))
@@ -146,6 +219,17 @@ def test_wrappers_reject_bad_inputs():
         classify_extrap_cuda(occ.to(torch.int32), types, vel, cfg)
     with pytest.raises(ValueError):
         classify_extrap_cuda(occ, types[:3], vel, cfg)
+    with pytest.raises(ValueError):
+        classify_extrap_cuda(occ, types, vel, cfg, pool=2)
+    with pytest.raises(ValueError):
+        classify_extrap_cuda(occ, types, vel, cfg, pool=0)
+    # at pool 2 the occupancy must start on a 2-byte boundary
+    fine = T(sparse_occupancy(np.random.default_rng(5), GRID, 2))
+    odd = torch.empty(fine.numel() + 1, dtype=torch.uint8)[1:]
+    odd.copy_(fine.flatten())
+    with pytest.raises(ValueError, match="2-byte"):
+        classify_extrap_cuda(odd.reshape(fine.shape), types, vel, cfg,
+                             pool=2)
     with pytest.raises(ValueError):
         forces_solids_div_cuda(types, vel[:2], cfg)
     with pytest.raises(TypeError):

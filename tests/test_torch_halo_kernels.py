@@ -7,7 +7,8 @@ version on the same rows, bitwise.  K3+K4's local-slab form, which
 domain-sharded particles run, is held against JAX's table and
 `sample_and_move` on a numpy-built edge-replicated slab, stragglers
 included.  On a CUDA card only (marked `cuda`), each halo-form CUDA kernel
-against its plain version, bitwise.
+against its plain version, bitwise (K6a and K6b also at every shard of an
+odd grid).
 
 `jacobi_sweeps_sharded`, whose passes exchange planes with the neighbours,
 is held against JAX under shard_map in tests/test_torch_spmd.py.
@@ -458,10 +459,36 @@ def halo_calls(device):
                          for a in (q0, code, fold_c2e(q0, code, c2)))]
         calls.append((jacobi_pass_cuda, jacobi_pass_plain,
                       tuple(ext) + (h, kk), {}))
+    # K6a and K6b at every shard of an odd grid split 3 ways: 13-row slabs,
+    # two tiles along y
+    shape = ODD_GRID
+    r = np.random.default_rng(100)
+    cfg = FluidConfig(grid_size=shape, fountain_position=(19, 19, 8),
+                      solid_boxes=(((10, 2, 3), (20, 11, 13)),),
+                      extra_forces=(((12, 11, 5), (40.0, 0.0, -25.0)),))
+    occ = (r.random(shape) < 0.35).astype(np.uint8)
+    old = r.integers(0, 4, shape).astype(np.uint8)
+    types = random_types(r, shape)
+    types[19, 18:20, 8], types[12, 10:12, 5] = 2, 2
+    vel = (3.0 * r.standard_normal((3,) + shape)).astype(np.float32)
+    for shard in SHARDS:
+        for wrapper, plain, arrays, h in (
+                (classify_extrap_halo_cuda, classify_extrap_halo_plain,
+                 (occ, old, vel), 2),
+                (forces_solids_div_halo_cuda, forces_solids_div_halo_plain,
+                 (types, vel), 1)):
+            parts = [slab(a, shard, h=h) for a in arrays]
+            calls.append((wrapper, plain,
+                          tuple(dev(q[0]) for q in parts) + (cfg,),
+                          dict(halos=tuple((dev(q[1][0]), dev(q[1][1]))
+                                           for q in parts),
+                               x0=shard * shape[0] // N_SHARDS,
+                               global_gx=shape[0])))
     return calls
 
 
-N_HALO_CALLS = 22
+ODD_GRID = (39, 45, 17)
+N_HALO_CALLS = 28
 
 
 @pytest.fixture

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_grid_fused import odd_wrapper_calls as odd_grid_fused_calls
 from test_torch_grid_fused import wrapper_calls as grid_fused_calls
 from tpu_fluid.kernels.advect import (advect_all_pallas,
                                       advect_component_pallas,
@@ -282,7 +283,7 @@ ODD_SURFACE = [(0, np.uint8), (1, np.int32), (4, np.uint8), (4, np.int32),
 
 def _wrapper_calls(device="cpu"):
     """(wrapper, plain, args, kwargs) at small shapes, then K2 and K5 at
-    the odd shapes."""
+    the odd shapes, then K6a at pools 1-3 and K6b at the odd shapes."""
     vel, cond3 = advect_inputs((6, 7, 8), 7)
     q0, code, c2 = jacobi_inputs(6, 8)
     pvel, pos, act = particle_inputs((6, 7, 8), 300, 9)
@@ -309,7 +310,8 @@ def _wrapper_calls(device="cpu"):
         (surface_fused_cuda, surface_fused_plain,
          dev(*surface_inputs(odd_surface_cfg(steps, dtype), 30 + i, dtype)),
          surface_kw(odd_surface_cfg(steps, dtype)))
-        for i, (steps, dtype) in enumerate(ODD_SURFACE)]
+        for i, (steps, dtype) in enumerate(ODD_SURFACE)] + \
+        odd_grid_fused_calls(device)
 
 
 def odd_surface_cfg(steps, inertia_dtype):
@@ -318,7 +320,7 @@ def odd_surface_cfg(steps, inertia_dtype):
     return cfg.replace(max_inertia=300) if inertia_dtype == np.int32 else cfg
 
 
-N_CALLS = 7 + len(ODD_JACOBI) + len(ODD_SURFACE)
+N_CALLS = 7 + len(ODD_JACOBI) + len(ODD_SURFACE) + 9
 
 
 @pytest.mark.parametrize("case", range(N_CALLS))

@@ -1,6 +1,6 @@
 """The launch plans of the marching kernels (`kernels/tiling.py`): K2's
-routes and passes and K5's launches, checked on the CPU before any card
-runs them.
+routes and passes, K5's launches and K6a's and K6b's passes, checked on
+the CPU before any card runs them.
 
 A torch emulation follows a plan block by block, as the CUDA kernels do:
 each block computes its levels from its own window (its output rows and
@@ -18,9 +18,13 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_grid_fused import sparse_occupancy
 from tpu_fluid_torch.core.config import FluidConfig
 from tpu_fluid_torch.core.state import initial_state, state_from_numpy
 from tpu_fluid_torch.kernels import tiling
+from tpu_fluid_torch.kernels.grid_fused import (
+    classify_extrap_halo_plain, classify_extrap_plain,
+    forces_solids_div_halo_plain, forces_solids_div_plain)
 from tpu_fluid_torch.kernels.jacobi import (fold_c2e, jacobi_pass_plain,
                                             jacobi_sweeps_plain)
 from tpu_fluid_torch.kernels.surface_fused import (_blur, _surface,
@@ -324,6 +328,146 @@ def test_surface_plan_chains_launches_beyond_max_levels():
         tiling.surface_plan((20, 20, 20), -1)
     with pytest.raises(ValueError):
         tiling.surface_plan((60, 20, 20), 4, halo=4)
+
+
+# ------------------------------------------------------------------ K6
+# K6a and K6b march one pass each.  Their emulation asks the converse of
+# the stitching above: every input cell outside a block's window is
+# replaced by a random value (out-of-domain rows of a halo slab stay zero,
+# as the halo exchange delivers them), and the plain version's output
+# must not change in the block's box.  A halo one plane or ring short
+# leaves a cell of the box reading a replaced value.
+K6_SHAPES = [(13, 22, 17), (37, 45, 29), (24, 24, 24)]
+
+
+def scramble(a, win, rows_in_domain, rng, pool=1):
+    """`a` ((X, Y, Z), or (3, X, Y, Z)) with every in-domain cell outside
+    the window `win` (sim-grid slices; `pool` times finer for a detailed
+    field) replaced by a random one of its values, so that a sparse
+    occupancy stays sparse."""
+    keep = torch.zeros(a.shape[-3:], dtype=torch.bool)
+    keep[tuple(slice(w.start * pool, w.stop * pool) for w in win)] = True
+    dom = rows_in_domain.repeat_interleave(pool).reshape(-1, 1, 1)
+    noise = a.flatten()[T(rng.permutation(a.numel()))].reshape(a.shape)
+    return torch.where(keep | ~dom, a, noise)
+
+
+def k6_case(shape, seed):
+    """Detailed-free K6 inputs on `shape` and a config with a solid box,
+    extra forces and the fountain inside it, those cells wet."""
+    r = np.random.default_rng(seed)
+    gx, gy, gz = shape
+    fountain = (gx // 2, gy - 3, gz // 2)
+    force_cell = (gx // 3, gy // 2, gz // 3)
+    cfg = FluidConfig(grid_size=shape, fountain_position=fountain,
+                      solid_boxes=(((gx // 4, 2, 3),
+                                    (gx // 2, gy // 2, gz - 4)),),
+                      extra_forces=((force_cell, (40.0, 0.0, -25.0)),))
+    types = random_types(r, shape)
+    for cell in (fountain, force_cell):
+        types[cell[0], cell[1] - 1:cell[1] + 1, cell[2]] = 2
+    old = r.integers(0, 4, shape).astype(np.uint8)
+    vel = (r.standard_normal((3,) + shape) * 3).astype(np.float32)
+    return cfg, r, T(types), T(old), T(vel)
+
+
+def check_k6_plan(p: tiling.Pass, fields, pools, run, rows_in_domain, rng):
+    """For every block of `p`: scramble `fields` outside its window and
+    compare `run(*fields)` (outputs whose row 0 is input row p.out_x0) in
+    the block's box with the unscrambled result."""
+    want = run(*fields)
+    blocks = list(p.blocks())
+    assert blocks and all(w.numel() for w in want)
+    for box in blocks:
+        win = window(p, box)
+        got = run(*(scramble(a, win, rows_in_domain, rng, pool)
+                    for a, pool in zip(fields, pools)))
+        out = tuple(slice(lo - off, hi - off) for (lo, hi), off
+                    in zip(box, (p.out_x0, 0, 0)))
+        for g, w in zip(got, want):
+            assert torch.equal(g[(...,) + out], w[(...,) + out]), box
+    return want
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("pool", [1, 2, 3])
+@pytest.mark.parametrize("shape", K6_SHAPES)
+def test_classify_plan_blocks_see_their_windows(shape, pool, sms):
+    """K6a at pools 1-3: the detailed occupancy is pool times finer."""
+    cfg, r, _, old, vel = k6_case(shape, 11 + pool)
+    occ = T(sparse_occupancy(r, shape, pool))
+    p = tiling.grid_fused_pass(shape, tiling.CLASSIFY_HALO, sms=sms)
+    assert (p.levels, p.halo, p.xs, p.xe, p.out_x0) == \
+        (2, 2, 0, shape[0], 0)
+    assert (p.inner_y, p.inner_z) == (tiling.TILE - 4,) * 2
+    check_k6_plan(p, (occ, old, vel), (pool, 1, 1),
+                  lambda *f: classify_extrap_plain(*f, cfg, pool=pool),
+                  torch.ones(shape[0], dtype=torch.bool), r)
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("shape", K6_SHAPES)
+def test_forces_plan_blocks_see_their_windows(shape, sms):
+    cfg, r, types, _, vel = k6_case(shape, 21)
+    p = tiling.grid_fused_pass(shape, tiling.FORCES_HALO, sms=sms)
+    assert (p.levels, p.halo, p.xs, p.xe) == (2, 1, 0, shape[0])
+    assert p.inner_y == tiling.TILE - 2
+    check_k6_plan(p, (types, vel), (1, 1),
+                  lambda *f: forces_solids_div_plain(*f, cfg),
+                  torch.ones(shape[0], dtype=torch.bool), r)
+
+
+def k6_halo_case(kind, shard, seed):
+    """The extended slab of shard `shard` of SHARDS of a (40, 45, 29) grid
+    (K6a: occupancy, old types, velocity; K6b: types, velocity) with the
+    form's halo planes, zeros past the domain; the halo plain version as a
+    function of the extended fields; and the slab's in-domain rows."""
+    shape = (40, 45, 29)
+    cfg, r, types, old, vel = k6_case(shape, seed)
+    h = tiling.CLASSIFY_HALO if kind == "classify" else tiling.FORCES_HALO
+    lx = shape[0] // SHARDS
+    x0 = shard * lx
+    rows = np.arange(x0 - h, x0 + lx + h)
+    inside = T((rows >= 0) & (rows < shape[0]))
+    idx = T(np.clip(rows, 0, shape[0] - 1))
+    occ = T((r.random(shape) < 1 / 3).astype(np.uint8))
+    fields = (occ, old, vel) if kind == "classify" else (types, vel)
+    ext = [torch.where(inside.reshape(-1, 1, 1), a[..., idx, :, :],
+                       torch.zeros_like(a[..., idx, :, :])) for a in fields]
+    plain = (classify_extrap_halo_plain if kind == "classify"
+             else forces_solids_div_halo_plain)
+
+    def rows_of(a, lo, hi):
+        return a[..., lo:hi, :, :].contiguous()
+
+    def run(*e):
+        return plain(*(rows_of(a, h, h + lx) for a in e), cfg,
+                     halos=tuple((rows_of(a, 0, h), rows_of(a, h + lx, None))
+                                 for a in e), x0=x0, global_gx=shape[0])
+    p = tiling.grid_fused_pass(ext[0].shape[-3:], h, slab_halo=h, sms=3)
+    assert (p.xs, p.xe, p.out_x0) == (h, h + lx, h)
+    return p, ext, run, inside, r
+
+
+@pytest.mark.parametrize("kind", ["classify", "forces"])
+@pytest.mark.parametrize("shard", [0, 1, 3])
+def test_k6_halo_plan_blocks_see_their_windows(kind, shard):
+    """The halo forms at the first, a middle and the last of 4 slabs; the
+    sharded step pools its slab before K6a, so K6a runs at pool 1."""
+    p, ext, run, inside, r = k6_halo_case(kind, shard, 31 + shard)
+    check_k6_plan(p, ext, (1,) * len(ext), run, inside, r)
+
+
+def test_k6_passes_fill_the_card():
+    """256^3: K6a's 10 x 10 and K6b's 9 x 9 tiles are fewer than the SMs,
+    so each cuts x into segments."""
+    a = tiling.grid_fused_pass((256,) * 3, tiling.CLASSIFY_HALO)
+    b = tiling.grid_fused_pass((256,) * 3, tiling.FORCES_HALO)
+    assert a.tiles == (10, 10) and b.tiles == (9, 9)
+    assert a.segments > 1 and b.segments > 1
+    assert a.seg * a.segments >= 256 and b.seg * b.segments >= 256
+    with pytest.raises(ValueError):
+        tiling.grid_fused_pass((4, 8, 8), 2, slab_halo=2)
 
 
 def test_segments_fill_the_card():

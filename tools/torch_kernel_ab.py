@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's K2 (Jacobi sweeps) and K5 (surface stages 16-18)
-kernels of one source tree on the card, at the shapes `chip_smoke.py`
-checks them at.
+"""Time the PyTorch port's redesigned kernels of one source tree on the
+card, at the shapes `chip_smoke.py` checks them at, or split its
+scaled_scene(256) step by stage.
 
-    python3 tools/torch_kernel_ab.py [--tree DIR] [--label NAME]
+    python3 tools/torch_kernel_ab.py [--tree DIR] [--label NAME] [--split]
 
 `--tree` names the directory that holds the `tpu_fluid_torch` package to
 time (default: this checkout), so that a parent commit unpacked with
@@ -11,26 +11,44 @@ time (default: this checkout), so that a parent commit unpacked with
 the change: run parent, change, change, parent, one process each.  Each
 process builds that tree's kernels into the tree's own `build/`.
 
-The inputs are `chip_smoke.py`'s own, made by its `kernel_cases` and
-`halo_cases` (this checkout's script, that tree's package): K2 solves the
-folded system of a random cell field for 199 sweeps at 20^3, 128^3 and
-256^3; K5 runs 4 blur passes at the detailed grids 100^3, 256^3 and 512^3;
-and at shard 1 of `scaled_scene(256)` split 4 ways, K2's sharded pass runs
-8 sweeps on an 80 x 256^2 slab and K5's halo form runs on a 128 x 512^2
-slab with 5 halo planes a side.  Each line printed is one JSON object with
-the tree's label, the kernel, the scene, the input shape, the mean ms by
-CUDA events over `REPS` calls after two warm-up calls, the kernel launches
-one call made (where the tree counts them) and a digest of the output
-bytes, which must agree between trees: both are bitwise equal to the same
-plain version.  The first line is the card's name and power limit as
-nvidia-smi gives them.
+Kernels (the default): the inputs are `chip_smoke.py`'s own, made by its
+`kernel_cases` and `halo_cases` (this checkout's script, that tree's
+package): K2 solves the folded system of a random cell field for 199
+sweeps at 20^3, 128^3 and 256^3; K5 runs 4 blur passes at the detailed
+grids 100^3, 256^3 and 512^3; K6a (stages 01-06) takes the 512^3 detailed
+occupancy at pool 2 and K6b (08-11) its 256^3 fields; and at shard 1 of
+`scaled_scene(256)` split 4 ways, K2's sharded pass runs 8 sweeps on an
+80 x 256^2 slab, K5's halo form runs on a 128 x 512^2 slab with 5 halo
+planes a side, and K6a's and K6b's halo forms on 64 x 256^2 slabs with 2
+and 1.  A tree whose K6a takes no `pool` is timed with its own stage-01
+max-pool (`stages/particles.occupancy_to_sim_grid`) in front, so that both
+trees compute the same function from the same inputs.  Each line printed
+is one JSON object with the tree's label, the kernel, the scene, the input
+shape, the mean ms by CUDA events over `REPS` calls after two warm-up
+calls, the kernel launches one call made (where the tree counts them) and
+a digest of the output bytes, which must agree between trees: both are
+bitwise equal to the same plain version.
+
+`--split`: `SPLIT_STEPS` steps of scaled_scene(256) after one warm-up,
+with CUDA events around every stage call of `solver/step.py` and the
+kernels and plain passes inside stages 07 and 12 (stage functions the tree
+does not call are absent from its lines).  One JSON line a stage: the
+median and the per-step ms; then the step itself and the part of it that
+no top-level stage covers.
+
+The first line is the card's name and power limit as nvidia-smi gives
+them.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import hashlib
+import importlib
+import inspect
 import json
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -39,8 +57,34 @@ ROOT = Path(__file__).resolve().parents[1]
 # calls timed a kernel: the 20^3 / 100^3 calls take tens of microseconds,
 # so many calls average out the host's jitter
 REPS = {"reference": 200, "bench": 20, "large": 8, "large shard 1/4": 10}
-SCENE_KERNELS = ("jacobi_sweeps_cuda", "surface_fused_cuda")
-HALO_KERNELS = ("jacobi_pass_cuda", "surface_fused_halo_cuda")
+SCENE_KERNELS = ("jacobi_sweeps_cuda", "surface_fused_cuda",
+                 "classify_extrap_cuda", "forces_solids_div_cuda")
+HALO_KERNELS = ("jacobi_pass_cuda", "surface_fused_halo_cuda",
+                "classify_extrap_halo_cuda", "forces_solids_div_halo_cuda")
+SPLIT_STEPS = 5
+# (module, function, label, top level): the stage calls of
+# solver/step.simulation_step on the fused path, and inside stages 07
+# and 12 the kernel and the plain passes around it
+SPLIT = (
+    ("stages.particles", "occupancy_to_sim_grid", "01 max-pool (plain)",
+     True),
+    ("kernels.grid_fused", "classify_extrap_cuda",
+     "K6a (02-06; 01-06 where it pools)", True),
+    ("stages.velocity", "advect", "07 advect", True),
+    ("stages.velocity", "_advect_conditions", "07 condition masks (plain)",
+     False),
+    ("stages.velocity", "advect_all_cuda", "07 K1", False),
+    ("kernels.grid_fused", "forces_solids_div_cuda", "08-11 K6b", True),
+    ("stages.pressure", "jacobi_solve", "12 pressure solve", True),
+    ("stages.pressure", "jacobi_fold", "12 jacobi_fold (plain)", False),
+    ("stages.pressure", "jacobi_sweeps_cuda", "12 K2", False),
+    ("kernels.grid_fused", "project_cuda", "13 K6c", True),
+    ("stages.particles", "move_particles", "14 move particles (K3+K4)",
+     True),
+    ("stages.particles", "detailed_occupancy",
+     "15 occupancy scatter (plain)", True),
+    ("stages.surface_fields", "update_surface_fields", "16-18 K5", True),
+)
 
 
 def digest(tensors) -> str:
@@ -50,42 +94,31 @@ def digest(tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--tree", default=str(ROOT))
-    ap.add_argument("--label", default="change")
-    args = ap.parse_args()
-    tree = Path(args.tree).resolve()
-    # the tree's package first, then this checkout's chip_smoke.py
-    sys.path[:0] = [str(tree), str(ROOT)]
+def pooled_if_needed(kernel, call_args, kw):
+    """The call that computes stages 01-06 with this tree's K6a: the kernel
+    itself where it takes `pool`, else its max-pool and then the kernel."""
+    if "pool" not in kw or "pool" in inspect.signature(kernel).parameters:
+        return lambda: kernel(*call_args, **kw)
+    from tpu_fluid_torch.stages.particles import occupancy_to_sim_grid
+    occ, old, vel, cfg = call_args
+    assert cfg.surface_render_resolution == kw["pool"]
+    return lambda: kernel(occupancy_to_sim_grid(occ, cfg), old, vel, cfg)
+
+
+def time_kernels(label, chip_smoke, device) -> None:
     import torch
-    if not torch.cuda.is_available():
-        print("torch_kernel_ab: no CUDA device", file=sys.stderr)
-        return 2
-    import chip_smoke
-    import tpu_fluid_torch
     from tpu_fluid_torch import FluidConfig
-    from tpu_fluid_torch.kernels import build, jacobi, surface_fused
-    if Path(tpu_fluid_torch.__file__).resolve().parents[1] != tree:
-        raise RuntimeError(f"imported {tpu_fluid_torch.__file__}, not the "
-                           f"tree {tree}")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
-    build.build()
-    device = torch.device("cuda", 0)
 
     def report(scene, kernel, call_args, kw):
-        module = jacobi if kernel.__name__.startswith("jacobi") \
-            else surface_fused
+        module = importlib.import_module(kernel.__module__)
         counter = getattr(module, "device_launches", None)
+        call = pooled_if_needed(kernel, call_args, kw)
         before = counter() if counter else None
-        out = kernel(*call_args, **kw)
+        out = call()
         torch.cuda.synchronize()
         used = counter() - before if counter else None
-        ms = chip_smoke.time_ms(lambda: kernel(*call_args, **kw),
-                                reps=REPS[scene])
-        print(json.dumps({"tree": args.label, "kernel": kernel.__name__,
+        ms = chip_smoke.time_ms(call, reps=REPS[scene])
+        print(json.dumps({"tree": label, "kernel": kernel.__name__,
                           "scene": scene, "shape": list(call_args[0].shape),
                           "ms": ms, "launches": used,
                           "digest": digest(out if isinstance(out, tuple)
@@ -104,6 +137,82 @@ def main() -> int:
                                                                   large):
         if shard == 1 and kernel.__name__ in HALO_KERNELS:
             report("large shard 1/4", kernel, call_args, kw)
+
+
+def split_step(label, device) -> None:
+    """Per-stage device time of the scaled_scene(256) step."""
+    import torch
+    from tpu_fluid_torch import FluidConfig, initial_state, step
+    log = []
+
+    def timed(fn, name):
+        @functools.wraps(fn)  # the wrappers' launch counters come along
+        def call(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            log.append((name, start, end))
+            return out
+        return call
+
+    for module, name, stage, _ in SPLIT:
+        mod = importlib.import_module(f"tpu_fluid_torch.{module}")
+        setattr(mod, name, timed(getattr(mod, name), stage))
+    cfg = FluidConfig.scaled_scene(256)
+    state = step(initial_state(cfg, device), cfg)
+    torch.cuda.synchronize()
+    per_step = []
+    for _ in range(SPLIT_STEPS):
+        log.clear()
+        state = timed(step, "step")(state, cfg)
+        torch.cuda.synchronize()
+        ms = {}
+        for name, start, end in log:
+            ms[name] = ms.get(name, 0.0) + start.elapsed_time(end)
+        per_step.append(ms)
+    top = {stage for _, _, stage, is_top in SPLIT if is_top}
+    for ms in per_step:
+        ms["not in a stage"] = ms["step"] - sum(v for k, v in ms.items()
+                                                 if k in top)
+    for name in [s for _, _, s, _ in SPLIT] + ["step", "not in a stage"]:
+        each = [ms[name] for ms in per_step if name in ms]
+        if each:
+            print(json.dumps({"tree": label, "split": name,
+                              "median_ms": statistics.median(each),
+                              "ms": each}), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=str(ROOT))
+    ap.add_argument("--label", default="change")
+    ap.add_argument("--split", action="store_true",
+                    help="split the scaled_scene(256) step by stage")
+    args = ap.parse_args()
+    tree = Path(args.tree).resolve()
+    # the tree's package first, then this checkout's chip_smoke.py
+    sys.path[:0] = [str(tree), str(ROOT)]
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke
+    import tpu_fluid_torch
+    from tpu_fluid_torch.kernels import build
+    if Path(tpu_fluid_torch.__file__).resolve().parents[1] != tree:
+        raise RuntimeError(f"imported {tpu_fluid_torch.__file__}, not the "
+                           f"tree {tree}")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    build.build()
+    device = torch.device("cuda", 0)
+    if args.split:
+        split_step(args.label, device)
+    else:
+        time_kernels(args.label, chip_smoke, device)
     return 0
 
 

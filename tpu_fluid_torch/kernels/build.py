@@ -126,8 +126,9 @@ def kernel_function(name: str, argtypes: tuple,
 
 def launches(name: str) -> int:
     """The count of kernels launched so far that the C entry point `name`
-    keeps (`tf_jacobi_launches`, `tf_surface_launches`): what one wrapper
-    call launched on the card, read before and after it."""
+    keeps (`tf_jacobi_launches`, `tf_surface_launches`,
+    `tf_grid_fused_launches`): what one wrapper call launched on the card,
+    read before and after it."""
     return int(kernel_function(name, (), INT64)())
 
 

@@ -1,26 +1,32 @@
 """K6: the fused sim-grid stage groups, on when `fuse_grid_choice` picks
 them (`FluidConfig.scaled_scene(n)` sets `grid_fused` for n >= 256).
 
-  classify_extrap_cuda      stages 02-06 (K6a)
+  classify_extrap_cuda      stages 01-06 (K6a; 01 the occupancy max-pool)
   forces_solids_div_cuda    stages 08, 10 and 11 (K6b; 09 is the no-op)
   project_cuda              stage 13 (K6c)
 
 Replace `tpu_fluid/kernels/grid_fused.py:classify_extrap_pallas`,
 `forces_solids_div_pallas` and `project_pallas` (bodies
 `_classify_extrap_kernel`, `_forces_solids_div_kernel`, `_project_kernel`,
-all launched by `_call`); CUDA source `csrc/grid_fused.cu`.  The TPU
-kernels fuse each group over VMEM x-slabs with 2- or 1-row halos; on the
-card one thread computes one cell and recomputes what it needs of its
-neighbours (the new types of i - e_c in K6a, the post-stage-10 velocity of
-i + e_c in K6b).  Each group is one pass over its fields instead of the
-dozens of elementwise passes of the stage functions.
+all launched by `_call`); CUDA source `csrc/grid_fused.cu`.  K6a also
+takes in stage 01, `tpu_fluid/stages/particles.py:occupancy_to_sim_grid`:
+given the detailed occupancy and `pool` (the surface render resolution),
+it max-pools each pool^3 block itself.  The TPU kernels fuse each group
+over VMEM x-slabs with 2- or 1-row halos; on the card K6a and K6b march
+32 x 32 y-z tiles with 2- and 1-cell halos along x
+(`tiling.grid_fused_pass`), computing each cell's new type (K6a) or forced
+velocity (K6b) once and passing it to its neighbours through shared
+memory; K6c is one thread a cell.  Each group is one pass over its fields
+instead of the dozens of elementwise passes of the stage functions.
 
 The plain versions follow the kernel bodies' arithmetic, not the stage
 functions' selects: 0/1 float indicators, `(1-gone)*(born*extr +
 (1-born)*vel)`, `solid*min(v,-repel) + (1-solid)*v`, sums from zero in
 `MOVES` order.  The two forms differ at most in the sign of a zero.  Every
 Python-float constant meets the field as f32, as in the JAX kernels; an
-extra force's `dt * f` is formed in double and rounded once.
+extra force's `dt * f` is formed in double and rounded once.  K6a's plain
+version at pool > 1 is the stage-01 max-pool followed by the pool-1 plain
+version.
 
 The halo forms (`classify_extrap_halo_cuda`, `forces_solids_div_halo_cuda`,
 `project_halo_cuda`, each beside its plain version) replace the sharded
@@ -29,7 +35,8 @@ calls of the three JAX kernels (`halos`, `x0`, `global_gx`;
 [x0, x0 + lx) with 2 neighbour planes a side for K6a and 1 for K6b and
 K6c, zeros past the domain.  Coordinates, the SOLID rule, the force cells
 and the out-of-domain zero are global, so each row equals the
-single-device row.
+single-device row.  K6a's halo form takes the pooled sim-grid occupancy
+(the sharded step pools its slab in plain torch).
 """
 
 from __future__ import annotations
@@ -39,13 +46,15 @@ import functools
 import torch
 
 from tpu_fluid_torch.core.types import CellType
-from tpu_fluid_torch.kernels import build, on_cuda, require
+from tpu_fluid_torch.kernels import build, on_cuda, require, tiling
+from tpu_fluid_torch.kernels.tiling import CLASSIFY_HALO, FORCES_HALO
 from tpu_fluid_torch.ops.stencil import MOVES, axis_nonzero, shifted
 from tpu_fluid_torch.stages.celltypes import update_air, update_water
+from tpu_fluid_torch.stages.particles import pool_occupancy
 
-_CLASSIFY_ARGTYPES = ((build.POINTER,) * 5 + (build.INT,) * 7
+_CLASSIFY_ARGTYPES = ((build.POINTER,) * 5 + (build.INT,) * 9
                       + (build.POINTER, build.INT, build.POINTER))
-_FORCES_ARGTYPES = ((build.POINTER,) * 4 + (build.INT,) * 7
+_FORCES_ARGTYPES = ((build.POINTER,) * 4 + (build.INT,) * 8
                     + (build.FLOAT,) * 2 + (build.INT,) * 3
                     + (build.FLOAT,) * 2
                     + (build.POINTER, build.POINTER, build.INT,
@@ -53,10 +62,10 @@ _FORCES_ARGTYPES = ((build.POINTER,) * 4 + (build.INT,) * 7
 _PROJECT_ARGTYPES = ((build.POINTER,) * 4 + (build.INT,) * 7
                      + (build.FLOAT, build.POINTER))
 
-# Halo planes a side: K6a's stage 05 reads new types of x +- 1, whose AIR
-# test reads occupancy at x +- 2.
-CLASSIFY_HALO = 2
-FORCES_HALO = 1
+# Halo planes a side of the halo forms: each kernel's own halo (K6a's
+# stage 05 reads new types of x +- 1, whose AIR test reads occupancy at
+# x +- 2; K6b's divergence reads the forced velocity of x + 1, which reads
+# the types of x), and 1 for K6c.
 PROJECT_HALO = 1
 
 
@@ -162,10 +171,12 @@ def _classify_extrap(occ_sim, old_types, vel, cfg, xb, gx):
     return newt, torch.stack(comps)
 
 
-def classify_extrap_plain(occ_sim, old_types, vel, cfg):
-    """(occ_sim u8, old_types u8, vel f32 (3,X,Y,Z)) -> (types u8, vel').
-    The new types are integer codes, so the stage functions give them
-    exactly as the kernel body's indicator arithmetic does."""
+def classify_extrap_plain(occ, old_types, vel, cfg, *, pool=1):
+    """(occ u8 at `pool` times the sim grid, old_types u8, vel f32
+    (3,X,Y,Z)) -> (types u8, vel'): stage 01's max-pool, then stages
+    02-06.  The new types are integer codes, so the stage functions give
+    them exactly as the kernel body's indicator arithmetic does."""
+    occ_sim = pool_occupancy(occ, pool) if pool > 1 else occ
     return _classify_extrap(occ_sim, old_types, vel, cfg, 0,
                             occ_sim.shape[0])
 
@@ -195,32 +206,49 @@ def _boxes_ptr(cfg, device):
     return table, len(boxes)
 
 
-def _classify_launch(occ_sim, old_types, vel, cfg, geometry):
-    lx = geometry[4]
-    shape = (lx,) + tuple(vel.shape[2:])
-    types = torch.empty(shape, dtype=torch.uint8, device=vel.device)
-    out = torch.empty((3,) + shape, dtype=vel.dtype, device=vel.device)
-    table, nbox = _boxes_ptr(cfg, vel.device)
+def device_launches() -> int:
+    """Kernels the C entry points of `csrc/grid_fused.cu` have launched."""
+    return build.launches("tf_grid_fused_launches")
+
+
+def _grid_pass(shape, halo, slab_halo, device):
+    return tiling.grid_fused_pass(shape, halo, slab_halo=slab_halo,
+                                  sms=build.sm_count(device.index))
+
+
+def _classify_launch(occ, old_types, vel, cfg, xb, gx, h, pool):
+    """K6a on inputs of nx rows (h neighbour planes a side, row 0 at global
+    x xb of a domain gx rows wide); returns the interior rows."""
+    nx, gy, gz = old_types.shape
     with torch.cuda.device(vel.device):
+        p = _grid_pass(old_types.shape, CLASSIFY_HALO, h, vel.device)
+        shape = (p.xe - p.xs, gy, gz)
+        types = torch.empty(shape, dtype=torch.uint8, device=vel.device)
+        out = torch.empty((3,) + shape, dtype=vel.dtype, device=vel.device)
+        table, nbox = _boxes_ptr(cfg, vel.device)
         stream = torch.cuda.current_stream(vel.device).cuda_stream
         build.call("tf_classify_extrap", _CLASSIFY_ARGTYPES,
-                   occ_sim.data_ptr(), old_types.data_ptr(), vel.data_ptr(),
-                   types.data_ptr(), out.data_ptr(), *geometry, table, nbox,
-                   stream)
+                   occ.data_ptr(), old_types.data_ptr(), vel.data_ptr(),
+                   types.data_ptr(), out.data_ptr(), nx, gy, gz, xb, gx,
+                   p.xs, p.xe, p.seg, pool, table, nbox, stream)
     return types, out
 
 
-def classify_extrap_cuda(occ_sim, old_types, vel, cfg):
-    """K6a wrapper: the CUDA kernel for CUDA tensors,
-    `classify_extrap_plain` for CPU tensors."""
+def classify_extrap_cuda(occ, old_types, vel, cfg, *, pool=1):
+    """K6a wrapper (arguments as `classify_extrap_plain`): the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors."""
     shape = _check_vel(vel)
-    require(occ_sim, "occ_sim", torch.uint8, shape, vel.device)
+    if not isinstance(pool, int) or pool < 1:
+        raise ValueError(f"pool = {pool!r}, expected an int >= 1")
+    require(occ, "occ", torch.uint8, tuple(pool * n for n in shape),
+            vel.device)
+    if pool == 2 and occ.data_ptr() % 2:
+        raise ValueError("occ: at pool 2 the kernel reads it as u16 pairs, "
+                         "so it must start on a 2-byte boundary")
     require(old_types, "old_types", torch.uint8, shape, vel.device)
     if not on_cuda(vel):
-        return classify_extrap_plain(occ_sim, old_types, vel, cfg)
-    gx = shape[0]
-    out = _classify_launch(occ_sim, old_types, vel, cfg,
-                           (*shape, 0, gx, 0, gx))
+        return classify_extrap_plain(occ, old_types, vel, cfg, pool=pool)
+    out = _classify_launch(occ, old_types, vel, cfg, 0, shape[0], 0, pool)
     classify_extrap_cuda.launches += 1
     return out
 
@@ -242,8 +270,7 @@ def classify_extrap_halo_cuda(occ_sim, old_types, vel, cfg, *, halos, x0,
     _check_global(shape, global_gx, x0)
     h = CLASSIFY_HALO
     ext = _with_halos((occ_sim, old_types, vel), halos, h)
-    out = _classify_launch(*ext, cfg, (global_gx,) + shape[1:]
-                           + (x0, shape[0], x0 - h, shape[0] + 2 * h))
+    out = _classify_launch(*ext, cfg, x0 - h, global_gx, h, 1)
     classify_extrap_halo_cuda.launches += 1
     return out
 
@@ -299,24 +326,27 @@ def forces_solids_div_halo_plain(types, vel, cfg, *, halos, x0, global_gx):
     return v[:, h:-h], div[h:-h]
 
 
-def _forces_launch(types, vel, cfg, geometry):
-    lx = geometry[4]
-    shape = (lx,) + tuple(vel.shape[2:])
-    out = torch.empty((3,) + shape, dtype=vel.dtype, device=vel.device)
-    div = torch.empty(shape, dtype=vel.dtype, device=vel.device)
+def _forces_launch(types, vel, cfg, xb, gx, h):
+    """K6b on inputs of nx rows (h neighbour planes a side, row 0 at global
+    x xb of a domain gx rows wide); returns the interior rows."""
+    nx, gy, gz = types.shape
     terms = _force_terms(cfg)
     cells = tuple(cell + (c,) for cell, c, _ in terms)
     kterm = tuple(dtf for _, _, dtf in terms)
-    cells_ptr = (_device_table(cells, torch.int32, vel.device).data_ptr()
-                 if terms else None)
-    kterm_ptr = (_device_table(kterm, torch.float32, vel.device).data_ptr()
-                 if terms else None)
     with torch.cuda.device(vel.device):
+        p = _grid_pass(types.shape, FORCES_HALO, h, vel.device)
+        shape = (p.xe - p.xs, gy, gz)
+        out = torch.empty((3,) + shape, dtype=vel.dtype, device=vel.device)
+        div = torch.empty(shape, dtype=vel.dtype, device=vel.device)
+        cells_ptr = (_device_table(cells, torch.int32, vel.device).data_ptr()
+                     if terms else None)
+        kterm_ptr = (_device_table(kterm, torch.float32, vel.device
+                                   ).data_ptr() if terms else None)
         stream = torch.cuda.current_stream(vel.device).cuda_stream
         build.call("tf_forces_solids_div", _FORCES_ARGTYPES,
                    types.data_ptr(), vel.data_ptr(), out.data_ptr(),
-                   div.data_ptr(), *geometry, cfg.dt, cfg.gravity,
-                   *cfg.fountain, cfg.fountain_force,
+                   div.data_ptr(), nx, gy, gz, xb, gx, p.xs, p.xe, p.seg,
+                   cfg.dt, cfg.gravity, *cfg.fountain, cfg.fountain_force,
                    cfg.solid_repel_velocity, cells_ptr, kterm_ptr,
                    len(terms), stream)
     return out, div
@@ -329,8 +359,7 @@ def forces_solids_div_cuda(types, vel, cfg):
     require(types, "types", torch.uint8, shape, vel.device)
     if not on_cuda(vel):
         return forces_solids_div_plain(types, vel, cfg)
-    gx = shape[0]
-    out = _forces_launch(types, vel, cfg, (*shape, 0, gx, 0, gx))
+    out = _forces_launch(types, vel, cfg, 0, shape[0], 0)
     forces_solids_div_cuda.launches += 1
     return out
 
@@ -349,8 +378,7 @@ def forces_solids_div_halo_cuda(types, vel, cfg, *, halos, x0, global_gx):
     _check_global(shape, global_gx, x0)
     h = FORCES_HALO
     ext = _with_halos((types, vel), halos, h)
-    out = _forces_launch(*ext, cfg, (global_gx,) + shape[1:]
-                         + (x0, shape[0], x0 - h, shape[0] + 2 * h))
+    out = _forces_launch(*ext, cfg, x0 - h, global_gx, h)
     forces_solids_div_halo_cuda.launches += 1
     return out
 

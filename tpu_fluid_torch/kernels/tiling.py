@@ -1,8 +1,11 @@
 """Launch geometry of the marching stencil kernels: K2's blocked route
-(`csrc/jacobi.cu`) and K5 (`csrc/surface_fused.cu`).
+(`csrc/jacobi.cu`), K5 (`csrc/surface_fused.cu`) and K6a and K6b
+(`csrc/grid_fused.cu`).
 
-Both kernels apply a chain of 6-neighbour stencil levels (K2: Jacobi
-sweeps; K5: stage 16+17, then the blur passes) in each launch.  A block of
+The kernels apply a chain of 6-neighbour stencil levels (K2: Jacobi
+sweeps; K5: stage 16+17, then the blur passes; K6a: the new cell types,
+then the extrapolated velocity; K6b: the forced velocity, then the
+divergence) in each launch.  A block of
 TILE x TILE threads owns the (y, z) positions of an extended tile, one or
 two a thread (K5: `tile_z` = TILE along z; K2: 2 TILE): an inner tile of
 (TILE - 2 halo) x (tile_z - 2 halo) cells with `halo` rings around it.
@@ -232,3 +235,30 @@ def _surface_plan(shape, steps, halo, sms) -> tuple:
                             sms, out_x0=lo - lo_in))
         lo_in = lo
     return tuple(passes)
+
+
+# ------------------------------------------------------------------ K6
+# Rings each K6 march loses: K6a's output reads new types at i - e_c, whose
+# AIR test reads occupancy at i - 2 e_c; K6b's divergence reads the forced
+# velocity at i + e_c, which reads the types at i.
+CLASSIFY_HALO = 2
+FORCES_HALO = 1
+
+
+def grid_fused_pass(shape, halo: int, *, slab_halo: int = 0,
+                    sms: int = DEFAULT_SMS) -> Pass:
+    """The one launch of K6a (halo = CLASSIFY_HALO) or K6b (FORCES_HALO)
+    on inputs of `shape` (rows, Y, Z): 2 levels, output rows [slab_halo,
+    rows - slab_halo) to an output whose row 0 is input row slab_halo
+    (slab_halo = 0 on a single device; the halo forms' neighbour planes
+    a side otherwise)."""
+    return _grid_fused_pass(tuple(shape), halo, slab_halo, sms)
+
+
+@functools.lru_cache(maxsize=256)
+def _grid_fused_pass(shape, halo, slab_halo, sms) -> Pass:
+    if shape[0] <= 2 * slab_halo:
+        raise ValueError(f"a slab of {shape[0]} rows with {slab_halo}-plane "
+                         f"halos")
+    return _pass(2, halo, shape, slab_halo, shape[0] - slab_halo, sms,
+                 out_x0=slab_halo)

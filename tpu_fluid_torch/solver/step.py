@@ -2,7 +2,7 @@
 per-frame compute graph (`fluid_flow_sections.h:159-391`) as one function
 over the state, run eagerly.  The kernel-bearing stages (07, 12, 14, 16-18)
 pick their CUDA kernel or its plain version through `kernel_choice`; where
-`fuse_grid_choice` holds, stages 02-06, 08-11 and 13 run as the three K6
+`fuse_grid_choice` holds, stages 01-06, 08-11 and 13 run as the three K6
 groups, again as kernels or plain versions by `kernel_choice`."""
 
 from __future__ import annotations
@@ -45,14 +45,14 @@ def simulation_step(state: FluidState, cfg: FluidConfig,
     old_types = state.cell_types
     vel = state.velocity
 
-    # 01: sim-grid occupancy of the current positions, scattered at the
-    # end of the previous step
-    occ_sim = particles.occupancy_to_sim_grid(state.detailed_occ, cfg)
-
     if fuse_grid:
-        # 02-06 in one pass (K6a)
-        types, vel = classify_extrap(occ_sim, old_types, vel, cfg)
+        # 01-06 in one pass (K6a), from the detailed occupancy of the
+        # current positions, scattered at the end of the previous step
+        types, vel = classify_extrap(state.detailed_occ, old_types, vel, cfg,
+                                     pool=cfg.surface_render_resolution)
     else:
+        # 01: sim-grid occupancy of the current positions
+        occ_sim = particles.occupancy_to_sim_grid(state.detailed_occ, cfg)
         # 02-03: classify cells
         new_types = celltypes.update_water(occ_sim)
         new_types = celltypes.update_air(new_types, cfg)

@@ -36,8 +36,13 @@ def detailed_occupancy(positions: torch.Tensor, active: torch.Tensor,
 def occupancy_to_sim_grid(occ: torch.Tensor,
                           cfg: FluidConfig) -> torch.Tensor:
     """Sim-grid occupancy: the max over each res^3 block of the detailed
-    occupancy (a u8 max-pool), of the whole grid or of an x-slab."""
-    r = cfg.surface_render_resolution
+    occupancy (a u8 max-pool), of the whole grid or of an x-slab.  The
+    fused grid path (K6a) pools inside its kernel instead."""
+    return pool_occupancy(occ, cfg.surface_render_resolution)
+
+
+def pool_occupancy(occ: torch.Tensor, r: int) -> torch.Tensor:
+    """The max over each r^3 block of `occ`."""
     dx, dy, dz = occ.shape
     return occ.reshape(dx // r, r, dy // r, r, dz // r, r).amax(dim=(1, 3, 5))
 
