@@ -9,10 +9,16 @@ Phases, one line each (more for the parity and scene phases):
   3 parity    each kernel against its plain PyTorch version on the card, at
               the shapes of the three scenes (K6 at the large one only,
               K6a on the 512^3 detailed occupancy at pool 2), on
-              numpy-seeded inputs, and K2, K5, K6a and K6b also at two odd
-              non-cubic shapes (5 and 199 sweeps; 0, 1, 4 and 12 blur
-              passes, u8 and int32 inertia; K6a at pools 1, 2 and 3):
-              every output must match bitwise (tolerance 0); times by CUDA
+              numpy-seeded inputs (K1 from velocity and cell types, with
+              its condition masks; K3+K4 returning the moved positions and
+              the detailed occupancy, with NaN, infinite, huge and (-1, 0)
+              positions among them), and K1, K2, K3+K4, K5, K6a and K6b
+              also at two odd non-cubic shapes (5 and 199 sweeps; 0, 1, 4
+              and 12 blur passes, u8 and int32 inertia; K6a at pools 1, 2
+              and 3); K1 and K3+K4 also on the velocity, types, positions
+              and active flags of scaled_scene(256) after 2 steps: every
+              output must match bitwise (tolerance 0; a NaN matches a NaN
+              in the same place); times by CUDA
               events beside each call's bound (bytes over 3.35 TB/s or f32
               operations over 67 TFLOP/s); and the kernel launches each
               K2, K5 and K6 call makes, read from the C counters: one for
@@ -29,7 +35,9 @@ Phases, one line each (more for the parity and scene phases):
               grid, grid_fused on), 1 warm-up and 5 timed steps,
               invariants, steps/s, and every kernel, K6 included, launched
               in it (K6 also by its C counter: one launch a wrapper call,
-              the max-pool taken into K6a); then 2 steps with the kernels
+              the max-pool taken into K6a), and no plain condition mask or
+              occupancy scatter run beside K1 and K3+K4; then 2 steps with
+              the kernels
               and 2 with
               pallas_mode="off" (the unfused stage path) must agree
   8 sharded   the x-slab multi-device step (tpu_fluid_torch/parallel/):
@@ -103,7 +111,9 @@ STEP_TOLERANCES = {"velocity": (2e-4, 2e-5), "positions": (1e-4, 1e-5),
 HALO_SOURCES = {
     "advect_all_halo_cuda": (
         "tpu_fluid_torch/csrc/advect.cu",
-        "tpu_fluid/kernels/advect.py:321 (advect_all_pallas, halo form), "
+        "tpu_fluid/kernels/advect.py:321 (advect_all_pallas, halo form, with "
+        "the condition masks of tpu_fluid/parallel/spmd_step.py:153 taken "
+        "in), "
         "tpu_fluid/kernels/advect.py:244 (advect_one_pallas, halo form "
         "_advect_one_kernel_halo :238, covered), "
         "tpu_fluid/kernels/advect.py:369 (advect_component_pallas, halo "
@@ -130,6 +140,15 @@ HALO_SOURCES = {
         "tpu_fluid/kernels/grid_fused.py:473 (project_pallas, halo form; "
         "pallas_call in _call :340)"),
 }
+# K3+K4's extreme positions (x, y, z): NaN, infinities, beyond 2^31 once
+# scaled, inside (-1, 0), and beside the grid's upper faces.
+EXTREME_POSITIONS = (
+    (float("nan"), 1.5, 1.5), (1.5, float("nan"), 1.5),
+    (1.5, 1.5, float("nan")), (float("inf"), 1.5, 1.5),
+    (-float("inf"), 1.5, 1.5), (1.5, float("inf"), -float("inf")),
+    (3e9, 1.5, 1.5), (1.5, -3e9, 1.5), (1.5, 1.5, 2.5e9),
+    (-0.5, -0.25, -0.999), (-0.999, 1.5, 1.5), (1.5, -1e-7, 1.5),
+    (2.0 ** 31, 2.0 ** 32, 1.5), (1e38, -1e38, 1.5))
 # The local-slab form of phase 9.
 LOCAL_SOURCE = (
     "tpu_fluid_torch/csrc/particle_move.cu",
@@ -144,7 +163,8 @@ BORDER_FORCE = 20000.0
 
 
 # The bound of a kernel call (kernels' "bound_ms"): the larger of the bytes
-# it must move (each tensor argument read once, each output written once)
+# it must move (each tensor argument read once, each output written once;
+# of the velocity, K3+K4 reads only the values its particles' taps reach)
 # over the H100's 3.35 TB/s and its f32 operations over 67 TFLOP/s (the
 # published SXM peaks at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -163,14 +183,15 @@ def _pass_ops(args, kw, outs):
 # f32 operations a call needs, counted from each kernel's arithmetic (adds,
 # multiplies, divisions, min/max; index and integer work not counted):
 # K1 65 a component a cell (face velocity, clamped back-trace, 8 weighted
-# taps); K2 7 a cell a sweep (5 adds, a multiply, an add); K3+K4 110 a
-# particle (hat weights, 24 weighted taps, the move); K5 4 a cell for the
+# taps); K2 7 a cell a sweep (5 adds, a multiply, an add); K3+K4 113 a
+# particle (hat weights, 24 weighted taps, the move, the 3 products of the
+# occupancy index); K5 4 a cell for the
 # signed field and 8 a cell a blur pass; K6a 15, K6b 15 and K6c 9 a cell.
 OPS = {
     "advect_all_cuda": lambda a, kw, o: 65 * o[0].numel(),
     "jacobi_sweeps_cuda": lambda a, kw, o: 7 * a[0].numel() * a[3],
     "jacobi_pass_cuda": _pass_ops,
-    "particle_move_cuda": lambda a, kw, o: 110 * o[0].shape[0],
+    "particle_move_cuda": lambda a, kw, o: 113 * o[0].shape[0],
     "surface_fused_cuda": lambda a, kw, o: (4 + 8 * kw["steps"])
     * o[1].numel(),
     "classify_extrap_cuda": lambda a, kw, o: 15 * o[0].numel(),
@@ -180,7 +201,7 @@ OPS = {
 for _name in ("advect_all", "surface_fused", "classify_extrap",
               "forces_solids_div", "project"):
     OPS[f"{_name}_halo_cuda"] = OPS[f"{_name}_cuda"]
-OPS["particle_move_local_cuda"] = OPS["particle_move_cuda"]
+OPS["particle_move_local_cuda"] = lambda a, kw, o: 110 * o[0].shape[0]
 
 
 def tensor_bytes(obj) -> int:
@@ -193,11 +214,52 @@ def tensor_bytes(obj) -> int:
     return 0
 
 
+def velocity_tap_bytes(vel: torch.Tensor, pos: torch.Tensor, xb: int,
+                       grid_size) -> int:
+    """The velocity bytes K3+K4 must read for these particles: the distinct
+    values among each particle's 24 taps (8 a component) at the kernel's
+    edge-clamped indices, into `vel`'s rows [xb, xb + vel.shape[1]) of a
+    grid of `grid_size`.  A non-finite coordinate counts as an edge cell."""
+    rows, gy, gz = vel.shape[1:]
+    ext, stride = (rows, gy, gz), (gy * gz, gz, 1)
+    p = torch.nan_to_num(pos, nan=0.0, posinf=1e9, neginf=-1e9)
+    own, oth = [], []
+    for d in range(3):
+        top = float(grid_size[d] - 1)
+        jf = torch.clamp(torch.floor(p[:, d]), 0.0, top)
+        base = jf.long()
+        if d == 0:
+            base = torch.clamp(base - xb, 0, rows - 1)
+        o = (torch.floor(torch.clamp(p[:, d] - 0.5, 0.0, top)) - jf).long()
+        own.append([torch.clamp(base + k, 0, ext[d] - 1) * stride[d]
+                    for k in (0, 1)])
+        oth.append([torch.clamp(base + o + k, 0, ext[d] - 1) * stride[d]
+                    for k in (0, 1)])
+    n = rows * gy * gz
+    taps = []
+    for c in range(3):
+        a1, a2 = (1 if c == 0 else 0), (1 if c == 2 else 2)
+        taps += [c * n + own[c][k0] + oth[a1][k1] + oth[a2][k2]
+                 for k0 in (0, 1) for k1 in (0, 1) for k2 in (0, 1)]
+    return vel.element_size() * torch.unique(torch.cat(taps)).numel()
+
+
+def _move_bytes(name: str, args, outs) -> int:
+    """K3+K4 and its local form: positions and flags read, outputs written,
+    and the velocity values the taps reach."""
+    vel, pos = args[0], args[1]
+    xb, grid = (0, vel.shape[1:]) if name == "particle_move_cuda" else (
+        args[4] - 1, args[5])
+    return (tensor_bytes(args[1:]) + tensor_bytes(outs)
+            + velocity_tap_bytes(vel, pos, xb, grid))
+
+
 def bound(name: str, args, kw, outs) -> tuple:
     """(bound_ms, "bytes" or "operations") of one call from its inputs and
     outputs."""
-    byte_ms = (tensor_bytes(args) + tensor_bytes(kw) + tensor_bytes(outs)) \
-        / HBM_BYTES_PER_S * 1e3
+    moved = (_move_bytes(name, args, outs) if name.startswith("particle_move")
+             else tensor_bytes(args) + tensor_bytes(kw) + tensor_bytes(outs))
+    byte_ms = moved / HBM_BYTES_PER_S * 1e3
     op_ms = OPS[name](args, kw, outs) / F32_OPS_PER_S * 1e3
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
@@ -226,7 +288,21 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
-    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+    """Over the elements that differ: equal infinities and NaNs in both
+    count as no error."""
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    d = (a.double() - b.double()).abs()[~same]
+    return float(d.max()) if d.numel() else 0.0
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtype and elements, a NaN matching a NaN in the same place."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.dtype.is_floating_point:
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
 
 
 def random_types(rng, n) -> np.ndarray:
@@ -290,11 +366,11 @@ def kernel_cases(device, scenes):
     scene, on numpy-seeded inputs at the shapes the main path gives; the
     K6 cases at the scenes whose config turns grid_fused on."""
     from tpu_fluid_torch.kernels.advect import (advect_all_cuda,
-                                                advect_all_plain)
+                                                advect_from_types_plain)
     from tpu_fluid_torch.kernels.jacobi import (jacobi_sweeps_cuda,
                                                 jacobi_sweeps_plain)
-    from tpu_fluid_torch.kernels.particle_move import (particle_move_cuda,
-                                                       particle_move_plain)
+    from tpu_fluid_torch.kernels.particle_move import (
+        particle_move_cuda, particle_move_occupancy_plain)
     from tpu_fluid_torch.kernels.surface_fused import (surface_fused_cuda,
                                                        surface_fused_plain)
     from tpu_fluid_torch.stages.pressure import jacobi_fold
@@ -307,24 +383,30 @@ def kernel_cases(device, scenes):
     for scene, cfg in scenes:
         rng = np.random.default_rng(SEED)
         n = cfg.grid_size[0]
-        # K1: |v| * dt up to a few cells, so the R clamp is exercised
+        # K1: |v| * dt up to a few cells, so the R clamp is exercised, on a
+        # cell field about two thirds of whose faces are advected
         vel = t((rng.standard_normal((3, n, n, n)) * 60).astype(np.float32))
-        cond3 = t((rng.random((3, n, n, n)) < 0.6).astype(np.uint8))
-        cases.append((scene, advect_all_cuda, advect_all_plain,
-                      (vel, cond3, cfg.advect_max_displacement, cfg.dt), {}))
+        cases.append((scene, advect_all_cuda, advect_from_types_plain,
+                      (vel, t(random_types(rng, n)),
+                       cfg.advect_max_displacement, cfg.dt), {}))
         # K2: the folded inputs of a real solve on a plausible cell field
         types = t(random_types(rng, n))
         rhs = t((rng.standard_normal((n, n, n)) * 100).astype(np.float32))
         _, q0, code, c2 = jacobi_fold(types, rhs, cfg, cfg.air_pressure)
         cases.append((scene, jacobi_sweeps_cuda, jacobi_sweeps_plain,
                       (q0, code, c2, cfg.jacobi_iters - 1), {}))
-        # K3+K4: positions around and just outside the grid
+        # K3+K4: positions around and just outside the grid, the extremes
+        # first
         p = cfg.particle_count
         pvel = t((rng.standard_normal((3, n, n, n)) * 5).astype(np.float32))
-        pos = t((rng.random((p, 3)) * (n + 2) - 1).astype(np.float32))
-        act = t(rng.random(p) < 0.9)
-        cases.append((scene, particle_move_cuda, particle_move_plain,
-                      (pvel, pos, act, cfg.dt), {}))
+        pos = rng.random((p, 3)) * (n + 2) - 1
+        act = rng.random(p) < 0.9
+        pos[:len(EXTREME_POSITIONS)] = EXTREME_POSITIONS
+        act[:len(EXTREME_POSITIONS)] = True
+        cases.append((scene, particle_move_cuda,
+                      particle_move_occupancy_plain,
+                      (pvel, t(pos.astype(np.float32)), t(act), cfg.dt,
+                       cfg.surface_render_resolution), {}))
         # K5: detailed grid, solid-parent skip mask from a random cell field
         dsize = cfg.detailed_size
         occ = t((rng.random(dsize) < 0.3).astype(np.uint8))
@@ -349,15 +431,74 @@ def kernel_cases(device, scenes):
     return cases
 
 
+def scene_cases(device, cfg, steps: int = 2):
+    """K1 and K3+K4 on the fields of `cfg`'s scene after `steps` steps:
+    its velocity and cell types, its positions and active flags."""
+    from tpu_fluid_torch import initial_state
+    from tpu_fluid_torch.kernels.advect import (advect_all_cuda,
+                                                advect_from_types_plain)
+    from tpu_fluid_torch.kernels.particle_move import (
+        particle_move_cuda, particle_move_occupancy_plain)
+    state = run_steps(initial_state(cfg, device), cfg, steps)
+    return [(advect_all_cuda, advect_from_types_plain,
+             (state.velocity, state.cell_types, cfg.advect_max_displacement,
+              cfg.dt), {}),
+            (particle_move_cuda, particle_move_occupancy_plain,
+             (state.velocity, state.positions, state.active, cfg.dt,
+              cfg.surface_render_resolution), {})]
+
+
+def nan_occupancy(device) -> None:
+    """Where the card puts a particle whose x is NaN: its detailed x index
+    converts to 0 or is dropped, in the plain version and in K3+K4 alike.
+    (The JAX package on the CPU converts NaN to 0 and writes the cell.)"""
+    from tpu_fluid_torch.kernels.particle_move import (
+        particle_move_cuda, particle_move_occupancy_plain)
+    vel = torch.zeros((3, 4, 4, 4), device=device)
+    pos = torch.tensor([[float("nan"), 1.3, 2.6]], device=device)
+    act = torch.ones(1, dtype=torch.bool, device=device)
+    (_, want), (_, got) = (f(vel, pos, act, 0.01, 2) for f in (
+        particle_move_occupancy_plain, particle_move_cuda))
+    torch.cuda.synchronize()
+    print(f"[3 parity] a NaN x on the card: plain scatter writes cell "
+          f"(0, 2, 5): {bool(want[0, 2, 5])}, cells written {int(want.sum())};"
+          f" K3+K4: {bool(got[0, 2, 5])}, {int(got.sum())}", flush=True)
+    check(torch.equal(got, want), "K3+K4 puts a NaN position elsewhere "
+                                  "than its plain version")
+
+
+def non_finite_velocity(vel: np.ndarray, rng, device,
+                        n: int = 12) -> torch.Tensor:
+    """A copy of `vel` (3, X, Y, Z) with n scattered NaNs and infinities of
+    both signs, one NaN on a corner (an edge-clamped value) and a +inf
+    beside a -inf (a face average of inf - inf), on the card."""
+    out = vel.copy()
+    values = (np.nan, np.inf, -np.inf)
+    for k in range(n):
+        at = tuple(int(rng.integers(0, m)) for m in out.shape)
+        out[at] = values[k % 3]
+    out[1, 0, -1, 0] = np.nan
+    mid = tuple(m // 2 for m in out.shape[1:])
+    out[(0,) + mid] = np.inf
+    out[(2,) + mid] = -np.inf
+    out[2, mid[0], mid[1], mid[2] - 1] = np.inf
+    return torch.from_numpy(out).to(device)
+
+
 def odd_cases(device):
-    """K2, K5, K6a and K6b at odd non-cubic shapes: K2 on its one-block
-    route (13, 22, 17) and its blocked route (37, 45, 29), 5 sweeps (a
-    remainder pass) and 199; K5 with 0, 1 and 4 blur passes, and int32
-    inertia, and with 12 (a second launch of blur passes only); K6a at
-    pools 1, 2 and 3 (several y and z tiles at (37, 45, 29))."""
+    """K1, K3+K4, K2, K5, K6a and K6b at odd non-cubic shapes: K2 on its
+    one-block route (13, 22, 17) and its blocked route (37, 45, 29), 5
+    sweeps (a remainder pass) and 199; K5 with 0, 1 and 4 blur passes, and
+    int32 inertia, and with 12 (a second launch of blur passes only); K6a
+    at pools 1, 2 and 3 (several y and z tiles at (37, 45, 29)); K1 at R =
+    1, 2 and 3, on finite velocities and with NaNs and infinities."""
     from tpu_fluid_torch import FluidConfig
+    from tpu_fluid_torch.kernels.advect import (advect_all_cuda,
+                                                advect_from_types_plain)
     from tpu_fluid_torch.kernels.jacobi import (jacobi_sweeps_cuda,
                                                 jacobi_sweeps_plain)
+    from tpu_fluid_torch.kernels.particle_move import (
+        particle_move_cuda, particle_move_occupancy_plain)
     from tpu_fluid_torch.kernels.surface_fused import (surface_fused_cuda,
                                                        surface_fused_plain)
     from tpu_fluid_torch.stages.pressure import jacobi_fold
@@ -398,6 +539,21 @@ def odd_cases(device):
                 t, rng, cfg, shape, pools=(1, 2, 3)):
             if kernel.__name__ != "project_cuda":
                 cases.append((f"{shape} {kw}", kernel, plain, args, kw))
+        vel_np = (rng.standard_normal((3,) + shape) * 60).astype(np.float32)
+        vel, types = t(vel_np), t(random_types(rng, shape))
+        for r in (1, 2, 3):
+            cases.append((f"{shape} R={r}", advect_all_cuda,
+                          advect_from_types_plain, (vel, types, r, 0.01), {}))
+        bad = non_finite_velocity(vel_np, rng, device)
+        for r in (1, 2, 3):
+            cases.append((f"{shape} R={r} non-finite", advect_all_cuda,
+                          advect_from_types_plain, (bad, types, r, 0.01), {}))
+        pos = rng.random((20_000, 3)) * (np.array(shape) + 2) - 1
+        pos[:len(EXTREME_POSITIONS)] = EXTREME_POSITIONS
+        act = rng.random(len(pos)) < 0.9
+        cases.append((f"{shape} res=3", particle_move_cuda,
+                      particle_move_occupancy_plain,
+                      (vel, t(pos.astype(np.float32)), t(act), 0.01, 3), {}))
     return cases
 
 
@@ -452,8 +608,7 @@ def run_case(label: str, kernel, plain, args, kw, reps: int) -> dict:
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     err = max(max_abs_err(a, b) for a, b in zip(got, want))
-    bitwise = all(a.dtype == b.dtype and torch.equal(a, b)
-                  for a, b in zip(got, want))
+    bitwise = all(same_bits(a, b) for a, b in zip(got, want))
     ms = time_ms(lambda: kernel(*args, **kw), reps=reps)
     plain_ms = time_ms(lambda: plain(*args, **kw), reps=3, warmup=1)
     bound_ms, bound_by = bound(name, args, kw, got)
@@ -483,6 +638,15 @@ def phase_parity(device, scenes) -> dict:
         entry = results.setdefault(name, {"max_abs_err": 0.0})
         entry["max_abs_err"] = max(entry["max_abs_err"], r["max_abs_err"])
         entry[scene] = r
+    scene, cfg = scenes[-1]
+    for kernel, plain, args, kw in scene_cases(device, cfg):
+        r = run_case(f"3 parity {scene} scene after 2 steps", kernel, plain,
+                     args, kw, 20)
+        entry = results[kernel.__name__]
+        entry["max_abs_err"] = max(entry["max_abs_err"], r["max_abs_err"])
+        entry[f"{scene} scene"] = r
+    torch.cuda.empty_cache()
+    nan_occupancy(device)
     k2 = results["jacobi_sweeps_cuda"]
     check(k2["reference"]["launches"] == 1,
           "the one-block route did not solve 20^3 in one launch")
@@ -566,6 +730,35 @@ def read_launches(wrappers) -> dict:
     return {w.__name__: w.launches for w in wrappers}
 
 
+class PlainPasses:
+    """Counts the calls of the plain passes that K1 (the condition masks)
+    and K3+K4 (the occupancy scatter) took in, from construction until
+    `take`, which puts the functions back."""
+
+    def __init__(self):
+        from tpu_fluid_torch.kernels import advect
+        from tpu_fluid_torch.stages import particles, velocity
+        self.calls = {"advect_conditions": 0, "detailed_occupancy": 0}
+        self.saved = []
+        for module, name in ((advect, "advect_conditions"),
+                             (velocity, "advect_conditions"),
+                             (particles, "detailed_occupancy")):
+            fn = getattr(module, name)
+            self.saved.append((module, name, fn))
+            setattr(module, name, self._counted(fn, name))
+
+    def _counted(self, fn, name):
+        def counted(*args, **kw):
+            self.calls[name] += 1
+            return fn(*args, **kw)
+        return counted
+
+    def take(self) -> dict:
+        for module, name, fn in self.saved:
+            setattr(module, name, fn)
+        return dict(self.calls)
+
+
 # ------------------------------------------------------------ 8: sharded
 def split_rows(ext: torch.Tensor, h: int):
     """An extended slab (h planes a side on dim ndim-3) -> (local, (left,
@@ -598,7 +791,7 @@ def halo_cases(device, cfg):
     numpy-seeded slabs whose halo planes past the domain are zero."""
     from tpu_fluid_torch.kernels import grid_fused as k6
     from tpu_fluid_torch.kernels.advect import (advect_all_halo_cuda,
-                                                advect_all_halo_plain)
+                                                advect_from_types_halo_plain)
     from tpu_fluid_torch.kernels.jacobi import (SHARDED_K, fold_c2e,
                                                 jacobi_pass_cuda,
                                                 jacobi_pass_plain)
@@ -648,13 +841,12 @@ def halo_cases(device, cfg):
             return torch.from_numpy(type_rows(rng, x0 - h, lx + 2 * h,
                                               cfg)).to(device)
 
-        # K1: |v| * dt up to a few cells, so the R clamp is exercised
+        # K1: |v| * dt up to a few cells, so the R clamp is exercised; the
+        # types with one neighbour plane a side
         vel, vel_h = split_rows(vel_rows(r, 60), r)
-        cond3 = torch.from_numpy(
-            (rng.random((3, lx, gy, gz)) < 0.6).astype(np.uint8)).to(device)
-        cases.append((advect_all_halo_cuda, advect_all_halo_plain,
-                      (vel, cond3, r, cfg.dt, vel_h, x0, cfg.grid_size), {},
-                      shard))
+        cases.append((advect_all_halo_cuda, advect_from_types_halo_plain,
+                      (vel, types_rows(1), r, cfg.dt, vel_h, x0,
+                       cfg.grid_size), {}, shard))
         # K2: one pass of SHARDED_K sweeps on the folded inputs of a real
         # solve on the slab extended by SHARDED_K planes a side
         k = SHARDED_K
@@ -1118,7 +1310,10 @@ def main() -> int:
                       project_cuda)
     sources = {
         "advect_all_cuda": ("tpu_fluid_torch/csrc/advect.cu",
-                            "tpu_fluid/kernels/advect.py:321, "
+                            "tpu_fluid/kernels/advect.py:321, with the "
+                            "condition masks "
+                            "tpu_fluid/stages/velocity.py:160 (XLA) taken "
+                            "in, "
                             "tpu_fluid/kernels/advect.py:244 "
                             "(advect_one_pallas, covered), "
                             "tpu_fluid/kernels/advect.py:369 "
@@ -1130,7 +1325,10 @@ def main() -> int:
         "particle_move_cuda": ("tpu_fluid_torch/csrc/particle_move.cu",
                                "tpu_fluid/kernels/pack_table.py:75, "
                                "tpu_fluid/kernels/pack_table.py:111, "
-                               "tpu_fluid/kernels/particle_sample.py:77"),
+                               "tpu_fluid/kernels/particle_sample.py:77, "
+                               "with stage 15 "
+                               "tpu_fluid/stages/particles.py:25 "
+                               "(detailed_occupancy, XLA) taken in"),
         "surface_fused_cuda": ("tpu_fluid_torch/csrc/surface_fused.cu",
                                "tpu_fluid/kernels/surface_fused.py:345, "
                                "tpu_fluid/kernels/surface_fused.py:266 "
@@ -1208,6 +1406,7 @@ def main() -> int:
     # 7: large scene, the grid_fused path of scaled_scene(256)
     state = initial_state(large_cfg, device)
     ymax0 = float(active_positions(state)[:, 1].max())
+    plain_passes = PlainPasses()
     reset_launches(wrappers + fused_wrappers)
     k6_before = k6_device_launches(device)
     state = run_steps(state, large_cfg, 1)
@@ -1217,6 +1416,11 @@ def main() -> int:
     torch.cuda.synchronize()
     large_launches = read_launches(wrappers + fused_wrappers)
     k6_device = k6_device_launches(device) - k6_before
+    passes = plain_passes.take()
+    print(f"[7 large] plain passes K1 and K3+K4 took in, calls in "
+          f"{LARGE_STEPS + 1} steps: {passes}", flush=True)
+    check(not any(passes.values()), f"a plain pass ran beside K1 or K3+K4: "
+                                    f"{passes}")
     large_sps = LARGE_STEPS / (start.elapsed_time(end) / 1000.0)
     print(f"[7 large] {LARGE_STEPS} timed steps of scaled_scene(256) after "
           f"1 warm-up: {large_sps!r} steps/s on {card}", flush=True)

@@ -34,11 +34,15 @@ from tpu_fluid.kernels.pack_table import build_packed_table_pallas
 from tpu_fluid.kernels.particle_sample import sample_and_move
 from tpu_fluid.kernels.surface_fused import (surface_fused_auto,
                                              surface_fused_pallas)
+from tpu_fluid.stages.velocity import _advect_condition as jax_advect_condition
 from tpu_fluid.stages.velocity import face_center_velocity as jax_face_center
 from tpu_fluid_torch.core.config import FluidConfig
 from tpu_fluid_torch.kernels.advect import (advect_all_halo_cuda,
                                             advect_all_halo_plain,
-                                            advect_all_plain)
+                                            advect_all_plain,
+                                            advect_conditions,
+                                            advect_from_types_halo_plain,
+                                            advect_from_types_plain)
 from tpu_fluid_torch.kernels.grid_fused import (
     classify_extrap_halo_cuda, classify_extrap_halo_plain,
     classify_extrap_plain, forces_solids_div_halo_cuda,
@@ -55,7 +59,6 @@ from tpu_fluid_torch.kernels.surface_fused import (surface_fused_halo_cuda,
                                                    surface_fused_plain)
 from tpu_fluid_torch.stages.pressure import jacobi_fold
 from tpu_fluid_torch.stages.surface_fields import solid_parent_mask
-from tpu_fluid_torch.stages.velocity import _advect_conditions
 
 torch.set_num_threads(2)
 EPS = np.finfo(np.float32).eps
@@ -119,13 +122,13 @@ def advect_case(seed=0):
     of a cell field with the solid border, as the step makes them."""
     r = np.random.default_rng(seed)
     vel = (r.standard_normal((3,) + ADVECT_GRID) * 80).astype(np.float32)
-    cond3 = _advect_conditions(T(random_types(r, ADVECT_GRID))).numpy()
-    return vel, cond3
+    types = random_types(r, ADVECT_GRID)
+    return vel, advect_conditions(T(types)).numpy(), types
 
 
 @pytest.mark.parametrize("shard", SHARDS)
 def test_advect_halo_matches_advect_all_and_one_pallas(shard):
-    vel, cond3 = advect_case()
+    vel, cond3, _ = advect_case()
     R, dt = 2, 0.01
     lx = ADVECT_GRID[0] // N_SHARDS
     v, halo = slab(vel, shard, h=R)
@@ -152,7 +155,7 @@ def test_advect_halo_covers_advect_component_pallas(shard):
     """advect_component_pallas's halo form, called directly with the
     displacement JAX's step computes from a 1-plane halo block; one
     component a shard."""
-    vel, cond3 = advect_case(1)
+    vel, cond3, _ = advect_case(1)
     R, dt = 2, 0.01
     lx = ADVECT_GRID[0] // N_SHARDS
     v, halo = slab(vel, shard, h=R)
@@ -169,6 +172,36 @@ def test_advect_halo_covers_advect_component_pallas(shard):
         halo=(jnp.asarray(hc[0]), jnp.asarray(hc[1])), x0=shard * lx,
         global_shape=ADVECT_GRID, interpret=True)
     same(got[comp], want, ulp=1)
+
+
+@pytest.mark.parametrize("shard", [0, 1, 3])
+def test_advect_halo_from_types_matches_advect_all_pallas(shard):
+    """K1's halo form with its condition masks taken in, from the slab's
+    types with one neighbour plane a side, at the first, a middle and the
+    last of 4 shards: against JAX's advect_all_pallas with `halo`, `x0` and
+    `global_shape` given JAX's masks of the whole grid, and against the
+    single-device route's rows bitwise."""
+    grid, n = (16, 6, 8), 4
+    r = np.random.default_rng(45 + shard)
+    vel = (r.standard_normal((3,) + grid) * 80).astype(np.float32)
+    types = random_types(r, grid)
+    R, dt = 2, 0.01
+    lx = grid[0] // n
+    x0 = shard * lx
+    v, halo = slab(vel, shard, n, h=R)
+    t, (t_lo, t_hi) = slab(types, shard, n, h=1)
+    types_e = np.concatenate([t_lo, t, t_hi])
+    got = advect_from_types_halo_plain(T(v), T(types_e), R, dt,
+                                       (T(halo[0]), T(halo[1])), x0, grid)
+    same(got, advect_from_types_plain(T(vel), T(types), R, dt)[
+        :, x0:x0 + lx])
+    jcond = jnp.stack([jax_advect_condition(jnp.asarray(types), c)
+                       for c in range(3)]).astype(jnp.uint8)[:, x0:x0 + lx]
+    want = advect_all_pallas(jnp.asarray(v), jcond, R, dt,
+                             halo=(jnp.asarray(halo[0]),
+                                   jnp.asarray(halo[1])),
+                             x0=x0, global_shape=grid, interpret=True)
+    same(got, want, ulp=1)
 
 
 # ------------------------------------------------------------------ K5
@@ -393,11 +426,11 @@ def halo_calls(device):
     calls = []
     for shard in (1, 2):
         x0 = shard * lx
-        vel, cond3 = advect_case(20 + shard)
+        vel, _, types = advect_case(20 + shard)
         v, halo = slab(vel, shard, h=2)
-        c, _ = slab(cond3, shard)
-        calls.append((advect_all_halo_cuda, advect_all_halo_plain,
-                      (dev(v), dev(c), 2, 0.01,
+        t, (t_lo, t_hi) = slab(types, shard, h=1)
+        calls.append((advect_all_halo_cuda, advect_from_types_halo_plain,
+                      (dev(v), dev(np.concatenate([t_lo, t, t_hi])), 2, 0.01,
                        (dev(halo[0]), dev(halo[1])),
                        shard * ADVECT_GRID[0] // N_SHARDS, ADVECT_GRID), {}))
         fields, kw = surface_case(3, 30 + shard)

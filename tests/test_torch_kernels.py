@@ -30,17 +30,21 @@ from tpu_fluid.kernels.pack_table import (build_packed_table_pallas,
 from tpu_fluid.kernels.particle_sample import sample_and_move
 from tpu_fluid.kernels.surface_fused import (surface_fused_2d,
                                              surface_fused_pallas)
+from tpu_fluid.core.config import FluidConfig as JaxConfig
 from tpu_fluid.ops.packed_sampler import (packed_row_indices,
                                           packed_row_indices2)
+from tpu_fluid.stages import particles as jparticles
+from tpu_fluid.stages.velocity import advect_pallas
 from tpu_fluid_torch.core.config import FluidConfig
 from tpu_fluid_torch.kernels import build
 from tpu_fluid_torch.kernels.advect import (advect_all_cuda,
                                             advect_all_plain,
+                                            advect_from_types_plain,
                                             face_center_velocity)
 from tpu_fluid_torch.kernels.jacobi import (jacobi_sweeps_cuda,
                                             jacobi_sweeps_plain)
-from tpu_fluid_torch.kernels.particle_move import (particle_move_cuda,
-                                                   particle_move_plain)
+from tpu_fluid_torch.kernels.particle_move import (
+    particle_move_cuda, particle_move_occupancy_plain, particle_move_plain)
 from tpu_fluid_torch.kernels.surface_fused import (surface_fused_cuda,
                                                    surface_fused_plain)
 from tpu_fluid_torch.ops.packed_sampler import build_packed_table
@@ -157,6 +161,61 @@ def test_advect_component_pallas_is_covered_by_k1():
         same(got[c], want, ulp=1)
 
 
+@pytest.mark.parametrize("shape", [(10, 10, 10), (8, 12, 16)])
+def test_advect_from_types_matches_jax_advect_pallas(shape):
+    """K1 with its condition masks taken in: the port's plain route from
+    the cell types against JAX's stage 07 on its Pallas route, which builds
+    the masks and runs advect_all_pallas (interpreted)."""
+    r = np.random.default_rng(40)
+    vel = (r.standard_normal((3,) + shape) * 80).astype(np.float32)
+    types = random_types(r, shape)
+    jcfg = JaxConfig(grid_size=shape)
+    want = advect_pallas(jnp.asarray(types), jnp.asarray(vel), jcfg,
+                         interpret=True)
+    got = advect_from_types_plain(T(vel), T(types),
+                                  jcfg.advect_max_displacement, jcfg.dt)
+    same(got, want, ulp=1)
+
+
+def non_finite_velocity(shape, seed, r=2):
+    """Velocities with NaNs and infinities of both signs at rows R .. X-R-1
+    (JAX's single-block kernel fills its x halo from the block's far rows,
+    where the port replicates the edge), a +inf beside a -inf among them."""
+    rng = np.random.default_rng(seed)
+    vel = (rng.standard_normal((3,) + shape) * 80).astype(np.float32)
+    for k, value in enumerate((np.nan, np.inf, -np.inf) * 3):
+        vel[k % 3, rng.integers(r, shape[0] - r), rng.integers(0, shape[1]),
+            rng.integers(0, shape[2])] = value
+    mid = tuple(n // 2 for n in shape)
+    vel[(0,) + mid], vel[(2,) + mid] = np.inf, -np.inf
+    return vel, random_types(rng, shape)
+
+
+def same_non_finite(got, want, ulp):
+    """NaNs and infinities in the same places, finite values within ulp."""
+    g, w = got.numpy(), np.asarray(want)
+    finite = np.isfinite(w)
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+    np.testing.assert_array_equal(g[np.isinf(w)], w[np.isinf(w)])
+    assert np.isnan(w).any() and np.isfinite(g[finite]).all()
+    same(T(g[finite]), w[finite], ulp=ulp)
+
+
+@pytest.mark.parametrize("shape", [(10, 10, 10), (8, 12, 16)])
+def test_advect_from_types_non_finite_matches_jax(shape):
+    """Stage 07 on NaN and infinite velocities: the port's plain route, the
+    one K1 is held against on the card, puts NaN where JAX's interpreted
+    kernel does (a zero weight times an infinity is NaN in both masked
+    sums)."""
+    vel, types = non_finite_velocity(shape, 41)
+    jcfg = JaxConfig(grid_size=shape)
+    want = advect_pallas(jnp.asarray(types), jnp.asarray(vel), jcfg,
+                         interpret=True)
+    got = advect_from_types_plain(T(vel), T(types),
+                                  jcfg.advect_max_displacement, jcfg.dt)
+    same_non_finite(got, want, ulp=1)
+
+
 # ------------------------------------------------------------------ K2
 @pytest.mark.parametrize("n,iters", [(12, 17), (16, 9)])
 def test_jacobi_plain_matches_pallas_interpret(n, iters):
@@ -216,6 +275,47 @@ def test_particle_move_plain_matches_paired_table_interpret():
                            shape, 0.01, interpret=True).T
     got = particle_move_plain(T(vel), T(pos), T(act), 0.01)
     same(got, want, ulp=1)
+
+
+def scatter_particles(shape, seed):
+    """Random positions around the grid, then particles in (-1, 0) on
+    each axis, out of the grid on each side, a cluster of 40 in one
+    detailed cell, and inactive ones among them."""
+    r = np.random.default_rng(seed)
+    vel = (r.standard_normal((3,) + shape) * 4).astype(np.float32)
+    top = np.array(shape, dtype=np.float64)
+    pos = [r.random((600, 3)) * (top + 2) - 1]
+    for d in range(3):
+        p = r.random((20, 3)) * top
+        p[:, d] = -r.random(20) * 0.999
+        pos.append(p)
+        p = r.random((20, 3)) * top
+        p[:, d] = np.where(np.arange(20) % 2, top[d] + 0.6 + r.random(20),
+                           -1.5 - r.random(20))
+        pos.append(p)
+    pos.append(top * 0.37 + r.random((40, 3)) * 1e-4)
+    pos = np.concatenate(pos).astype(np.float32)
+    act = r.random(len(pos)) < 0.85
+    return vel, pos, act
+
+
+@pytest.mark.parametrize("shape", [(10, 10, 10), (4, 8, 128)])
+def test_move_and_scatter_matches_jax_move_and_occupancy(shape):
+    """K3+K4 with stage 15 taken in: its plain version against JAX's
+    move_particles on its Pallas route (interpreted: the 64-lane table at
+    (10, 10, 10), the z-paired 128-lane table at gz = 128) followed by
+    detailed_occupancy.  The cluster fills one detailed cell many times."""
+    vel, pos, act = scatter_particles(shape, 41)
+    jcfg = JaxConfig(grid_size=shape, surface_render_resolution=2,
+                     pallas_mode="interpret")
+    jpos = jparticles.move_particles(jnp.asarray(vel), jnp.asarray(pos),
+                                     jnp.asarray(act), jcfg)
+    jocc = jparticles.detailed_occupancy(jpos, jnp.asarray(act), jcfg)
+    got, occ = particle_move_occupancy_plain(T(vel), T(pos), T(act),
+                                             jcfg.dt, 2)
+    same(got, jpos, ulp=1)
+    same(occ, jocc)
+    assert 0 < int(occ.sum()) < int(act.sum())
 
 
 # ------------------------------------------------------------------ K5
@@ -284,7 +384,8 @@ ODD_SURFACE = [(0, np.uint8), (1, np.int32), (4, np.uint8), (4, np.int32),
 def _wrapper_calls(device="cpu"):
     """(wrapper, plain, args, kwargs) at small shapes, then K2 and K5 at
     the odd shapes, then K6a at pools 1-3 and K6b at the odd shapes."""
-    vel, cond3 = advect_inputs((6, 7, 8), 7)
+    vel, _ = advect_inputs((6, 7, 8), 7)
+    types = random_types(np.random.default_rng(7), (6, 7, 8))
     q0, code, c2 = jacobi_inputs(6, 8)
     pvel, pos, act = particle_inputs((6, 7, 8), 300, 9)
     cfg = FluidConfig(grid_size=(4, 5, 6), surface_render_resolution=2)
@@ -295,11 +396,12 @@ def _wrapper_calls(device="cpu"):
                      else x.to(device) for x in a)
 
     return [
-        (advect_all_cuda, advect_all_plain, dev(vel, cond3) + (2, 0.01), {}),
+        (advect_all_cuda, advect_from_types_plain,
+         dev(vel, types) + (2, 0.01), {}),
         (jacobi_sweeps_cuda, jacobi_sweeps_plain, dev(q0, code, c2) + (5,),
          {}),
-        (particle_move_cuda, particle_move_plain, dev(pvel, pos, act)
-         + (0.01,), {}),
+        (particle_move_cuda, particle_move_occupancy_plain,
+         dev(pvel, pos, act) + (0.01, 2), {}),
         (surface_fused_cuda, surface_fused_plain,
          dev(occ, inertia, f2, skip), surface_kw(cfg)),
     ] + [(wrapper, plain, args, {})
@@ -336,21 +438,26 @@ def test_wrapper_on_cpu_runs_plain_version_without_launch(case):
 
 
 def test_wrappers_reject_bad_inputs():
-    vel, cond3 = map(T, advect_inputs((4, 4, 4), 11))
+    vel, _ = map(T, advect_inputs((4, 4, 4), 11))
+    types = T(random_types(np.random.default_rng(11), (4, 4, 4)))
     with pytest.raises(TypeError):
-        advect_all_cuda(vel.double(), cond3, 2, 0.01)
+        advect_all_cuda(vel.double(), types, 2, 0.01)
     with pytest.raises(ValueError):
-        advect_all_cuda(vel, cond3[:, :3], 2, 0.01)
+        advect_all_cuda(vel, types[:3], 2, 0.01)
     with pytest.raises(ValueError):
-        advect_all_cuda(vel.transpose(1, 3), cond3, 2, 0.01)
+        advect_all_cuda(vel.transpose(1, 3), types, 2, 0.01)
+    with pytest.raises(ValueError):
+        advect_all_cuda(vel, types, 8, 0.01)
     q0, code, c2 = jacobi_inputs(4, 12)
     with pytest.raises(TypeError):
         jacobi_sweeps_cuda(q0, code.to(torch.int32), c2, 3)
     pvel, pos, act = map(T, particle_inputs((4, 4, 4), 10, 13))
     with pytest.raises(ValueError):
-        particle_move_cuda(pvel, pos.T.contiguous(), act, 0.01)
+        particle_move_cuda(pvel, pos.T.contiguous(), act, 0.01, 2)
     with pytest.raises(TypeError):
-        particle_move_cuda(pvel, pos, act.to(torch.uint8), 0.01)
+        particle_move_cuda(pvel, pos, act.to(torch.uint8), 0.01, 2)
+    with pytest.raises(ValueError):
+        particle_move_cuda(pvel, pos, act, 0.01, 0)
     cfg = FluidConfig(grid_size=(2, 2, 2), surface_render_resolution=2)
     occ, inertia, f2, skip = map(T, surface_inputs(cfg, 14))
     with pytest.raises(TypeError):
@@ -394,3 +501,18 @@ def test_cuda_kernel_matches_plain_bitwise(cuda_device, case):
     want = want if isinstance(want, tuple) else (want,)
     for g, w in zip(got, want):
         assert g.device == cuda_device and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(10, 10, 10), (37, 45, 29)])
+def test_cuda_advect_non_finite_matches_plain_bitwise(cuda_device, shape):
+    """K1 where a velocity window holds a NaN or an infinity (its full
+    masked sum) and where it does not (its 8 taps), at R = 1, 2 and 3."""
+    vel, types = non_finite_velocity(shape, 42)
+    vel, types = T(vel).to(cuda_device), T(types).to(cuda_device)
+    for r in (1, 2, 3):
+        got = advect_all_cuda(vel, types, r, 0.01)
+        want = advect_from_types_plain(vel, types, r, 0.01)
+        nan = torch.isnan(want)
+        assert nan.any() and torch.equal(torch.isnan(got), nan)
+        assert torch.equal(got[~nan], want[~nan])

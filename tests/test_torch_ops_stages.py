@@ -204,7 +204,7 @@ def test_advect_condition_and_face_center_velocity():
     r = rng(11)
     types, vel = random_types(r), random_vel(r)
     for c in range(3):
-        same(tvel._advect_condition(T(types), c),
+        same(tvel.advect_condition(T(types), c),
              jvel._advect_condition(J(types), c))
         same(tvel.face_center_velocity(T(vel), c),
              jvel.face_center_velocity(J(vel), c))

@@ -1,6 +1,6 @@
 """The launch plans of the marching kernels (`kernels/tiling.py`): K2's
-routes and passes, K5's launches and K6a's and K6b's passes, checked on
-the CPU before any card runs them.
+routes and passes, K5's launches and K1's, K6a's and K6b's passes, checked
+on the CPU before any card runs them.
 
 A torch emulation follows a plan block by block, as the CUDA kernels do:
 each block computes its levels from its own window (its output rows and
@@ -22,6 +22,8 @@ from test_torch_grid_fused import sparse_occupancy
 from tpu_fluid_torch.core.config import FluidConfig
 from tpu_fluid_torch.core.state import initial_state, state_from_numpy
 from tpu_fluid_torch.kernels import tiling
+from tpu_fluid_torch.kernels.advect import (advect_from_types_halo_plain,
+                                            advect_from_types_plain)
 from tpu_fluid_torch.kernels.grid_fused import (
     classify_extrap_halo_plain, classify_extrap_plain,
     forces_solids_div_halo_plain, forces_solids_div_plain)
@@ -50,10 +52,11 @@ def random_types(r, shape):
     return t
 
 
-def window(p: tiling.Pass, box):
-    """A block's input window: its box with p.halo planes and rings a
-    side, clipped to the input."""
-    return tuple(slice(max(lo - p.halo, 0), min(hi + p.halo, n))
+def window(p: tiling.Pass, box, ring=None):
+    """A block's input window: its box with `ring` = (below, above) planes
+    and rings (p.halo a side by default), clipped to the input."""
+    below, above = (p.halo, p.halo) if ring is None else ring
+    return tuple(slice(max(lo - below, 0), min(hi + above, n))
                  for (lo, hi), n in zip(box, p.shape))
 
 
@@ -371,17 +374,20 @@ def k6_case(shape, seed):
     return cfg, r, T(types), T(old), T(vel)
 
 
-def check_k6_plan(p: tiling.Pass, fields, pools, run, rows_in_domain, rng):
-    """For every block of `p`: scramble `fields` outside its window and
+def check_k6_plan(p: tiling.Pass, fields, pools, run, rows_in_domain, rng,
+                  rings=None):
+    """For every block of `p`: scramble `fields` outside its window (each
+    field's (below, above) ring of `rings`, p.halo a side by default) and
     compare `run(*fields)` (outputs whose row 0 is input row p.out_x0) in
     the block's box with the unscrambled result."""
     want = run(*fields)
     blocks = list(p.blocks())
     assert blocks and all(w.numel() for w in want)
+    rings = rings or (None,) * len(fields)
     for box in blocks:
-        win = window(p, box)
-        got = run(*(scramble(a, win, rows_in_domain, rng, pool)
-                    for a, pool in zip(fields, pools)))
+        got = run(*(scramble(a, window(p, box, ring), rows_in_domain, rng,
+                             pool)
+                    for a, pool, ring in zip(fields, pools, rings)))
         out = tuple(slice(lo - off, hi - off) for (lo, hi), off
                     in zip(box, (p.out_x0, 0, 0)))
         for g, w in zip(got, want):
@@ -456,6 +462,69 @@ def test_k6_halo_plan_blocks_see_their_windows(kind, shard):
     sharded step pools its slab before K6a, so K6a runs at pool 1."""
     p, ext, run, inside, r = k6_halo_case(kind, shard, 31 + shard)
     check_k6_plan(p, ext, (1,) * len(ext), run, inside, r)
+
+
+# ------------------------------------------------------------------ K1
+# K1 marches K6's tiles with an R-cell ring (tiling.grid_fused_pass, halo
+# R): its face averages and taps read velocity up to R cells away, its
+# condition masks read the types of i + e_c, one cell above.  So the
+# velocity is scrambled outside each block's R ring and the types outside
+# the box grown by one cell upwards.
+ADVECT_R = 2
+
+
+def k1_rings(p: tiling.Pass):
+    """(velocity ring, types ring) of a K1 block: the plan's halo a side,
+    and one cell above."""
+    return (p.halo, p.halo), (0, 1)
+
+
+def k1_case(shape, seed):
+    r = np.random.default_rng(seed)
+    vel = T((r.standard_normal((3,) + shape) * 60).astype(np.float32))
+    return r, vel, T(random_types(r, shape))
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("shape", K6_SHAPES)
+def test_advect_plan_blocks_see_their_windows(shape, sms):
+    r, vel, types = k1_case(shape, 51)
+    p = tiling.grid_fused_pass(shape, ADVECT_R, sms=sms)
+    assert (p.halo, p.xs, p.xe, p.out_x0) == (ADVECT_R, 0, shape[0], 0)
+    assert (p.inner_y, p.inner_z) == (tiling.TILE - 2 * ADVECT_R,) * 2
+    check_k6_plan(p, (vel, types), (1, 1),
+                  lambda v, t: (advect_from_types_plain(v, t, ADVECT_R,
+                                                        0.01),),
+                  torch.ones(shape[0], dtype=torch.bool), r, k1_rings(p))
+
+
+@pytest.mark.parametrize("shard", [0, 1, 3])
+def test_advect_halo_plan_blocks_see_their_windows(shard):
+    """K1's halo form at the first, a middle and the last of 4 slabs of
+    (40, 45, 29): the velocity with R neighbour planes a side and the types
+    with one, both held here in the velocity's rows (zeros past the
+    domain)."""
+    shape, h = (40, 45, 29), ADVECT_R
+    r, vel, types = k1_case(shape, 61 + shard)
+    lx = shape[0] // SHARDS
+    x0 = shard * lx
+    rows = np.arange(x0 - h, x0 + lx + h)
+    inside = T((rows >= 0) & (rows < shape[0]))
+    idx = T(np.clip(rows, 0, shape[0] - 1))
+    ext = [torch.where(inside.reshape(-1, 1, 1), a[..., idx, :, :],
+                       torch.zeros_like(a[..., idx, :, :]))
+           for a in (vel, types)]
+
+    def run(v, t):
+        halo = (v[:, :h].contiguous(), v[:, h + lx:].contiguous())
+        return (advect_from_types_halo_plain(
+            v[:, h:h + lx].contiguous(), t[h - 1:h + lx + 1].contiguous(),
+            ADVECT_R, 0.01, halo, x0, shape),)
+    p = tiling.grid_fused_pass(ext[1].shape, h, slab_halo=h, sms=3)
+    assert (p.xs, p.xe, p.out_x0) == (h, h + lx, h)
+    want = check_k6_plan(p, ext, (1, 1), run, inside, r, k1_rings(p))
+    single = advect_from_types_plain(vel, types, ADVECT_R, 0.01)
+    assert torch.equal(want[0], single[:, x0:x0 + lx])
 
 
 def test_k6_passes_fill_the_card():

@@ -12,29 +12,42 @@ the change: run parent, change, change, parent, one process each.  Each
 process builds that tree's kernels into the tree's own `build/`.
 
 Kernels (the default): the inputs are `chip_smoke.py`'s own, made by its
-`kernel_cases` and `halo_cases` (this checkout's script, that tree's
-package): K2 solves the folded system of a random cell field for 199
-sweeps at 20^3, 128^3 and 256^3; K5 runs 4 blur passes at the detailed
-grids 100^3, 256^3 and 512^3; K6a (stages 01-06) takes the 512^3 detailed
-occupancy at pool 2 and K6b (08-11) its 256^3 fields; and at shard 1 of
-`scaled_scene(256)` split 4 ways, K2's sharded pass runs 8 sweeps on an
-80 x 256^2 slab, K5's halo form runs on a 128 x 512^2 slab with 5 halo
-planes a side, and K6a's and K6b's halo forms on 64 x 256^2 slabs with 2
-and 1.  A tree whose K6a takes no `pool` is timed with its own stage-01
-max-pool (`stages/particles.occupancy_to_sim_grid`) in front, so that both
-trees compute the same function from the same inputs.  Each line printed
-is one JSON object with the tree's label, the kernel, the scene, the input
-shape, the mean ms by CUDA events over `REPS` calls after two warm-up
-calls, the kernel launches one call made (where the tree counts them) and
-a digest of the output bytes, which must agree between trees: both are
-bitwise equal to the same plain version.
+`kernel_cases`, `scene_cases`, `halo_cases` and `local_move_cases` (this
+checkout's script, that tree's package): K1 advects random +-60
+velocities on a random cell field, and K3+K4 moves 1,000,000 random
+positions (the extremes among them) and scatters their occupancy, at
+20^3, 128^3 and 256^3, and both again on the velocity, cell types,
+positions and active flags of `scaled_scene(256)` after 2 steps; K2
+solves the folded system of a random cell field for 199 sweeps at 20^3,
+128^3 and 256^3; K5 runs 4 blur passes at the detailed grids 100^3, 256^3
+and 512^3; K6a (stages 01-06) takes the 512^3 detailed occupancy at pool
+2 and K6b (08-11) its 256^3 fields; and at shard 1 of `scaled_scene(256)`
+split 4 ways, K1's halo form runs on a 64 x 256^2 slab with 2 velocity
+planes and 1 type plane a side, K2's sharded pass runs 8 sweeps on an 80 x
+256^2 slab, K5's halo form runs on a 128 x 512^2 slab with 5 halo planes a
+side, K6a's and K6b's halo forms on 64 x 256^2 slabs with 2 and 1, and
+K3+K4's local-slab form moves that slab's particles and 20,000
+stragglers.  A tree whose K1 takes the condition masks and whose K3+K4
+returns the positions alone (the parent of the commit that took both
+in) is timed with its own plain passes beside them (`parent_shims`): its
+condition masks in front of K1, its occupancy scatter after K3+K4, so
+that both trees compute the same function from the same inputs.  Each
+line printed is one JSON object with the tree's label, the kernel, the
+scene, the input shape, the mean ms by CUDA events over `REPS` calls after
+two warm-up calls, the kernel launches one call made (where the tree
+counts them) and a digest of the output bytes, which must agree between
+trees: both are bitwise equal to the same plain version.
 
 `--split`: `SPLIT_STEPS` steps of scaled_scene(256) after one warm-up,
 with CUDA events around every stage call of `solver/step.py` and the
 kernels and plain passes inside stages 07 and 12 (stage functions the tree
-does not call are absent from its lines).  One JSON line a stage: the
+does not have or call are absent from its lines).  One JSON line a stage: the
 median and the per-step ms; then the step itself and the part of it that
 no top-level stage covers.
+
+`--sass`: compile each CUDA source of the tree with the build's flags and
+print, a JSON line a kernel, its registers and spills (`nvcc -Xptxas -v`)
+and its static SASS instruction count (`cuobjdump -sass`).
 
 The first line is the card's name and power limit as nvidia-smi gives
 them.
@@ -48,30 +61,34 @@ import hashlib
 import importlib
 import inspect
 import json
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 # calls timed a kernel: the 20^3 / 100^3 calls take tens of microseconds,
 # so many calls average out the host's jitter
 REPS = {"reference": 200, "bench": 20, "large": 8, "large shard 1/4": 10}
-SCENE_KERNELS = ("jacobi_sweeps_cuda", "surface_fused_cuda",
+REPS["large scene"] = REPS["large"]
+SCENE_KERNELS = ("advect_all_cuda", "jacobi_sweeps_cuda",
+                 "particle_move_cuda", "surface_fused_cuda",
                  "classify_extrap_cuda", "forces_solids_div_cuda")
-HALO_KERNELS = ("jacobi_pass_cuda", "surface_fused_halo_cuda",
-                "classify_extrap_halo_cuda", "forces_solids_div_halo_cuda")
+HALO_KERNELS = ("advect_all_halo_cuda", "jacobi_pass_cuda",
+                "surface_fused_halo_cuda", "classify_extrap_halo_cuda",
+                "forces_solids_div_halo_cuda")
 SPLIT_STEPS = 5
 # (module, function, label, top level): the stage calls of
 # solver/step.simulation_step on the fused path, and inside stages 07
 # and 12 the kernel and the plain passes around it
 SPLIT = (
-    ("stages.particles", "occupancy_to_sim_grid", "01 max-pool (plain)",
-     True),
-    ("kernels.grid_fused", "classify_extrap_cuda",
-     "K6a (02-06; 01-06 where it pools)", True),
+    ("kernels.grid_fused", "classify_extrap_cuda", "K6a (01-06)", True),
     ("stages.velocity", "advect", "07 advect", True),
     ("stages.velocity", "_advect_conditions", "07 condition masks (plain)",
+     False),
+    ("stages.velocity", "advect_conditions", "07 condition masks (plain)",
      False),
     ("stages.velocity", "advect_all_cuda", "07 K1", False),
     ("kernels.grid_fused", "forces_solids_div_cuda", "08-11 K6b", True),
@@ -79,6 +96,8 @@ SPLIT = (
     ("stages.pressure", "jacobi_fold", "12 jacobi_fold (plain)", False),
     ("stages.pressure", "jacobi_sweeps_cuda", "12 K2", False),
     ("kernels.grid_fused", "project_cuda", "13 K6c", True),
+    ("stages.particles", "move_and_scatter",
+     "14-15 move and scatter (K3+K4)", True),
     ("stages.particles", "move_particles", "14 move particles (K3+K4)",
      True),
     ("stages.particles", "detailed_occupancy",
@@ -94,25 +113,60 @@ def digest(tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def pooled_if_needed(kernel, call_args, kw):
-    """The call that computes stages 01-06 with this tree's K6a: the kernel
-    itself where it takes `pool`, else its max-pool and then the kernel."""
-    if "pool" not in kw or "pool" in inspect.signature(kernel).parameters:
-        return lambda: kernel(*call_args, **kw)
-    from tpu_fluid_torch.stages.particles import occupancy_to_sim_grid
-    occ, old, vel, cfg = call_args
-    assert cfg.surface_render_resolution == kw["pool"]
-    return lambda: kernel(occupancy_to_sim_grid(occ, cfg), old, vel, cfg)
+def parent_shims() -> None:
+    """Give a tree whose K1 takes the condition masks (`cond3`) and whose
+    K3+K4 returns the positions alone this checkout's signatures, computing
+    the same functions: its masks and then its K1 (the halo form from the
+    slab's types with one neighbour plane a side), its K3+K4 and then its
+    plain occupancy scatter.  The plain versions `chip_smoke.py` imports
+    beside them are not timed here and stay unset."""
+    from tpu_fluid_torch.kernels import advect, particle_move
+    if "cond3" in inspect.signature(advect.advect_all_cuda).parameters:
+        from tpu_fluid_torch.stages.velocity import _advect_conditions
+        k1, k1_halo = advect.advect_all_cuda, advect.advect_all_halo_cuda
+
+        @functools.wraps(k1)
+        def advect_all_cuda(vel, types, r, dt):
+            return k1(vel, _advect_conditions(types), r, dt)
+
+        @functools.wraps(k1_halo)
+        def advect_all_halo_cuda(vel, types_e, r, dt, halo, x0, shape):
+            lx = vel.shape[1]
+            cond3 = _advect_conditions(types_e, x0 - 1)[:, 1:lx + 1]
+            return k1_halo(vel, cond3.contiguous(), r, dt, halo, x0, shape)
+
+        advect.advect_all_cuda = advect_all_cuda
+        advect.advect_all_halo_cuda = advect_all_halo_cuda
+        advect.advect_from_types_plain = None
+        advect.advect_from_types_halo_plain = None
+    if "res" not in inspect.signature(
+            particle_move.particle_move_cuda).parameters:
+        from tpu_fluid_torch.core.config import FluidConfig
+        from tpu_fluid_torch.stages.particles import detailed_occupancy
+        k34 = particle_move.particle_move_cuda
+
+        @functools.wraps(k34)
+        def particle_move_cuda(vel, pos, active, dt, res):
+            moved = k34(vel, pos, active, dt)
+            cfg = FluidConfig(grid_size=tuple(vel.shape[1:]),
+                              surface_render_resolution=res)
+            return moved, detailed_occupancy(moved, active, cfg)
+
+        particle_move.particle_move_cuda = particle_move_cuda
+        particle_move.particle_move_occupancy_plain = None
 
 
 def time_kernels(label, chip_smoke, device) -> None:
     import torch
-    from tpu_fluid_torch import FluidConfig
+    from tpu_fluid_torch import FluidConfig, initial_state
+    parent_shims()
 
     def report(scene, kernel, call_args, kw):
         module = importlib.import_module(kernel.__module__)
         counter = getattr(module, "device_launches", None)
-        call = pooled_if_needed(kernel, call_args, kw)
+        def call():
+            return kernel(*call_args, **kw)
+
         before = counter() if counter else None
         out = call()
         torch.cuda.synchronize()
@@ -133,10 +187,20 @@ def time_kernels(label, chip_smoke, device) -> None:
             if kernel.__name__ in SCENE_KERNELS:
                 report(scene, kernel, call_args, kw)
         torch.cuda.empty_cache()
+    for kernel, _, call_args, kw in chip_smoke.scene_cases(device, large):
+        report("large scene", kernel, call_args, kw)
+    torch.cuda.empty_cache()
     for kernel, _, call_args, kw, shard in chip_smoke.halo_cases(device,
                                                                   large):
         if shard == 1 and kernel.__name__ in HALO_KERNELS:
             report("large shard 1/4", kernel, call_args, kw)
+    from tpu_fluid_torch.kernels.particle_move import (
+        particle_move_local_cuda as local)
+    domain = chip_smoke.domain_scene(large)
+    for shard, call_args in chip_smoke.local_move_cases(
+            device, domain, initial_state(domain, device)):
+        if shard == 1:
+            report("large shard 1/4", local, call_args, {})
 
 
 def split_step(label, device) -> None:
@@ -159,7 +223,8 @@ def split_step(label, device) -> None:
 
     for module, name, stage, _ in SPLIT:
         mod = importlib.import_module(f"tpu_fluid_torch.{module}")
-        setattr(mod, name, timed(getattr(mod, name), stage))
+        if hasattr(mod, name):
+            setattr(mod, name, timed(getattr(mod, name), stage))
     cfg = FluidConfig.scaled_scene(256)
     state = step(initial_state(cfg, device), cfg)
     torch.cuda.synchronize()
@@ -176,12 +241,46 @@ def split_step(label, device) -> None:
     for ms in per_step:
         ms["not in a stage"] = ms["step"] - sum(v for k, v in ms.items()
                                                  if k in top)
-    for name in [s for _, _, s, _ in SPLIT] + ["step", "not in a stage"]:
+    stages = dict.fromkeys(s for _, _, s, _ in SPLIT)
+    for name in list(stages) + ["step", "not in a stage"]:
         each = [ms[name] for ms in per_step if name in ms]
         if each:
             print(json.dumps({"tree": label, "split": name,
                               "median_ms": statistics.median(each),
                               "ms": each}), flush=True)
+
+
+PTXAS_KERNEL = re.compile(
+    r"Function properties for (\S+)\n\s+\d+ bytes stack frame, (\d+) "
+    r"bytes spill stores, (\d+) bytes spill loads\n.*?Used (\d+) registers")
+SASS_FUNCTION = re.compile(r"Function : (\S+)")
+SASS_INSTRUCTION = re.compile(r"^\s+/\*[0-9a-f]{4,}\*/", re.M)
+
+
+def sass_counts(label) -> None:
+    """Registers, spills and static SASS instructions of every kernel of
+    the tree's CUDA sources."""
+    from tpu_fluid_torch.kernels import build
+    cuobjdump = str(Path(build.nvcc()).with_name("cuobjdump"))
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in build.sources():
+            obj = str(Path(tmp) / f"{src.stem}.o")
+            ptxas = subprocess.run(
+                [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                 str(src), "-o", obj], capture_output=True, text=True,
+                check=True).stderr
+            sass = subprocess.run([cuobjdump, "-sass", obj],
+                                  capture_output=True, text=True,
+                                  check=True).stdout
+            parts = SASS_FUNCTION.split(sass)[1:]
+            count = {name: len(SASS_INSTRUCTION.findall(body))
+                     for name, body in zip(parts[::2], parts[1::2])}
+            for name, st, ld, regs in PTXAS_KERNEL.findall(ptxas):
+                print(json.dumps({"tree": label, "source": src.name,
+                                  "kernel": name, "registers": int(regs),
+                                  "spill_bytes": int(st) + int(ld),
+                                  "sass_instructions": count.get(name)}),
+                      flush=True)
 
 
 def main() -> int:
@@ -190,6 +289,8 @@ def main() -> int:
     ap.add_argument("--label", default="change")
     ap.add_argument("--split", action="store_true",
                     help="split the scaled_scene(256) step by stage")
+    ap.add_argument("--sass", action="store_true",
+                    help="registers and static SASS of each kernel")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     # the tree's package first, then this checkout's chip_smoke.py
@@ -209,7 +310,9 @@ def main() -> int:
                          text=True).stdout.strip(), flush=True)
     build.build()
     device = torch.device("cuda", 0)
-    if args.split:
+    if args.sass:
+        sass_counts(args.label)
+    elif args.split:
         split_step(args.label, device)
     else:
         time_kernels(args.label, chip_smoke, device)

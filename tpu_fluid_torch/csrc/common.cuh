@@ -23,4 +23,10 @@ __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
 }
 
+// torch.clamp and jnp.clip on any value: a NaN stays NaN, where fminf and
+// fmaxf would return a bound
+__device__ __forceinline__ float clamp_nan(float x, float lo, float hi) {
+  return isnan(x) ? x : clampf(x, lo, hi);
+}
+
 }  // namespace tf

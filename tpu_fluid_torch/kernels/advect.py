@@ -1,14 +1,18 @@
-"""K1: stage-07 semi-Lagrangian advection of all three MAC components.
+"""K1: stage-07 semi-Lagrangian advection of all three MAC components,
+with its condition masks taken in.
 
 Replaces `tpu_fluid/kernels/advect.py:advect_all_pallas` (kernel
-`_advect_all_kernel`, body `_advect_comps`); CUDA source
-`csrc/advect.cu`.  The TPU kernel sums (2R+1)^3 masked terms over an
-edge-replicated VMEM slab because Mosaic cannot gather; the card gathers,
-so the kernel reads only the 8 taps that carry weight, in the same
-ascending order, and agrees with the masked sum bitwise.  On the card it is
-bound by the scattered 4-byte reads (about 20 per output), which the 50 MB
-L2 absorbs at 128^3 (24 MB of velocity): one thread per output keeps the
-reads of a warp on neighbouring z.
+`_advect_all_kernel`, body `_advect_comps`) and the condition masks JAX
+builds before it (`_advect_condition` at
+`tpu_fluid/stages/velocity.py:160`); CUDA source `csrc/advect.cu`.  The
+TPU kernel sums (2R+1)^3 masked terms over an edge-replicated VMEM slab
+because Mosaic cannot gather; the card gathers, so the kernel reads only
+the 8 taps that carry weight, in the same ascending order, and agrees
+with the masked sum bitwise.  It marches
+32 x 32 y-z tiles with an R-cell ring along x (`tiling.grid_fused_pass`
+with halo R), keeping the 2R + 1 x planes the face averages and taps reach
+in shared memory, so each velocity value is read from device memory about
+once; the masks come from the u8 cell types it reads beside them.
 
 K1 also covers two TPU tiling variants of the same function, which differ
 only in how they cut VMEM: `advect_one_pallas` (`advect.py:244`), which
@@ -18,29 +22,57 @@ a precomputed displacement field.  K1 indexes with `long long` and has no
 plane limit; tests/test_torch_kernels.py holds both variants against
 `advect_all_plain` component by component.
 
-`advect_all_plain` is the same function in plain PyTorch, in the masked-sum
-order of `tpu_fluid.stages.velocity.advect_shift`.
+`advect_all_plain` is the advection from given masks in plain PyTorch, in
+the masked-sum order of `tpu_fluid.stages.velocity.advect_shift`;
+`advect_from_types_plain`, the wrapper's plain version, is
+`advect_conditions` followed by it.
 
-The halo form, `advect_all_halo_cuda` beside `advect_all_halo_plain`,
+The halo form, `advect_all_halo_cuda` beside `advect_from_types_halo_plain`,
 replaces the sharded calls of `advect_all_pallas` and `advect_one_pallas`
 (`halo`, `x0`, `global_shape`; `tpu_fluid/parallel/spmd_step.py:145-177`)
-in the x-slab multi-device step: a local slab with its R neighbour planes
-on each side, one launch for all three components.  Clamps and tap indices
-are global, so a tap never reads the zero planes past the domain: every
-row equals the single-device row, at the end shards too.  JAX's kernels read
-those zero planes (`_xpad`, `_advect_one_impl`) where the weight is 0 or
-the condition is 0, which agrees up to the sign of a zero.
+in the x-slab multi-device step: a local slab with its R velocity planes
+and one type plane on each side, one launch for all three components.
+Clamps and tap indices are global, so a tap never reads the zero planes
+past the domain: every row equals the single-device row, at the end shards
+too.  JAX's kernels read those zero planes (`_xpad`, `_advect_one_impl`)
+where the weight is 0 or the condition is 0, which agrees up to the sign of
+a zero.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tpu_fluid_torch.kernels import build, on_cuda, require
+from tpu_fluid_torch.core.types import CellType
+from tpu_fluid_torch.kernels import build, on_cuda, require, tiling
 from tpu_fluid_torch.ops.packed_sampler import _edge_shift
+from tpu_fluid_torch.ops.stencil import axis_nonzero, shifted
 
-_ARGTYPES = ((build.POINTER,) * 3 + (build.INT,) * 8
+_ARGTYPES = ((build.POINTER,) * 3 + (build.INT,) * 11
              + (build.FLOAT,) * 3 + (build.POINTER,))
+# The largest R whose ring of shared planes (2R + 2, rounded up to a power
+# of two, 13 KB each) fits a block (csrc/advect.cu).
+MAX_RING_R = 7
+
+
+def advect_condition(types: torch.Tensor, c: int,
+                     x0: int = 0) -> torch.Tensor:
+    """Advection applies to component c of cell i iff i_c != 0 and cell i
+    or its upper neighbour i + e_c is WATER (`advect.comp:66-71`).  On an
+    x-slab whose row 0 is global x `x0` the i_x != 0 test is global."""
+    water = types == CellType.WATER
+    up = tuple(1 if k == c else 0 for k in range(3))
+    cond = water | shifted(water, up, fill=False)
+    if c == 0:
+        ix = torch.arange(x0, x0 + types.shape[0], device=types.device)
+        return cond & (ix != 0).reshape(-1, 1, 1)
+    return cond & axis_nonzero(types.shape, c, types.device)
+
+
+def advect_conditions(types: torch.Tensor, x0: int = 0) -> torch.Tensor:
+    """The three components' masks as one (3, X, Y, Z) u8 stack."""
+    return torch.stack([advect_condition(types, c, x0)
+                        for c in range(3)]).to(torch.uint8)
 
 
 def face_center_velocity(vel: torch.Tensor, c: int) -> torch.Tensor:
@@ -102,8 +134,10 @@ def _advect(vx: torch.Tensor, cond3: torch.Tensor, r: int, dt: float,
             u_d = t_d - i_d
             o_d = torch.floor(u_d)
             f_d = u_d - o_d
-            axes.append([(o_d == delta) * (1.0 - f_d)
-                         + (o_d == delta - 1) * f_d
+            # JAX's (o == delta) * (1 - f): XLA makes the product of a mask
+            # a select, so a NaN offset weighs 0, not NaN
+            axes.append([torch.where(o_d == delta, 1.0 - f_d, 0.0)
+                         + torch.where(o_d == delta - 1, f_d, 0.0)
                          for delta in range(-r, r + 1)])
         wx, wy, wz = axes
         padded = _edge_pad_yz(vx[c], r)
@@ -158,36 +192,64 @@ def advect_all_halo_plain(vel: torch.Tensor, cond3: torch.Tensor, r: int,
                    cond3, r, dt, x0, gx)
 
 
-def _check(vel, cond3, r):
+def advect_from_types_plain(vel: torch.Tensor, types: torch.Tensor, r: int,
+                            dt: float) -> torch.Tensor:
+    """K1's function in plain PyTorch: vel (3,X,Y,Z) f32 and the cell
+    types (X,Y,Z) u8 -> the advected velocity, `advect_conditions` then
+    `advect_all_plain`."""
+    return advect_all_plain(vel, advect_conditions(types), r, dt)
+
+
+def advect_from_types_halo_plain(vel: torch.Tensor, types_e: torch.Tensor,
+                                 r: int, dt: float, halo, x0: int,
+                                 global_shape) -> torch.Tensor:
+    """The halo form in plain PyTorch: `types_e` (lx + 2, Y, Z) holds the
+    slab's types with one neighbour plane a side (zeros past the domain);
+    the masks of its inner rows, then `advect_all_halo_plain`."""
+    lx = vel.shape[1]
+    cond3 = advect_conditions(types_e, x0 - 1)[:, 1:lx + 1].contiguous()
+    return advect_all_halo_plain(vel, cond3, r, dt, halo, x0, global_shape)
+
+
+def _check(vel, types, r, rows):
     require(vel, "vel", torch.float32)
     if vel.ndim != 4 or vel.shape[0] != 3:
         raise ValueError(f"vel: shape {tuple(vel.shape)}, expected (3,X,Y,Z)")
-    require(cond3, "cond3", torch.uint8, vel.shape, vel.device)
-    if r < 1:
-        raise ValueError(f"advect_max_displacement {r} must be >= 1")
+    require(types, "types", torch.uint8, (rows,) + tuple(vel.shape[2:]),
+            vel.device)
+    if not 1 <= r <= MAX_RING_R:
+        raise ValueError(f"advect_max_displacement {r} outside "
+                         f"[1, {MAX_RING_R}]")
 
 
-def _launch(vel_x, cond3, r, dt, gx, x0, xb):
-    """K1 on the rows [x0, x0 + lx) of cond3, from `vel_x` holding global
-    rows [xb, xb + mx)."""
-    out = torch.empty(cond3.shape, dtype=vel_x.dtype, device=vel_x.device)
-    _, lx, gy, gz = cond3.shape
+def _launch(vel_x, types_x, r, dt, gx, x0, lx, xb, tb):
+    """K1 on the global rows [x0, x0 + lx), from `vel_x` holding global
+    rows [xb, xb + mx) and `types_x` global rows [tb, tb + tn)."""
+    _, mx, gy, gz = vel_x.shape
+    out = torch.empty((3, lx, gy, gz), dtype=vel_x.dtype,
+                      device=vel_x.device)
+    p = tiling.grid_fused_pass((mx, gy, gz), r, slab_halo=x0 - xb,
+                               sms=build.sm_count(vel_x.device.index))
+    assert p.xe - p.xs == lx
     with torch.cuda.device(vel_x.device):
         stream = torch.cuda.current_stream(vel_x.device).cuda_stream
         build.call("tf_advect_all", _ARGTYPES, vel_x.data_ptr(),
-                   cond3.data_ptr(), out.data_ptr(), gx, gy, gz, x0, lx, xb,
-                   vel_x.shape[1], r, dt, float(-r), r - 1e-4, stream)
+                   types_x.data_ptr(), out.data_ptr(), gx, gy, gz, xb, mx,
+                   tb, types_x.shape[0], x0, lx, p.seg, r, dt, float(-r),
+                   r - 1e-4, stream)
     return out
 
 
-def advect_all_cuda(vel: torch.Tensor, cond3: torch.Tensor, r: int,
+def advect_all_cuda(vel: torch.Tensor, types: torch.Tensor, r: int,
                     dt: float) -> torch.Tensor:
-    """K1 wrapper: the CUDA kernel for CUDA tensors, `advect_all_plain`
-    for CPU tensors."""
-    _check(vel, cond3, r)
+    """K1 wrapper: vel (3,X,Y,Z) f32, the cell types (X,Y,Z) u8 -> the
+    advected velocity; the CUDA kernel for CUDA tensors,
+    `advect_from_types_plain` for CPU tensors."""
+    _check(vel, types, r, vel.shape[1])
     if not on_cuda(vel):
-        return advect_all_plain(vel, cond3, r, dt)
-    out = _launch(vel, cond3, r, dt, vel.shape[1], 0, 0)
+        return advect_from_types_plain(vel, types, r, dt)
+    gx = vel.shape[1]
+    out = _launch(vel, types, r, dt, gx, 0, gx, 0, 0)
     advect_all_cuda.launches += 1
     return out
 
@@ -195,20 +257,22 @@ def advect_all_cuda(vel: torch.Tensor, cond3: torch.Tensor, r: int,
 advect_all_cuda.launches = 0
 
 
-def advect_all_halo_cuda(vel: torch.Tensor, cond3: torch.Tensor, r: int,
+def advect_all_halo_cuda(vel: torch.Tensor, types_e: torch.Tensor, r: int,
                          dt: float, halo, x0: int,
                          global_shape) -> torch.Tensor:
-    """K1 halo-form wrapper (arguments as `advect_all_halo_plain`): the
-    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
-    _check(vel, cond3, r)
-    if tuple(global_shape[1:]) != tuple(vel.shape[2:]):
+    """K1 halo-form wrapper (arguments as `advect_from_types_halo_plain`):
+    the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    lx = vel.shape[1]
+    _check(vel, types_e, r, lx + 2)
+    if tuple(global_shape[1:]) != tuple(vel.shape[2:]) or not (
+            0 <= x0 and x0 + lx <= global_shape[0]):
         raise ValueError(f"global_shape {tuple(global_shape)} does not fit "
-                         f"the slab {tuple(vel.shape)}")
+                         f"the slab {tuple(vel.shape)} at x0={x0}")
     if not on_cuda(vel):
-        return advect_all_halo_plain(vel, cond3, r, dt, halo, x0,
-                                     global_shape)
-    out = _launch(_halo_slab(vel, halo, r), cond3, r, dt, global_shape[0],
-                  x0, x0 - r)
+        return advect_from_types_halo_plain(vel, types_e, r, dt, halo, x0,
+                                            global_shape)
+    out = _launch(_halo_slab(vel, halo, r), types_e, r, dt, global_shape[0],
+                  x0, lx, x0 - r, x0 - 1)
     advect_all_halo_cuda.launches += 1
     return out
 

@@ -1,27 +1,34 @@
 """K3+K4: stage-14 particle move, sampling the staggered velocity with the
-packed-table weights and taking the Euler step.
+packed-table weights and taking the Euler step, with the stage-15
+occupancy scatter taken in.
 
 Replaces `tpu_fluid/kernels/pack_table.py:build_packed_table_pallas` and
 `build_packed_table_pallas2` (the 64-lane and z-paired 128-lane tables),
-the XLA row gather of `tpu_fluid/stages/particles.py:move_particles`, and
-`tpu_fluid/kernels/particle_sample.py:sample_and_move`; CUDA source
-`csrc/particle_move.cu`.  The table exists because the TPU has no fast
-element gather; the card has one, so one thread per particle reads the 8
-nonzero taps of each component straight from the velocity field and
-accumulates them in the table's lane order.  It is bound by those 24
-scattered reads per particle; no table (537 MB at 128^3) and no row buffer
-are written.
+the XLA row gather of `tpu_fluid/stages/particles.py:move_particles`,
+`tpu_fluid/kernels/particle_sample.py:sample_and_move`, and the XLA
+scatter of `tpu_fluid/stages/particles.py:detailed_occupancy`; CUDA
+source `csrc/particle_move.cu`.  The table exists because the TPU has no
+fast element gather; the card has one, so one thread per particle reads
+the 8 nonzero taps of each component straight from the velocity field,
+accumulates them in the table's lane order, moves the particle and, if it
+is active and its detailed cell lies in the detailed grid, stores a 1
+there.  It is bound by those 24 scattered reads per particle; no table
+(537 MB at 128^3), no row buffer and no index tensor are written.
 
-The local-slab form (`particle_move_local_cuda`) is the same kernel on a
-shard's (3, lx + 2, Y, Z) velocity slab with one edge-replicated plane a
-side, which domain-sharded particles sample
+The local-slab form (`particle_move_local_cuda`) is the same kernel,
+without the occupancy, on a shard's (3, lx + 2, Y, Z) velocity slab with
+one edge-replicated plane a side, which domain-sharded particles sample
 (`tpu_fluid/parallel/particles_domain.py:move_particles_local`): positions
 and weights stay global, the row of a particle's cell is its slab-local x
 row clipped to the extended slab, and each x tap is clipped within it.
+Domain sharding scatters its occupancy after the migration, in plain torch
+(`parallel/particles_domain.detailed_occupancy_local`).
 
 `particle_move_plain` keeps the TPU formulation in plain PyTorch: build
 the 64-lane table, gather one row per particle, and accumulate the 18 lanes
 of each component one by one in the loop order of `_sample_update_kernel`.
+`scatter_occupancy` is the stage-15 scatter; `particle_move_occupancy_plain`,
+the wrapper's plain version, is the one and then the other.
 """
 
 from __future__ import annotations
@@ -34,8 +41,8 @@ from tpu_fluid_torch.ops.packed_sampler import (_OTHER, _lane,
                                                 cell_index,
                                                 packed_row_indices)
 
-_ARGTYPES = (build.POINTER,) * 4 + (build.INT64,) + (build.INT,) * 5 + (
-    build.FLOAT, build.POINTER)
+_ARGTYPES = ((build.POINTER,) * 5 + (build.INT64,) + (build.INT,) * 5
+             + (build.FLOAT, build.INT, build.POINTER))
 
 
 def sample_and_move_rows(rows: torch.Tensor, pos: torch.Tensor,
@@ -82,6 +89,38 @@ def particle_move_plain(vel: torch.Tensor, pos: torch.Tensor,
     return sample_and_move_rows(rows, pos, active, dt, grid)
 
 
+def scatter_occupancy(positions: torch.Tensor, active: torch.Tensor,
+                      res: int, detailed_size) -> torch.Tensor:
+    """Occupancy (0/1 uint8) of the detailed grid of `detailed_size`, `res`
+    detailed cells a sim cell along each axis.  The pipeline only ever
+    consumes density > 0 (stage 02's water test, stage 16's filled and
+    neighbour tests), so one scatter of the constant 1 serves both of the
+    reference's histograms.  Indices truncate toward zero; inactive and
+    out-of-grid particles are routed to a dropped slot (never clamped), and
+    duplicates all write 1, so the scatter is deterministic."""
+    dx, dy, dz = detailed_size
+    idx = torch.trunc(positions * float(res)).to(torch.int64)
+    x, y, z = idx[:, 0], idx[:, 1], idx[:, 2]
+    inb = ((x >= 0) & (x < dx) & (y >= 0) & (y < dy) & (z >= 0) & (z < dz)
+           & active)
+    n = dx * dy * dz
+    flat = torch.where(inb, x * (dy * dz) + y * dz + z, n)
+    occ = torch.zeros(n + 1, dtype=torch.uint8, device=positions.device)
+    occ[flat] = 1
+    return occ[:n].reshape(dx, dy, dz)
+
+
+def particle_move_occupancy_plain(vel: torch.Tensor, pos: torch.Tensor,
+                                  active: torch.Tensor, dt: float,
+                                  res: int) -> tuple:
+    """Stages 14 and 15 in plain PyTorch: the moved positions, and the
+    occupancy of the moved active ones on the detailed grid `res` times
+    the sim grid."""
+    moved = particle_move_plain(vel, pos, active, dt)
+    dsize = tuple(res * n for n in vel.shape[1:])
+    return moved, scatter_occupancy(moved, active, res, dsize)
+
+
 def particle_move_local_plain(vel_e: torch.Tensor, pos: torch.Tensor,
                               active: torch.Tensor, dt: float, x0: int,
                               grid_size) -> torch.Tensor:
@@ -110,30 +149,39 @@ def _check(vel: torch.Tensor, pos: torch.Tensor,
     require(active, "active", torch.bool, (pos.shape[0],), vel.device)
 
 
-def _launch(vel, pos, active, dt, xb, grid_size) -> torch.Tensor:
+def _launch(vel, pos, active, dt, xb, grid_size, occ=None,
+            res=0) -> torch.Tensor:
     """The kernel on memory rows [xb, xb + vel.shape[1]) of a grid of
-    global extent `grid_size`."""
+    global extent `grid_size`, scattering into `occ` where it is given."""
     out = torch.empty_like(pos)
     gx, gy, gz = grid_size
     with torch.cuda.device(vel.device):
         stream = torch.cuda.current_stream(vel.device).cuda_stream
         build.call("tf_particle_move", _ARGTYPES, vel.data_ptr(),
                    pos.data_ptr(), active.data_ptr(), out.data_ptr(),
-                   pos.shape[0], xb, vel.shape[1], gx, gy, gz, dt, stream)
+                   None if occ is None else occ.data_ptr(), pos.shape[0],
+                   xb, vel.shape[1], gx, gy, gz, dt, res, stream)
     return out
 
 
 def particle_move_cuda(vel: torch.Tensor, pos: torch.Tensor,
-                       active: torch.Tensor, dt: float) -> torch.Tensor:
-    """K3+K4 wrapper: vel (3,X,Y,Z) f32, pos (P,3) f32, active (P,) bool ->
-    moved positions (P,3); the CUDA kernel for CUDA tensors,
-    `particle_move_plain` for CPU tensors."""
+                       active: torch.Tensor, dt: float, res: int) -> tuple:
+    """K3+K4 wrapper: vel (3,X,Y,Z) f32, pos (P,3) f32, active (P,) bool
+    and the detailed cells a sim cell `res` -> (the moved positions (P,3),
+    the (res X, res Y, res Z) u8 occupancy of the moved active ones); the
+    CUDA kernel for CUDA tensors, `particle_move_occupancy_plain` for CPU
+    tensors."""
     _check(vel, pos, active)
+    if not isinstance(res, int) or res < 1:
+        raise ValueError(f"res = {res!r}, expected an int >= 1")
     if not on_cuda(vel):
-        return particle_move_plain(vel, pos, active, dt)
-    out = _launch(vel, pos, active, dt, 0, tuple(vel.shape[1:]))
+        return particle_move_occupancy_plain(vel, pos, active, dt, res)
+    grid = tuple(vel.shape[1:])
+    occ = torch.zeros(tuple(res * n for n in grid), dtype=torch.uint8,
+                      device=vel.device)
+    out = _launch(vel, pos, active, dt, 0, grid, occ, res)
     particle_move_cuda.launches += 1
-    return out
+    return out, occ
 
 
 def particle_move_local_cuda(vel_e: torch.Tensor, pos: torch.Tensor,
@@ -142,8 +190,8 @@ def particle_move_local_cuda(vel_e: torch.Tensor, pos: torch.Tensor,
     """K3+K4's local-slab form: vel_e (3, lx+2, Y, Z) f32, the shard's slab
     with one edge-replicated plane a side, whose row 1 is global x0;
     global positions pos (P,3) f32 and active (P,) bool -> moved positions
-    (P,3).  The CUDA kernel for CUDA tensors, `particle_move_local_plain`
-    for CPU tensors."""
+    (P,3), no occupancy.  The CUDA kernel for CUDA tensors,
+    `particle_move_local_plain` for CPU tensors."""
     _check(vel_e, pos, active)
     gx, gy, gz = grid_size
     lx = vel_e.shape[1] - 2

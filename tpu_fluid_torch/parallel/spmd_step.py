@@ -13,9 +13,10 @@ detailed slab is at least steps + 1 rows wide).
 
 Particles (stages 14-15) follow `cfg.particle_sharding`:
   - "index" (the default): `mesh.shard_state` splits them by index; each
-    shard gathers the whole velocity field, moves its particles through
-    K3+K4, scatters their occupancy over the whole detailed grid, and the
-    shards' occupancies are summed with a psum_scatter onto the x-slabs.
+    shard gathers the whole velocity field, moves its particles and
+    scatters their occupancy over the whole detailed grid in one K3+K4
+    launch, and the shards' occupancies are summed with a psum_scatter
+    onto the x-slabs.
   - "domain": `particles_domain.domain_shard_state` puts each particle on
     the shard that owns its x-slab; each shard moves its particles through
     K3+K4's local-slab form on its edge-replicated slab, `migrate` hands
@@ -47,7 +48,7 @@ from tpu_fluid_torch.kernels import fuse_grid_choice, grid_fused
 from tpu_fluid_torch.kernels import kernel_choice
 from tpu_fluid_torch.kernels import surface_fused as k5
 from tpu_fluid_torch.kernels.advect import (advect_all_halo_cuda,
-                                            advect_all_halo_plain)
+                                            advect_from_types_halo_plain)
 from tpu_fluid_torch.ops.stencil import AXIS_MOVES, MOVES, neighbor_sum
 from tpu_fluid_torch.ops.stencil import shifted
 from tpu_fluid_torch.parallel.halo import (all_gather_x, halo_extend,
@@ -124,11 +125,12 @@ def _advect_spmd(types: torch.Tensor, vel: torch.Tensor, cfg: FluidConfig,
     r = cfg.advect_max_displacement
     gx = cfg.grid_size[0]
     if cfg.advect_method in ("auto", "pallas"):
+        # the masks read the type plane above the slab
         types_e = halo_extend(types, 1, mesh)
-        cond3 = halo_inner(vstages._advect_conditions(types_e, x0 - 1))
         halo = halo_planes(vel, r, mesh)
-        advect = advect_all_halo_cuda if use_kernels else advect_all_halo_plain
-        return advect(vel, cond3.contiguous(), r, cfg.dt, halo, x0,
+        advect = (advect_all_halo_cuda if use_kernels
+                  else advect_from_types_halo_plain)
+        return advect(vel, types_e, r, cfg.dt, halo, x0,
                       (gx,) + tuple(types.shape[1:]))
     if cfg.advect_method not in ("shift", "gather"):
         raise ValueError(f"unknown advect_method {cfg.advect_method!r}")
@@ -266,12 +268,12 @@ def _local_step(state: FluidState, cfg: FluidConfig,
     else:
         # particles split by index: every shard gathers the velocity field,
         # moves its particles, scatters their occupancy over the whole
-        # detailed grid; the sum over shards lands on the x-slabs
+        # detailed grid (one K3+K4 launch on the card); the sum over shards
+        # lands on the x-slabs
         active, dropped = state.active, state.dropped
         vel_full = all_gather_x(vel, mesh, axis=1)
-        pos = particles.move_particles(vel_full, state.positions, active,
-                                       cfg)
-        occ_full = particles.detailed_occupancy(pos, active, cfg)
+        pos, occ_full = particles.move_and_scatter(vel_full, state.positions,
+                                                   active, cfg)
         occ = (psum_scatter_x(occ_full, mesh) > 0).to(torch.uint8)
 
     # 16-18

@@ -1,9 +1,10 @@
 """Full simulation step (`tpu_fluid.solver.step`): the reference's 19-stage
 per-frame compute graph (`fluid_flow_sections.h:159-391`) as one function
-over the state, run eagerly.  The kernel-bearing stages (07, 12, 14, 16-18)
-pick their CUDA kernel or its plain version through `kernel_choice`; where
-`fuse_grid_choice` holds, stages 01-06, 08-11 and 13 run as the three K6
-groups, again as kernels or plain versions by `kernel_choice`."""
+over the state, run eagerly.  The kernel-bearing stages (07, 12, 14-15,
+16-18) pick their CUDA kernel or its plain version through
+`kernel_choice`; where `fuse_grid_choice` holds, stages 01-06, 08-11 and 13
+run as the three K6 groups, again as kernels or plain versions by
+`kernel_choice`."""
 
 from __future__ import annotations
 
@@ -85,12 +86,13 @@ def simulation_step(state: FluidState, cfg: FluidConfig,
     else:
         vel = pressure.pressure_project(types, p, vel, cfg)
 
-    # 14: move particles through the projected field
-    pos = particles.move_particles(vel, state.positions, state.active, cfg)
+    # 14-15: move particles through the projected field and scatter their
+    # occupancy (also the next frame's stage 01), one K3+K4 launch on the
+    # card
+    pos, occ = particles.move_and_scatter(vel, state.positions,
+                                          state.active, cfg)
 
-    # 15-18: occupancy of the moved particles (also the next frame's
-    # stage 01) and the surface fields
-    occ = particles.detailed_occupancy(pos, state.active, cfg)
+    # 16-18: the surface fields
     if cfg.surface_enabled:
         inertia, f1, f2 = surface_fields.update_surface_fields(
             types, occ, state.inertia, state.float_dens_2, cfg)

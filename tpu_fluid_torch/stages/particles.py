@@ -8,29 +8,18 @@ import torch
 from tpu_fluid_torch.core.config import FluidConfig
 from tpu_fluid_torch.kernels import kernel_choice
 from tpu_fluid_torch.kernels.particle_move import (particle_move_cuda,
-                                                   particle_move_plain)
+                                                   particle_move_plain,
+                                                   scatter_occupancy)
 from tpu_fluid_torch.ops.sampling import velocity_at
 
 
 def detailed_occupancy(positions: torch.Tensor, active: torch.Tensor,
                        cfg: FluidConfig) -> torch.Tensor:
-    """Occupancy (0/1 uint8) of the detailed grid.  The pipeline only ever
-    consumes density > 0 (stage 02's water test, stage 16's filled and
-    neighbour tests), so one scatter of the constant 1 serves both of the
-    reference's histograms.  Indices truncate toward zero; inactive and
-    out-of-grid particles are routed to a dropped slot (never clamped), and
-    duplicates all write 1, so the scatter is deterministic."""
-    dx, dy, dz = cfg.detailed_size
-    idx = torch.trunc(positions * float(cfg.surface_render_resolution)
-                      ).to(torch.int64)
-    x, y, z = idx[:, 0], idx[:, 1], idx[:, 2]
-    inb = ((x >= 0) & (x < dx) & (y >= 0) & (y < dy) & (z >= 0) & (z < dz)
-           & active)
-    n = dx * dy * dz
-    flat = torch.where(inb, x * (dy * dz) + y * dz + z, n)
-    occ = torch.zeros(n + 1, dtype=torch.uint8, device=positions.device)
-    occ[flat] = 1
-    return occ[:n].reshape(dx, dy, dz)
+    """Stage 15: the 0/1 u8 occupancy of the detailed grid
+    (`kernels/particle_move.scatter_occupancy`): truncated indices, the
+    inactive and out-of-grid particles dropped, never clamped."""
+    return scatter_occupancy(positions, active, cfg.surface_render_resolution,
+                             cfg.detailed_size)
 
 
 def occupancy_to_sim_grid(occ: torch.Tensor,
@@ -51,14 +40,25 @@ def move_particles(vel: torch.Tensor, positions: torch.Tensor,
                    active: torch.Tensor, cfg: FluidConfig) -> torch.Tensor:
     """Stage 14: forward-Euler particle advection with staggered trilinear
     velocity sampling (`particles.comp:27-52`), no position clamping.  The
-    "packed" sampler takes the K3+K4 route (the CUDA kernel where
-    `kernel_choice` picks it, else its plain version); "gather" samples with
-    per-point gathers."""
+    "packed" sampler is K3+K4's plain version, "gather" samples with
+    per-point gathers.  The step runs it through `move_and_scatter`, which
+    takes K3+K4 on the card."""
     if cfg.particle_sampler == "packed":
-        if kernel_choice(cfg, vel.device):
-            return particle_move_cuda(vel, positions, active, cfg.dt)
         return particle_move_plain(vel, positions, active, cfg.dt)
     if cfg.particle_sampler != "gather":
         raise ValueError(f"unknown particle_sampler {cfg.particle_sampler!r}")
     v = velocity_at(vel, positions)
     return torch.where(active[:, None], positions + v * cfg.dt, positions)
+
+
+def move_and_scatter(vel: torch.Tensor, positions: torch.Tensor,
+                     active: torch.Tensor, cfg: FluidConfig) -> tuple:
+    """Stages 14 and 15: (the moved positions, the detailed occupancy of
+    the moved active ones).  With the "packed" sampler, where
+    `kernel_choice` picks the kernels, one K3+K4 launch does both;
+    otherwise `move_particles`, then `detailed_occupancy`."""
+    if cfg.particle_sampler == "packed" and kernel_choice(cfg, vel.device):
+        return particle_move_cuda(vel, positions, active, cfg.dt,
+                                  cfg.surface_render_resolution)
+    pos = move_particles(vel, positions, active, cfg)
+    return pos, detailed_occupancy(pos, active, cfg)

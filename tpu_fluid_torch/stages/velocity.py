@@ -13,6 +13,8 @@ from tpu_fluid_torch.core.config import FluidConfig
 from tpu_fluid_torch.core.types import CellType
 from tpu_fluid_torch.kernels import kernel_choice
 from tpu_fluid_torch.kernels.advect import (advect_all_cuda,
+                                            advect_condition,
+                                            advect_conditions,
                                             advect_slab_plain,
                                             face_center_velocity)
 from tpu_fluid_torch.ops.sampling import velocity_at, velocity_component_at
@@ -62,25 +64,6 @@ def set_extrapolated_velocities(old_types: torch.Tensor,
     return torch.stack(out)
 
 
-def _advect_condition(types: torch.Tensor, c: int,
-                      x0: int = 0) -> torch.Tensor:
-    """Advection applies to component c of cell i iff i_c != 0 and cell i
-    or its upper neighbour i + e_c is WATER (`advect.comp:66-71`).  On an
-    x-slab whose row 0 is global x `x0` the i_x != 0 test is global."""
-    water = types == CellType.WATER
-    up = tuple(1 if k == c else 0 for k in range(3))
-    cond = water | shifted(water, up, fill=False)
-    if c == 0:
-        ix = torch.arange(x0, x0 + types.shape[0], device=types.device)
-        return cond & (ix != 0).reshape(-1, 1, 1)
-    return cond & axis_nonzero(types.shape, c, types.device)
-
-
-def _advect_conditions(types: torch.Tensor, x0: int = 0) -> torch.Tensor:
-    return torch.stack([_advect_condition(types, c, x0)
-                        for c in range(3)]).to(torch.uint8)
-
-
 def advect_gather(types: torch.Tensor, vel: torch.Tensor,
                   cfg: FluidConfig) -> torch.Tensor:
     """Stage 07, reference-shaped path: per-point trilinear gathers
@@ -94,7 +77,7 @@ def advect_gather(types: torch.Tensor, vel: torch.Tensor,
         dim=-1)
     out = []
     for c in range(3):
-        cond = _advect_condition(types, c)
+        cond = advect_condition(types, c)
         fmove = torch.tensor([0.5 if k != c else 0.0 for k in range(3)],
                              dtype=vel.dtype, device=dev)
         pos = base + fmove
@@ -116,7 +99,7 @@ def advect_shift(types: torch.Tensor, vel: torch.Tensor, cfg: FluidConfig,
     and the i_x != 0 test are global; the caller keeps the rows at least
     R + 1 from the slab's ends."""
     gx = types.shape[0] if gx_total is None else gx_total
-    return advect_slab_plain(vel, _advect_conditions(types, x0),
+    return advect_slab_plain(vel, advect_conditions(types, x0),
                              cfg.advect_max_displacement, cfg.dt, x0, gx)
 
 
@@ -133,8 +116,9 @@ def advect(types: torch.Tensor, vel: torch.Tensor,
     if method not in ("auto", "pallas"):
         raise ValueError(f"unknown advect_method {method!r}")
     if kernel_choice(cfg, vel.device):
-        return advect_all_cuda(vel, _advect_conditions(types),
-                               cfg.advect_max_displacement, cfg.dt)
+        # K1 builds the condition masks from the types itself
+        return advect_all_cuda(vel, types, cfg.advect_max_displacement,
+                               cfg.dt)
     return advect_shift(types, vel, cfg)
 
 
