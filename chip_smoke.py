@@ -12,7 +12,10 @@ Phases, one line each (more for the parity and scene phases):
               numpy-seeded inputs (K1 from velocity and cell types, with
               its condition masks; K3+K4 returning the moved positions and
               the detailed occupancy, with NaN, infinite, huge and (-1, 0)
-              positions among them), and K1, K2, K3+K4, K5, K6a and K6b
+              positions among them, and positions NaN on one, two and
+              three axes, which move only their NaN coordinates and
+              occupy detailed index 0 on those axes), and K1, K2, K3+K4,
+              K5, K6a and K6b
               also at two odd non-cubic shapes (5 and 199 sweeps; 0, 1, 4
               and 12 blur passes, u8 and int32 inertia; K6a at pools 1, 2
               and 3); K1 and K3+K4 also on the velocity, types, positions
@@ -70,6 +73,18 @@ Phases, one line each (more for the parity and scene phases):
               counter).  It prints steps/s
               and the host-staged transport of each step: the halo planes
               beside the migration exchange.
+ 10 graph     the CUDA-graph step (tpu_fluid_torch/solver/graph.py) at the
+              reference, bench and large scenes, from the state after 2
+              eager steps: 3 jit_step replays, one jit_multi_step of 3
+              steps, and an eager step from the graph's buffers against
+              the eager steps, every field bitwise; every kernel of the
+              scene's path captured (the wrappers' counts over the warm-up
+              steps and captures); each capture's seconds and graph pool;
+              eager, jit_step and jit_multi_step ms a step (medians of 7
+              after a warm-up, CUDA events); at the large scene the state
+              hand-over, the copy each replay ends with.  Then
+              tpu_fluid_torch.bench at 128^3 for 40 steps, whose JSON line
+              it prints.
 The line before the last is a JSON object with the kernels' numbers (times
 and bounds at the large scene, the halo forms' and the local-slab form's at
 shard 1 of phases 8 and 9; library_ms is null: no single PyTorch call
@@ -97,6 +112,11 @@ LARGE_STEPS = 5
 LARGE_COMPARE_STEPS = 2
 SHARDS = 4
 SHARDED_STEPS = 2
+# phase 10: eager steps against graph replays, timed steps a median takes,
+# the bench's window
+GRAPH_STEPS = 3
+GRAPH_TIMED = 7
+BENCH_WINDOW = 40
 PARITY_SHARDS = (0, 1, 3)
 ODD_SHAPES = ((13, 22, 17), (37, 45, 29))
 RANK_TIMEOUT = 480.0
@@ -448,23 +468,37 @@ def scene_cases(device, cfg, steps: int = 2):
               cfg.surface_render_resolution), {})]
 
 
-def nan_occupancy(device) -> None:
-    """Where the card puts a particle whose x is NaN: its detailed x index
-    converts to 0 or is dropped, in the plain version and in K3+K4 alike.
-    (The JAX package on the CPU converts NaN to 0 and writes the cell.)"""
+def nan_axes(device) -> None:
+    """K3+K4 against its plain version on positions that are NaN on one,
+    two and three axes: both move only the NaN coordinates, to NaN, and
+    write the occupancy at detailed index 0 on the NaN axes, as the JAX
+    package does on the CPU (XLA converts a NaN to 0); bitwise, a NaN
+    matching a NaN."""
     from tpu_fluid_torch.kernels.particle_move import (
         particle_move_cuda, particle_move_occupancy_plain)
-    vel = torch.zeros((3, 4, 4, 4), device=device)
-    pos = torch.tensor([[float("nan"), 1.3, 2.6]], device=device)
-    act = torch.ones(1, dtype=torch.bool, device=device)
-    (_, want), (_, got) = (f(vel, pos, act, 0.01, 2) for f in (
+    rng = np.random.default_rng(SEED)
+    vel = torch.from_numpy((rng.standard_normal((3, 8, 8, 8)) * 5).astype(
+        np.float32)).to(device)
+    nan = float("nan")
+    pos = torch.tensor([[nan, 1.3, 2.6], [2.2, nan, 3.1], [4.4, 5.5, nan],
+                        [nan, nan, 6.2], [nan, nan, nan], [3.3, 3.3, 3.3]],
+                       device=device)
+    act = torch.ones(len(pos), dtype=torch.bool, device=device)
+    (want, want_occ), (got, got_occ) = (f(vel, pos, act, 0.01, 2) for f in (
         particle_move_occupancy_plain, particle_move_cuda))
     torch.cuda.synchronize()
-    print(f"[3 parity] a NaN x on the card: plain scatter writes cell "
-          f"(0, 2, 5): {bool(want[0, 2, 5])}, cells written {int(want.sum())};"
-          f" K3+K4: {bool(got[0, 2, 5])}, {int(got.sum())}", flush=True)
-    check(torch.equal(got, want), "K3+K4 puts a NaN position elsewhere "
-                                  "than its plain version")
+    cells = ((0, 2, 5), (4, 0, 6), (8, 11, 0), (0, 0, 12), (0, 0, 0))
+    written = [bool(got_occ[c]) for c in cells]
+    print(f"[3 parity] NaN on one, two and three axes: moved positions "
+          f"bitwise={same_bits(got, want)}, NaN where the input's="
+          f"{torch.equal(torch.isnan(got), torch.isnan(pos))}, occupancy "
+          f"bitwise={torch.equal(got_occ, want_occ)}, index-0 cells "
+          f"written {written}", flush=True)
+    check(same_bits(got, want) and torch.equal(got_occ, want_occ),
+          "K3+K4 differs from its plain version on NaN positions")
+    check(torch.equal(torch.isnan(got), torch.isnan(pos)),
+          "a NaN coordinate moved another coordinate to NaN")
+    check(all(written), "a NaN position's occupancy is not at index 0")
 
 
 def non_finite_velocity(vel: np.ndarray, rng, device,
@@ -646,7 +680,7 @@ def phase_parity(device, scenes) -> dict:
         entry["max_abs_err"] = max(entry["max_abs_err"], r["max_abs_err"])
         entry[f"{scene} scene"] = r
     torch.cuda.empty_cache()
-    nan_occupancy(device)
+    nan_axes(device)
     k2 = results["jacobi_sweeps_cuda"]
     check(k2["reference"]["launches"] == 1,
           "the one-block route did not solve 20^3 in one launch")
@@ -1283,6 +1317,128 @@ def phase_domain(cfg, card: str, device) -> dict:
     return launches
 
 
+def clone_state(state):
+    return type(state)(*(t.clone() for t in state))
+
+
+def step_ms(fn, state, reps: int) -> tuple:
+    """(ms of each of `reps` calls state = fn(state), each between two CUDA
+    events and synchronized, after one untimed call; the last state)."""
+    state = fn(state)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    times = []
+    for _ in range(reps):
+        start.record()
+        state = fn(state)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times, state
+
+
+def graph_scene(device, scene: str, cfg, wrappers, card: str) -> dict:
+    """Phase 10 at one scene: from the state after 2 eager steps,
+    GRAPH_STEPS eager steps against GRAPH_STEPS `jit_step` replays and
+    against one `jit_multi_step(state, cfg, GRAPH_STEPS)`, then an eager
+    step from the graph's buffers, every field bitwise; the kernel
+    wrappers' counts over the captures; eager and graphed step times."""
+    from statistics import median
+
+    from tpu_fluid_torch import initial_state, jit_multi_step, jit_step, step
+    from tpu_fluid_torch.solver import graph
+    state0 = run_steps(initial_state(cfg, device), cfg, 2)
+    torch.cuda.synchronize()
+    first = len(graph.captures)
+    reset_launches(wrappers)
+    s = state0
+    for _ in range(GRAPH_STEPS):
+        s = jit_step(s, cfg)
+    replayed = clone_state(s)
+    multi = clone_state(jit_multi_step(state0, cfg, GRAPH_STEPS))
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers)
+    eager = run_steps(state0, cfg, GRAPH_STEPS)
+    after, eager_after = step(s, cfg), step(eager, cfg)
+    torch.cuda.synchronize()
+    for label, got, want in (("jit_step", replayed, eager),
+                             ("jit_multi_step", multi, eager),
+                             ("eager step after replays", after,
+                              eager_after)):
+        same = {f: same_bits(g, w) for f, g, w in zip(want._fields, got,
+                                                      want)}
+        print(f"[10 graph {scene}] {label} against {GRAPH_STEPS} eager "
+              f"steps{' + 1' if 'after' in label else ''}: bitwise "
+              f"{all(same.values())} {same}", flush=True)
+        check(all(same.values()), f"10 graph {scene}: {label} differs "
+                                  f"from the eager step: {same}")
+    for cap in graph.captures[first:]:
+        print(f"[10 graph {scene}] capture of {cap['n_steps']} step(s): "
+              f"warm-up step {cap['warmup_s']!r} s, capture "
+              f"{cap['capture_s']!r} s, graph pool "
+              f"{cap['pool_bytes'] / 2 ** 20!r} MiB", flush=True)
+    print(f"[10 graph {scene}] wrapper launches in the warm-up steps and "
+          f"captures: {launches}", flush=True)
+    check(all(v > 0 for v in launches.values()),
+          f"10 graph {scene}: a kernel of the path was not captured: "
+          f"{launches}")
+    del replayed, multi, after, eager_after, eager
+    eager_times, _ = step_ms(lambda x: step(x, cfg), state0, GRAPH_TIMED)
+    graph_times, _ = step_ms(lambda x: jit_step(x, cfg), state0,
+                             GRAPH_TIMED)
+    multi_times, _ = step_ms(lambda x: jit_multi_step(x, cfg, GRAPH_STEPS),
+                             state0, GRAPH_TIMED)
+    result = {"launches": launches, "eager_ms": median(eager_times),
+              "graph_ms": median(graph_times),
+              "multi_ms": median(multi_times) / GRAPH_STEPS}
+    print(f"[10 graph {scene}] ms a step, median of {GRAPH_TIMED} after a "
+          f"warm-up (CUDA events): eager {result['eager_ms']!r} "
+          f"({1000 / result['eager_ms']!r} steps/s), jit_step "
+          f"{result['graph_ms']!r} ({1000 / result['graph_ms']!r} steps/s), "
+          f"jit_multi_step({GRAPH_STEPS}) {result['multi_ms']!r} "
+          f"({1000 / result['multi_ms']!r} steps/s); each eager "
+          f"{eager_times!r}, each jit_step {graph_times!r} on {card}",
+          flush=True)
+    if scene == "large":
+        # the hand-over: the copy of the whole state the graph ends with
+        dst = clone_state(state0)
+        size = sum(t.numel() * t.element_size() for t in state0)
+        result["handover_ms"] = time_ms(lambda: graph._load(dst, state0),
+                                        reps=GRAPH_TIMED)
+        print(f"[10 graph {scene}] state hand-over, a copy of "
+              f"{size / 1e9!r} GB read and written once a replay: "
+              f"{result['handover_ms']!r} ms (mean of {GRAPH_TIMED}, CUDA "
+              f"events), {2 * size / result['handover_ms'] / 1e6!r} GB/s",
+              flush=True)
+        del dst
+    del state0, s
+    graph.clear_graphs()
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_graph(device, scenes, wrappers, fused_wrappers, card: str,
+                smi: str) -> dict:
+    """Phase 10: the CUDA-graph step at each scene (`graph_scene`), then
+    the port's bench (`tpu_fluid_torch.bench`) for a short window at
+    128^3, whose JSON line it prints; returns the wrappers' counts over
+    the captures."""
+    from tpu_fluid_torch import bench
+    launches = {}
+    for scene, cfg in scenes:
+        paths = wrappers + (fused_wrappers if cfg.grid_fused else ())
+        counted = graph_scene(device, scene, cfg, paths, card)["launches"]
+        for name, count in counted.items():
+            launches[name] = launches.get(name, 0) + count
+    _, sps, chunks = bench._run_once(128, 1_000_000, BENCH_WINDOW, 5)
+    print(f"[10 graph bench] tpu_fluid_torch.bench at 128^3, {BENCH_WINDOW} "
+          f"steps, per-chunk steps/s {chunks!r}", flush=True)
+    print(json.dumps(bench.result_line(128, 1_000_000, sps, smi)),
+          flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1451,6 +1607,15 @@ def main() -> int:
     del state0
     torch.cuda.empty_cache()
     domain_launches = phase_domain(domain_cfg, card, device)
+
+    # 10: the CUDA-graph step (jit_step, jit_multi_step) at the three
+    # scenes, and the bench
+    graph_launches = phase_graph(device, (("reference", ref_cfg),
+                                          ("bench", bench_cfg),
+                                          ("large", large_cfg)),
+                                 wrappers, fused_wrappers, card, smi)
+    for name, count in graph_launches.items():
+        launches[name] += count
 
     def entry(name, source, replaces, n, results, key):
         r = results[key]

@@ -1,0 +1,142 @@
+"""`jit_step` and `jit_multi_step` (`tpu_fluid_torch/solver/graph.py`): on
+the CPU n eager steps, against the port's `step` bitwise and against the
+JAX package's `jit_multi_step` on a state carried from JAX; on the card
+(the `cuda` tests, which skip here) CUDA-graph replays against the eager
+step bitwise, the capture cache and the donation rule."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from test_torch_step import CFG, KW, assert_states_close, jax_numpy
+from tpu_fluid.core.config import FluidConfig as JaxConfig
+from tpu_fluid.core.state import initial_state as jax_initial_state
+from tpu_fluid.solver.step import jit_multi_step as jax_jit_multi_step
+from tpu_fluid.solver.step import simulation_step as jax_step
+from tpu_fluid_torch import (initial_state, jit_multi_step, jit_step,
+                             step)
+from tpu_fluid_torch.core.state import state_from_numpy, state_to_numpy
+from tpu_fluid_torch.solver import graph
+
+torch.set_num_threads(2)
+
+
+def assert_states_equal(got, want, label=""):
+    for name, g, w in zip(want._fields, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, (label, name)
+        assert torch.equal(g, w), (label, name)
+
+
+def eager(state, cfg, n):
+    for _ in range(n):
+        state = step(state, cfg)
+    return state
+
+
+def test_jit_multi_step_on_cpu_equals_eager_steps():
+    state = eager(initial_state(CFG, device="cpu"), CFG, 2)
+    assert_states_equal(jit_multi_step(state, CFG, 3), eager(state, CFG, 3))
+    assert_states_equal(jit_step(state, CFG), step(state, CFG))
+
+
+def test_jit_multi_step_matches_jax_on_a_carried_state():
+    """A JAX state after two steps crosses into the port through numpy;
+    three more steps on each side, JAX's through its own
+    `jit_multi_step` (XLA stages, pallas_mode="off")."""
+    jcfg = JaxConfig(**KW).replace(pallas_mode="off")
+    jstep = jax.jit(jax_step, static_argnums=1)
+    jstate = jax_initial_state(jcfg)
+    for _ in range(2):
+        jstate = jstep(jstate, jcfg)
+    state = state_from_numpy(jax_numpy(jstate), device="cpu")
+    want = jax_numpy(jax_jit_multi_step(jstate, jcfg, 3))
+    got = state_to_numpy(jit_multi_step(state, CFG, 3))
+    assert_states_close(got, want, "carried")
+    assert int(got["step"]) == 5
+
+
+def test_cpu_state_is_left_as_it_was():
+    state = initial_state(CFG, device="cpu")
+    before = tuple(t.clone() for t in state)
+    jit_multi_step(state, CFG, 2)
+    for b, t in zip(before, state):
+        assert torch.equal(b, t)
+    assert not graph._GRAPHS                     # no graph on the CPU
+
+
+@pytest.mark.parametrize("call", [
+    lambda s: jit_multi_step(s, CFG, 0),
+    lambda s: jit_step(s, CFG, scene=object()),
+    lambda s: jit_step(s, CFG.replace(volume_correction=0.5))])
+def test_bad_calls_raise(call):
+    with pytest.raises((ValueError, NotImplementedError)):
+        call(initial_state(CFG, device="cpu"))
+
+
+# ------------------------------------------------------------------ on card
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA graphs are captured and "
+                    "replayed only there")
+    graph.clear_graphs()
+    yield torch.device("cuda", 0)
+    graph.clear_graphs()
+
+
+# a 16^3 scene on the unfused path, and the same with the K6 kernels
+CARD_CFGS = {
+    "16": CFG.replace(grid_size=(16, 16, 16)),
+    "16-fused": CFG.replace(grid_size=(16, 16, 16), grid_fused=True),
+}
+
+
+def cloned(state):
+    return type(state)(*(t.clone() for t in state))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CARD_CFGS))
+def test_cuda_replays_equal_eager_steps_bitwise(cuda_device, name):
+    cfg = CARD_CFGS[name]
+    state0 = eager(initial_state(cfg, cuda_device), cfg, 2)
+    want = eager(state0, cfg, 3)
+    s = state0
+    for _ in range(3):
+        s = jit_step(s, cfg)
+    assert_states_equal(s, want, "jit_step")
+    assert_states_equal(jit_multi_step(state0, cfg, 3), want, "multi")
+    # an eager step from the graph's buffers
+    assert_states_equal(step(s, cfg), step(want, cfg), "eager after")
+
+
+@pytest.mark.cuda
+def test_cuda_capture_is_cached_per_config(cuda_device):
+    cfg = CARD_CFGS["16"]
+    n0 = len(graph.captures)
+    s = jit_step(initial_state(cfg, cuda_device), cfg)
+    s = jit_step(s, cfg)
+    assert len(graph.captures) == n0 + 1
+    other = cfg.replace(jacobi_iters=cfg.jacobi_iters + 1)
+    jit_step(initial_state(other, cuda_device), other)
+    jit_multi_step(s, cfg, 2)
+    assert len(graph.captures) == n0 + 3
+    assert graph.captures[-1]["n_steps"] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_state_passed_in_is_consumed(cuda_device):
+    """The returned state is the graph's buffers: the next call given it
+    overwrites it; a state that is not the graph's own is left as it
+    was."""
+    cfg = CARD_CFGS["16"]
+    s0 = initial_state(cfg, cuda_device)
+    keep = cloned(s0)
+    s1 = jit_step(s0, cfg)
+    assert_states_equal(s0, keep, "foreign state")
+    s1_before = cloned(s1)
+    s2 = jit_step(s1, cfg)
+    assert s2.velocity.data_ptr() == s1.velocity.data_ptr()
+    assert int(s1.step) == 2 and int(s1_before.step) == 1
+    assert_states_equal(s2, step(s1_before, cfg), "second replay")

@@ -62,7 +62,11 @@ SCENARIOS = {
     "interpret": dict(pallas_mode="interpret", grid_fused=True),
 }
 MIGRATE_CASES = ("exchange", "send_overflow", "slot_exhaustion",
-                 "multi_slab", "tight", "random")
+                 "multi_slab", "tight", "random", "non_finite")
+# x coordinates whose cell XLA converts by its own rule: NaN to cell 0,
+# infinities and huge values saturated (ops/indexing.float_to_index)
+NON_FINITE_X = (float("nan"), float("inf"), -float("inf"), 1e30, -1e30,
+                3e9, -3e9)
 
 
 def cfg_of(name, package=FluidConfig):
@@ -88,6 +92,8 @@ def migrate_case(name, n):
         slots, m = 8, 4
     elif name == "multi_slab":
         slots, m = 128, 8
+    elif name == "non_finite":
+        slots, m = 16, 8
     elif name == "tight":
         slots, m = 16, 12                      # 2 m > slots, holes run out
     else:
@@ -114,6 +120,13 @@ def migrate_case(name, n):
     elif name == "multi_slab":
         hops = min(2, n - 1)                   # owned by shard `hops`
         pos[0], act[0] = (8 * hops + 4.5, 1.0, 7.0), True
+    elif name == "non_finite":
+        # each shard: a stayer, then every non-finite or huge x
+        for i in range(n):
+            base = i * slots
+            pos[base], act[base] = (8 * i + 3.0, 1.0, 1.0), True
+            for j, x in enumerate(NON_FINITE_X, start=1):
+                pos[base + j], act[base + j] = (x, 2.0, j), True
     else:
         # crossers both ways on every shard, past both domain ends too
         r = np.random.default_rng(5 if name == "tight" else 6)
@@ -451,6 +464,59 @@ def test_detailed_occupancy_local_equals_jax(shard):
                                         jcfg, shard * lx * res, lx * res)
     assert got.dtype == torch.uint8 and got.any()
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def non_finite_scatter_case(seed):
+    """scatter_case with NaN, infinite and huge coordinates on each axis,
+    and all-NaN positions."""
+    pos, act = scatter_case(seed)
+    extremes = (float("nan"),) + NON_FINITE_X
+    for row, (d, x) in enumerate((d, x) for d in range(3) for x in extremes):
+        pos[row, d], act[row] = x, True
+    pos[30:34] = float("nan")
+    act[30:34] = True
+    return pos, act
+
+
+@pytest.mark.parametrize("shard", [0, 1, 3])
+def test_local_scatters_non_finite_equal_jax(shard):
+    """A NaN coordinate converts to index 0, as in JAX, in both local
+    scatters: the first shard holds cell 0 and counts those particles."""
+    cfg, jcfg = cfg_of("off"), cfg_of("off", JaxConfig)
+    pos, act = non_finite_scatter_case(20 + shard)
+    res, lx = cfg.surface_render_resolution, 8
+    got = pd.detailed_occupancy_local(torch.from_numpy(pos),
+                                      torch.from_numpy(act), cfg,
+                                      shard * lx * res, lx * res)
+    want = jpd.detailed_occupancy_local(jnp.asarray(pos), jnp.asarray(act),
+                                        jcfg, shard * lx * res, lx * res)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    got = pd.cell_histogram_local(torch.from_numpy(pos),
+                                  torch.from_numpy(act), BASE["grid_size"],
+                                  shard * lx, lx)
+    want = jpd.cell_histogram_local(jnp.asarray(pos), jnp.asarray(act),
+                                    BASE["grid_size"], shard * lx, lx)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    if shard == 0:
+        assert int(got[0, 0, 0]) >= 4
+
+
+def test_domain_shard_state_non_finite_equals_jax():
+    """Non-finite and huge x at set-up: the census converts them as JAX's
+    numpy code does."""
+    cfg, jcfg = cfg_of("off"), cfg_of("off", JaxConfig)
+    state = initial_state(cfg, device="cpu")
+    pos = state.positions.clone()
+    pos[:len(NON_FINITE_X), 0] = torch.tensor(NON_FINITE_X)
+    state = state._replace(positions=pos)
+    jstate = jax_initial_state(jcfg)
+    jstate = jstate._replace(positions=jnp.asarray(pos.numpy()))
+    parts = [pd.domain_shard_state(state, r, 4, cfg) for r in range(4)]
+    want = jpd.domain_shard_state(jstate, jax_make_mesh(4), jcfg)
+    for field in ("positions", "active"):
+        got = torch.cat([getattr(p, field) for p in parts]).numpy()
+        np.testing.assert_array_equal(got, np.asarray(getattr(want, field)),
+                                      err_msg=field)
 
 
 @pytest.mark.parametrize("shard", [0, 1, 3])

@@ -29,4 +29,10 @@ __device__ __forceinline__ float clamp_nan(float x, float lo, float hi) {
   return isnan(x) ? x : clampf(x, lo, hi);
 }
 
+// ops/indexing.float_to_index: a NaN converts to 0; the conversion
+// saturates beyond the 64-bit range
+__device__ __forceinline__ long long to_index(float x) {
+  return isnan(x) ? 0 : static_cast<long long>(x);
+}
+
 }  // namespace tf

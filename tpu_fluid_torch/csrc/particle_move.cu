@@ -13,8 +13,13 @@
 // edge-clamped indices -- the values the table's lanes hold -- so no table
 // and no (P, 64) row buffer are ever written.
 //
-// Whatever integer a NaN or infinite coordinate converts to, every index is
-// clamped before it is read, so every read stays inside the field.
+// Non-finite coordinates go where the JAX package on the CPU puts them.  A
+// NaN coordinate's cell is 0 (XLA converts NaN to 0), and its weights on
+// its own axis are 0 where a component's taps spread across that axis
+// (XLA makes a select of the TPU kernel's mask product), so it moves only
+// that coordinate, to NaN.  An infinite coordinate clamps to the grid's
+// edge.  Every index is clamped before it is read, so every read stays
+// inside the field.
 //
 // What bounds it: the 24 scattered 4-byte reads a particle, which land in
 // L2 for grids of up to 128^3 (24 MB of velocity) and in device memory
@@ -27,9 +32,9 @@
 // grid on all three axes, and writes nothing otherwise (never a clamped
 // index): stages/particles.py:detailed_occupancy.  Stores of the constant
 // 1 commute, so the result does not depend on their order.  The float to
-// integer conversion is the 64-bit one PyTorch's `.to(torch.int64)` makes
-// on the card, so infinities, NaNs and |p * res| >= 2^31 land where the
-// plain version puts them.
+// integer conversion is 64-bit, a NaN converting to 0 and infinities and
+// |p * res| >= 2^63 saturating, as in the plain version
+// (ops/indexing.float_to_index), so they land where it puts them.
 //
 // The field in memory holds rows [xb, xb + mx) of a grid of global extent
 // (gx, gy, gz).  Single device is xb = 0, mx = gx.  The local-slab form of
@@ -84,16 +89,17 @@ __global__ void __launch_bounds__(tf::kThreads)
     // per axis: the own-axis fraction (texel (p - 0.5) + 0.5); the offset
     // and fraction on the other axes (texel (p - 0.5) + 0); the memory
     // offsets of the taps along each
-    float f_own[3], f_oth[3];
+    float f_own[3], w_oth[3][2];
     int o_oth[3], own[3][2], oth[3][2];
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
       pd[d] = staged[3 * me + d];
       const float top = static_cast<float>(dims[d] - 1);
       // NaN-propagating clamps, as the plain version's torch.clamp: a NaN
-      // coordinate gives NaN weights, and so a NaN move, in both
+      // coordinate gives NaN fractions on its axis
       const float jf = tf::clamp_nan(floorf(pd[d]), 0.0f, top);
-      const int j = static_cast<int>(jf);
+      const bool nan_axis = isnan(jf);
+      const int j = nan_axis ? 0 : static_cast<int>(jf);
       // the cell in memory
       const int base = !kSingle && d == 0 ? tf::clamp_index(j - xb, mx) : j;
       const float h = pd[d] - 0.5f;
@@ -101,8 +107,11 @@ __global__ void __launch_bounds__(tf::kThreads)
       f_own[d] = t_own - floorf(t_own);
       const float t_oth = tf::clamp_nan(h + 0.0f, 0.0f, top);
       const float i0 = floorf(t_oth);
-      o_oth[d] = static_cast<int>(i0 - jf);
-      f_oth[d] = t_oth - i0;
+      const float f = t_oth - i0;
+      o_oth[d] = nan_axis ? 0 : static_cast<int>(i0 - jf);
+      // the plain version's torch.where: a NaN offset matches no lane
+      w_oth[d][0] = nan_axis ? 0.0f : 1.0f - f;
+      w_oth[d][1] = nan_axis ? 0.0f : f;
 #pragma unroll
       for (int k = 0; k < 2; ++k) {
         own[d][k] = tf::clamp_index(base + k, ext[d]) * stride[d];
@@ -137,12 +146,12 @@ __global__ void __launch_bounds__(tf::kThreads)
         for (int k1 = 0; k1 <= 1; ++k1) {
           const int d1 = o_oth[a1] + k1;
           if (d1 < -1 || d1 > 1) continue;
-          const float w1 = k1 ? f_oth[a1] : 1.0f - f_oth[a1];
+          const float w1 = w_oth[a1][k1];
 #pragma unroll
           for (int k2 = 0; k2 <= 1; ++k2) {
             const int d2 = o_oth[a2] + k2;
             if (d2 < -1 || d2 > 1) continue;
-            const float w2 = k2 ? f_oth[a2] : 1.0f - f_oth[a2];
+            const float w2 = w_oth[a2][k2];
             acc = acc + ((wc * w1) * w2) * tap[c][dc * 4 + k1 * 2 + k2];
           }
         }
@@ -157,9 +166,9 @@ __global__ void __launch_bounds__(tf::kThreads)
       staged[3 * me + d] = moved[d];
     }
     if (kSingle && act) {
-      const long long ix = static_cast<long long>(truncf(moved[0] * det.res));
-      const long long iy = static_cast<long long>(truncf(moved[1] * det.res));
-      const long long iz = static_cast<long long>(truncf(moved[2] * det.res));
+      const long long ix = tf::to_index(truncf(moved[0] * det.res));
+      const long long iy = tf::to_index(truncf(moved[1] * det.res));
+      const long long iz = tf::to_index(truncf(moved[2] * det.res));
       if (ix >= 0 && ix < det.dx && iy >= 0 && iy < det.dy && iz >= 0 &&
           iz < det.dz) {
         occ[(ix * det.dy + iy) * det.dz + iz] = 1;

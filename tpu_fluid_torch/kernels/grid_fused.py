@@ -98,7 +98,7 @@ def _cell_indicator(shape, cell, device, xb: int = 0) -> torch.Tensor:
     ind = torch.zeros(shape, dtype=torch.float32, device=device)
     local = (cell[0] - xb,) + tuple(cell[1:])
     if all(0 <= i < n for i, n in zip(local, shape)):
-        ind[local] = 1.0
+        ind[local].fill_(1.0)     # no host scalar: capturable
     return ind
 
 

@@ -36,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from tpu_fluid_torch.kernels import build, on_cuda, require
+from tpu_fluid_torch.ops.indexing import float_to_index
 from tpu_fluid_torch.ops.packed_sampler import (_OTHER, _lane,
                                                 build_packed_table,
                                                 cell_index,
@@ -65,8 +66,10 @@ def sample_and_move_rows(rows: torch.Tensor, pos: torch.Tensor,
         a1, a2 = _OTHER[c]
 
         def axw(d, delta):
-            return ((os_[d] == delta) * (1.0 - fs[d])
-                    + (os_[d] == delta - 1) * fs[d])
+            # selects, as XLA makes of the TPU kernel's mask products: a
+            # NaN coordinate weighs 0 on its axis, so it moves no other
+            return (torch.where(os_[d] == delta, 1.0 - fs[d], 0.0)
+                    + torch.where(os_[d] == delta - 1, fs[d], 0.0))
 
         acc = torch.zeros_like(pos[:, 0])
         for dc in (0, 1):
@@ -95,18 +98,19 @@ def scatter_occupancy(positions: torch.Tensor, active: torch.Tensor,
     detailed cells a sim cell along each axis.  The pipeline only ever
     consumes density > 0 (stage 02's water test, stage 16's filled and
     neighbour tests), so one scatter of the constant 1 serves both of the
-    reference's histograms.  Indices truncate toward zero; inactive and
+    reference's histograms.  Indices truncate toward zero and convert as
+    XLA converts (`ops/indexing.float_to_index`: a NaN to 0); inactive and
     out-of-grid particles are routed to a dropped slot (never clamped), and
     duplicates all write 1, so the scatter is deterministic."""
     dx, dy, dz = detailed_size
-    idx = torch.trunc(positions * float(res)).to(torch.int64)
+    idx = float_to_index(torch.trunc(positions * float(res)))
     x, y, z = idx[:, 0], idx[:, 1], idx[:, 2]
     inb = ((x >= 0) & (x < dx) & (y >= 0) & (y < dy) & (z >= 0) & (z < dz)
            & active)
     n = dx * dy * dz
     flat = torch.where(inb, x * (dy * dz) + y * dz + z, n)
     occ = torch.zeros(n + 1, dtype=torch.uint8, device=positions.device)
-    occ[flat] = 1
+    occ.index_fill_(0, flat, 1)   # no host scalar: capturable
     return occ[:n].reshape(dx, dy, dz)
 
 

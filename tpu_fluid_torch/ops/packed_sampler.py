@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from tpu_fluid_torch.ops.indexing import float_to_index
+
 LANES = 64
 _OTHER = {0: (1, 2), 1: (0, 2), 2: (0, 1)}
 
@@ -57,8 +59,10 @@ def build_packed_table(vel: torch.Tensor) -> torch.Tensor:
 
 
 def cell_index(pos: torch.Tensor, grid_size) -> torch.Tensor:
-    """(P, 3) int64 cell of each position: floor, clipped to the grid."""
-    j = torch.floor(pos).to(torch.int64)
+    """(P, 3) int64 cell of each position: floor, converted as XLA
+    converts (a NaN to 0, an infinity to the type's bound), then clipped to
+    the grid."""
+    j = float_to_index(torch.floor(pos))
     return torch.stack([torch.clamp(j[:, d], 0, grid_size[d] - 1)
                         for d in range(3)], dim=-1)
 
@@ -85,16 +89,16 @@ def apply_packed_rows(rows: torch.Tensor, grid_size,
     The 18 lanes of a component are summed with `torch.sum`, whose order is
     its own; the particle kernel's plain version accumulates lane by lane
     instead."""
-    shape = torch.tensor(grid_size, dtype=pos.dtype, device=pos.device)
+    top = [float(g) - 1.0 for g in grid_size]
     jf = cell_index(pos, grid_size).to(pos.dtype)
-    deltas = torch.tensor([-1.0, 0.0, 1.0], dtype=pos.dtype,
-                          device=pos.device)
+    deltas = torch.arange(-1.0, 2.0, dtype=pos.dtype, device=pos.device)
     out = []
     for c in range(3):
         a1, a2 = _OTHER[c]
-        half = torch.tensor([0.5 if d == c else 0.0 for d in range(3)],
-                            dtype=pos.dtype, device=pos.device)
-        t = torch.minimum(torch.clamp(pos - 0.5 + half, min=0.0), shape - 1)
+        t = torch.stack([torch.clamp(pos[:, d] - 0.5 + (0.5 if d == c
+                                                        else 0.0),
+                                     0.0, top[d]) for d in range(3)],
+                        dim=-1)
         i0 = torch.floor(t)
         f = t - i0
         o = i0 - jf
@@ -103,8 +107,12 @@ def apply_packed_rows(rows: torch.Tensor, grid_size,
         def axis_w(d):
             od = o[:, d]
             fd = f[:, d]
-            lo = (od[:, None] == deltas[None, :]) * (1.0 - fd[:, None])
-            hi = ((od + 1.0)[:, None] == deltas[None, :]) * fd[:, None]
+            # a select, as XLA makes of JAX's mask product: a NaN offset
+            # weighs 0
+            lo = torch.where(od[:, None] == deltas[None, :],
+                             1.0 - fd[:, None], 0.0)
+            hi = torch.where((od + 1.0)[:, None] == deltas[None, :],
+                             fd[:, None], 0.0)
             return lo + hi                                       # (P, 3)
 
         w = (wc[:, :, None, None] * axis_w(a1)[:, None, :, None]

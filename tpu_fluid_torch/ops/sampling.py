@@ -47,7 +47,7 @@ def velocity_component_at(vel: torch.Tensor, pos: torch.Tensor,
     """Sample staggered component `comp` of `vel` (3,X,Y,Z) at world
     positions `pos` (...,3): texel coords = pos - 0.5 + 0.5*e_comp."""
     half = torch.zeros(3, dtype=pos.dtype, device=pos.device)
-    half[comp] = 0.5
+    half[comp].fill_(0.5)         # no host scalar: capturable
     return trilinear(vel[comp], pos - 0.5 + half)
 
 

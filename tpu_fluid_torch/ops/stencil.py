@@ -49,8 +49,10 @@ def axis_nonzero(shape, c: int, device=None) -> torch.Tensor:
 def div_scalar(a: torch.Tensor, b: float) -> torch.Tensor:
     """a / b with IEEE division on every device.  PyTorch's CUDA division
     by a Python number multiplies by its reciprocal instead, which can
-    differ in the last bit from the JAX package and from the kernels."""
-    return a / torch.tensor(b, dtype=a.dtype, device=a.device)
+    differ in the last bit from the JAX package and from the kernels.  The
+    divisor is filled in on the device, never copied from the host, so the
+    division can be captured in a CUDA graph."""
+    return a / torch.full((), b, dtype=a.dtype, device=a.device)
 
 
 def neighbor_sum(a: torch.Tensor, fill=0, moves=MOVES) -> torch.Tensor:

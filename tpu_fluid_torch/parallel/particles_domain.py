@@ -31,7 +31,10 @@ and `migrate` keeps JAX's slot order bitwise (the same stable category
 sort and the same placement).  JAX's out-of-bounds modes are explicit
 here: torch indexing raises (CPU) or asserts (CUDA) where JAX's fills, so
 every gather is in bounds by construction and each drop-mode scatter
-writes into one spare row that is then cut off.
+writes into one spare row that is then cut off.  Coordinates convert to
+cells as XLA converts them (`ops/indexing.float_to_index`), so a NaN or
+infinite position goes where JAX sends it; `domain_shard_state` takes
+its census with JAX's numpy code on the host.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from tpu_fluid_torch.core.state import FluidState
 from tpu_fluid_torch.kernels import kernel_choice
 from tpu_fluid_torch.kernels.particle_move import (particle_move_local_cuda,
                                                    particle_move_local_plain)
+from tpu_fluid_torch.ops.indexing import float_to_index
 from tpu_fluid_torch.parallel.halo import halo_planes, ppermute_neighbours
 from tpu_fluid_torch.parallel.mesh import Mesh, shard_state
 
@@ -76,8 +80,11 @@ def domain_shard_state(state: FluidState, rank: int, n: int,
         raise ValueError(f"grid x size {gx} must divide the mesh ({n})")
     lx = gx // n
     pos, act = state.positions, state.active
-    owner = torch.clamp(torch.floor(pos[:, 0]).to(torch.int64), 0,
-                        gx - 1) // lx
+    # JAX's numpy census on the host, so that a non-finite x converts as
+    # there whatever the device
+    owner = torch.from_numpy(np.clip(np.floor(
+        pos[:, 0].cpu().numpy()).astype(np.int64), 0, gx - 1) // lx
+    ).to(pos.device)
     census = torch.bincount(owner[act], minlength=n).cpu().numpy()
     slots = domain_slots(cfg, n, census)
     if census.max(initial=0) > slots:
@@ -137,7 +144,7 @@ def migrate(positions: torch.Tensor, active: torch.Tensor, x0: int, lx: int,
                                               device=positions.device)
     cap = positions.shape[0]
     dev = positions.device
-    cx = torch.floor(positions[:, 0]).to(torch.int32)
+    cx = float_to_index(torch.floor(positions[:, 0]), torch.int32)
     go_l = active & (cx < x0)
     go_r = active & (cx >= x0 + lx)
     keep = active & ~go_l & ~go_r
@@ -192,8 +199,8 @@ def detailed_occupancy_local(positions: torch.Tensor, active: torch.Tensor,
     x-slab [x0_det, x0_det + lx_det): every owned particle's detailed cell
     is local, and particles outside the slab are not scattered."""
     dy, dz = cfg.detailed_size[1], cfg.detailed_size[2]
-    idx = torch.trunc(positions * float(cfg.surface_render_resolution)
-                      ).to(torch.int64)
+    idx = float_to_index(torch.trunc(
+        positions * float(cfg.surface_render_resolution)))
     x = idx[:, 0] - x0_det
     y, z = idx[:, 1], idx[:, 2]
     inb = ((x >= 0) & (x < lx_det) & (y >= 0) & (y < dy) & (z >= 0)
@@ -211,7 +218,7 @@ def cell_histogram_local(positions: torch.Tensor, active: torch.Tensor,
     (`ops/scatter.particle_cell_histogram` restricted to it), int32, with
     no collective: exact under the domain layout."""
     gy, gz = grid_size[1], grid_size[2]
-    idx = torch.trunc(positions).to(torch.int64)
+    idx = float_to_index(torch.trunc(positions))
     x = idx[:, 0] - x0
     y, z = idx[:, 1], idx[:, 2]
     inb = ((x >= 0) & (x < lx) & (y >= 0) & (y < gy) & (z >= 0) & (z < gz)

@@ -19,6 +19,15 @@ from tpu_fluid_torch.stages import surface_fields
 from tpu_fluid_torch.stages import velocity as vstages
 
 
+def check_ported(cfg: FluidConfig, scene=None) -> None:
+    """Raise NotImplementedError for what the step does not run yet: scene
+    fields and volume correction."""
+    if scene is not None:
+        raise NotImplementedError("scene fields are not ported")
+    if cfg.volume_correction > 0.0:
+        raise NotImplementedError("volume_correction is not ported")
+
+
 def simulation_step(state: FluidState, cfg: FluidConfig,
                     scene=None) -> FluidState:
     """One frame, stage order exactly as the reference's step section list:
@@ -28,10 +37,7 @@ def simulation_step(state: FluidState, cfg: FluidConfig,
       11 divergence -> 12 Jacobi xN -> 13 project -> 14 move particles ->
       15 detail histogram -> 16 inertia -> 17 signed field -> 18 blur xM
     """
-    if scene is not None:
-        raise NotImplementedError("scene fields are not ported")
-    if cfg.volume_correction > 0.0:
-        raise NotImplementedError("volume_correction is not ported")
+    check_ported(cfg, scene)
     device = state.velocity.device
     fuse_grid = fuse_grid_choice(cfg, device, scene)
     if fuse_grid and kernel_choice(cfg, device):
@@ -116,6 +122,6 @@ def simulation_step(state: FluidState, cfg: FluidConfig,
 
 @torch.no_grad()
 def step(state: FluidState, cfg: FluidConfig, scene=None) -> FluidState:
-    """One eager step with autograd off: the counterpart of the JAX
-    package's `jit_step`."""
+    """One eager step with autograd off.  `solver/graph.jit_step` replays
+    it as a CUDA graph, the counterpart of the JAX package's `jit_step`."""
     return simulation_step(state, cfg, scene)

@@ -78,8 +78,9 @@ def advect_gather(types: torch.Tensor, vel: torch.Tensor,
     out = []
     for c in range(3):
         cond = advect_condition(types, c)
-        fmove = torch.tensor([0.5 if k != c else 0.0 for k in range(3)],
-                             dtype=vel.dtype, device=dev)
+        # made on the device (a host tensor cannot be captured in a graph)
+        fmove = torch.full((3,), 0.5, dtype=vel.dtype, device=dev)
+        fmove[c].fill_(0.0)
         pos = base + fmove
         back = pos - velocity_at(vel, pos) * cfg.dt
         sampled = velocity_component_at(vel, back, c)
@@ -132,14 +133,16 @@ def apply_forces(types: torch.Tensor, vel: torch.Tensor,
     ynz = axis_nonzero(types.shape, 1, types.device)
     force = torch.where(wet_face & ynz, cfg.gravity, 0.0).to(vel.dtype)
     fountain = torch.zeros(types.shape, dtype=torch.bool, device=vel.device)
-    fountain[cfg.fountain] = True
+    # fill_ on a view: an item assignment copies a host scalar, which a
+    # CUDA graph cannot capture
+    fountain[cfg.fountain].fill_(True)
     force = force + torch.where(fountain & wet_face, cfg.fountain_force,
                                 0.0).to(vel.dtype)
     out = vel.clone()
     out[1] = vel[1] + cfg.dt * force
     for cell, fvec in cfg.extra_forces:
         at = torch.zeros(types.shape, dtype=torch.bool, device=vel.device)
-        at[tuple(cell)] = True
+        at[tuple(cell)].fill_(True)
         for c in range(3):
             if fvec[c] == 0.0:
                 continue
@@ -170,8 +173,9 @@ def apply_solids(types: torch.Tensor, vel: torch.Tensor,
                  cfg: FluidConfig) -> torch.Tensor:
     """Stage 10: SOLID cells push every component out at least `repel`;
     a face whose lower neighbour in dim c is SOLID gets at least +repel."""
-    r = torch.tensor(cfg.solid_repel_velocity, dtype=vel.dtype,
-                     device=vel.device)
+    # a Python number: compared and selected in f32 as a tensor would be,
+    # and nothing copied from the host inside the step
+    r = cfg.solid_repel_velocity
     solid = types == CellType.SOLID
     out = []
     for c in range(3):
