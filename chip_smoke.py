@@ -85,6 +85,31 @@ Phases, one line each (more for the parity and scene phases):
               hand-over, the copy each replay ends with.  Then
               tpu_fluid_torch.bench at 128^3 for 40 steps, whose JSON line
               it prints.
+ 11 physics   the options beyond the reference at the bench scene's width
+              (128^3, 1M particles): (a) volume_correction=1.0 every 4
+              steps toward a density of 4.0, (b) surface_method=
+              "levelset", (c) pressure_solver="redblack", (d) the
+              dam_break_obstacle(128) preset with scene fields (a solid
+              sphere and a vortex force).  Each: 5 eager steps with the
+              invariants (for (a) K2 called twice on the corrected steps
+              0 and 4, once on the others, with the volume solve's
+              launches); the same steps with pallas_mode="off" within the
+              step tolerances; 3 jit_step replays and a jit_multi_step of
+              3 against 3 eager steps, every field bitwise, from the state
+              after 2 steps (for (a) from the steps at phases 0 and 1 of
+              the cadence); every kernel of the path launched and no other
+              (the level set skips K5, the red-black solver K2); eager,
+              jit_step and jit_multi_step ms a step (medians of 8, CUDA
+              events; for (a) corrected and uncorrected steps apart) and
+              each capture's pool.  At (a) K2 on the volume solve's folded
+              inputs and K3+K4 on vel + drift against their plain
+              versions bitwise, and the correction's parts timed; at (b)
+              the plain level set against K5's stage.  Then
+              scaled_scene(64) with 250,000 particles on 4 ranks sharing
+              the card over gloo for 2 steps: (a)+(b)+(c) with (d)'s scene
+              fields under index sharding, and (a) under domain sharding;
+              each gathered state bitwise against the single-device steps
+              (domain: the active positions as sorted sets).
 The line before the last is a JSON object with the kernels' numbers (times
 and bounds at the large scene, the halo forms' and the local-slab form's at
 shard 1 of phases 8 and 9; library_ms is null: no single PyTorch call
@@ -732,10 +757,10 @@ def check_invariants(state, cfg, ymax0: float, label: str) -> float:
     return ymax
 
 
-def run_steps(state, cfg, n: int):
+def run_steps(state, cfg, n: int, scene=None):
     from tpu_fluid_torch import step
     for _ in range(n):
-        state = step(state, cfg)
+        state = step(state, cfg, scene)
     return state
 
 
@@ -1439,6 +1464,414 @@ def phase_graph(device, scenes, wrappers, fused_wrappers, card: str,
     return launches
 
 
+# ------------------------------------------------------------ 11: physics
+# the four options beyond the reference, at the bench scene's width
+PHYSICS_STEPS = 5
+PHYSICS_EVERY = 4
+PHYSICS_TIMED = 8
+VOLUME = dict(volume_correction=1.0, volume_correction_every=PHYSICS_EVERY,
+              volume_target_density=4.0)
+PHYSICS_SHARDED_GRID = 64
+PHYSICS_SHARDED_PARTICLES = 250_000
+# the kernels each configuration's single-device path must launch and
+# must not: the level set skips K5, the red-black solver K2
+PHYSICS_SKIPS = {"levelset": ("surface_fused_cuda",),
+                 "redblack": ("jacobi_sweeps_cuda",)}
+
+
+def physics_configs(bench_cfg):
+    """(name, config, with scene fields) of (a)-(d) at the bench scene's
+    grid: (a) volume correction every PHYSICS_EVERY steps toward a density
+    off the initial one, so that the drift is not zero; (b) the level
+    set; (c) the red-black solver; (d) the dam-break preset with a pillar,
+    plus scene fields."""
+    from tpu_fluid_torch import scenes
+    n = bench_cfg.grid_size[0]
+    return (("volume", bench_cfg.replace(**VOLUME), False),
+            ("levelset", bench_cfg.replace(surface_method="levelset"), False),
+            ("redblack", bench_cfg.replace(pressure_solver="redblack"),
+             False),
+            ("scene", scenes.dam_break_obstacle(
+                n, particle_count=bench_cfg.particle_count), True))
+
+
+def physics_scene(cfg, device):
+    """Scene fields on `cfg`'s grid: a solid sphere near the floor (+y is
+    down) where no particle starts, and a vortex force about the y axis
+    through the domain's centre."""
+    from tpu_fluid_torch import SceneFields, solid_sphere, vortex_force
+    n = cfg.grid_size[0]
+    return SceneFields(
+        solid_sphere(cfg, (0.75 * n, 0.8 * n, 0.3 * n), n / 12,
+                     device=device),
+        vortex_force(cfg, (n / 2, n / 2), n / 2, device=device))
+
+
+def graphed_ms(fn, reps: int = 10) -> float:
+    """Device milliseconds a call of fn(): `reps` calls captured in one
+    CUDA graph after a warm-up call on a side stream, one replay between
+    CUDA events, so no host dispatch is counted."""
+    current = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        fn()
+    current.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def timed_calls(fn, state, reps: int, n_steps: int,
+                warmup: int = 1) -> tuple:
+    """([(step number at the call, ms)] of `reps` calls state = fn(state),
+    each between two CUDA events and synchronized, after `warmup` untimed
+    calls; the last state).  The step is read once, before the first timed
+    call."""
+    for _ in range(warmup):
+        state = fn(state)
+    torch.cuda.synchronize()
+    at = int(state.step)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    calls = []
+    for _ in range(reps):
+        start.record()
+        state = fn(state)
+        end.record()
+        end.synchronize()
+        calls.append((at, start.elapsed_time(end)))
+        at += n_steps
+    return calls, state
+
+
+def physics_parity(device, cfg, state, label: str) -> dict:
+    """(a)'s kernels on their own inputs at this state: K2 on the volume
+    solve's folded inputs (boundary 0, volume_jacobi_iters sweeps) and
+    K3+K4 on the corrected move velocity, each bitwise against its plain
+    version; then the corrected step's parts timed apart: the histogram,
+    the volume potential (fold and K2), the drift."""
+    from tpu_fluid_torch.kernels.jacobi import (jacobi_sweeps_cuda,
+                                                jacobi_sweeps_plain)
+    from tpu_fluid_torch.kernels.particle_move import (
+        particle_move_cuda, particle_move_occupancy_plain)
+    from tpu_fluid_torch.ops.scatter import particle_cell_histogram
+    from tpu_fluid_torch.stages import volume
+    from tpu_fluid_torch.stages.pressure import jacobi_fold
+    types = state.cell_types
+    counts = particle_cell_histogram(state.positions, state.active,
+                                     cfg.grid_size)
+    _, q0, code, c2 = jacobi_fold(
+        types, volume.density_error(counts, types, cfg), cfg, 0.0)
+    k2 = run_case(f"{label} volume solve", jacobi_sweeps_cuda,
+                  jacobi_sweeps_plain, (q0, code, c2, cfg.volume_jacobi_iters),
+                  {}, 20)
+    move_vel = volume.corrected_move_velocity(
+        state.velocity, state.positions, state.active, types, cfg)
+    k34 = run_case(f"{label} vel + drift", particle_move_cuda,
+                   particle_move_occupancy_plain,
+                   (move_vel, state.positions, state.active, cfg.dt,
+                    cfg.surface_render_resolution), {}, 20)
+    parts = {
+        "histogram": graphed_ms(lambda: particle_cell_histogram(
+            state.positions, state.active, cfg.grid_size)),
+        "volume_potential": graphed_ms(lambda: volume.volume_potential(
+            counts, types, cfg)),
+        "density_drift": graphed_ms(lambda: volume.density_drift(
+            counts, types, cfg)),
+        "corrected_move_velocity": graphed_ms(
+            lambda: volume.corrected_move_velocity(
+                state.velocity, state.positions, state.active, types, cfg))}
+    print(f"[{label}] the correction's parts, device ms a call (10 calls "
+          f"in one CUDA graph): {parts}; K2 alone on the volume solve "
+          f"{k2['ms']!r}", flush=True)
+    return {"k2": k2, "k34": k34, "parts": parts}
+
+
+def levelset_parts(device, cfg, state, label: str) -> dict:
+    """(b)'s plain level set against K5's surface stage on the same types
+    and occupancy, ms a call."""
+    from tpu_fluid_torch.stages import surface_fields
+    from tpu_fluid_torch.surface.levelset import (chamfer_distance,
+                                                  levelset_field)
+    inertia_cfg = cfg.replace(surface_method="inertia")
+    types, occ = state.cell_types, state.detailed_occ
+    parts = {
+        "chamfer_distance": graphed_ms(lambda: chamfer_distance(
+            occ, cfg.levelset_sweeps_value), reps=3),
+        "levelset_field": graphed_ms(lambda: levelset_field(types, occ, cfg),
+                                     reps=3),
+        "K5 stage (update_surface_fields)": graphed_ms(
+            lambda: surface_fields.update_surface_fields(
+                types, occ, state.inertia, state.float_dens_2,
+                inertia_cfg))}
+    print(f"[{label}] the level set against K5's stage at detailed grid "
+          f"{cfg.detailed_size}, {cfg.levelset_sweeps_value} chamfer sweeps "
+          f"and {cfg.levelset_smooth} smoothing passes, device ms a call "
+          f"(calls in one CUDA graph): {parts}", flush=True)
+    return parts
+
+
+def physics_case(device, name, cfg, with_scene, wrappers, card) -> dict:
+    """Phase 11 at one configuration: PHYSICS_STEPS eager steps from the
+    initial state (invariants; for (a) K2's calls a step, two on the
+    corrected steps 0 and 4), the same steps with pallas_mode="off",
+    jit_step and jit_multi_step against the eager steps bitwise (from the
+    state after 2 steps, and for (a) from the states at phases 0 and 1 of
+    the cadence), the kernels launched, and eager and graphed ms a step."""
+    from statistics import median
+
+    from tpu_fluid_torch import initial_state, jit_multi_step, jit_step, step
+    from tpu_fluid_torch.kernels import jacobi
+    from tpu_fluid_torch.kernels.jacobi import jacobi_sweeps_cuda
+    from tpu_fluid_torch.solver import graph
+    label = f"11 physics {name}"
+    scene = physics_scene(cfg, device) if with_scene else None
+    state = initial_state(cfg, device)
+    init = clone_state(state)
+    ymax0 = float(active_positions(state)[:, 1].max())
+    reset_launches(wrappers)
+    states, k2_calls, k2_device = [], [], []
+    for _ in range(PHYSICS_STEPS):
+        calls, dev = jacobi_sweeps_cuda.launches, jacobi.device_launches()
+        state = step(state, cfg, scene)
+        torch.cuda.synchronize()
+        k2_calls.append(jacobi_sweeps_cuda.launches - calls)
+        k2_device.append(jacobi.device_launches() - dev)
+        states.append(state)
+    launches = read_launches(wrappers)
+    check_invariants(state, cfg, ymax0, label)
+    print(f"[{label}] wrapper launches in {PHYSICS_STEPS} eager steps: "
+          f"{launches}; K2 calls a step {k2_calls}, K2 kernel launches a "
+          f"step {k2_device}", flush=True)
+    skips = PHYSICS_SKIPS.get(name, ())
+    check(all((v == 0) == (k in skips) for k, v in launches.items()),
+          f"{label}: the path's kernels {launches}, expected none of "
+          f"{skips} and all others")
+    if name == "volume":
+        due = [k % PHYSICS_EVERY == 0 for k in range(PHYSICS_STEPS)]
+        check(k2_calls == [2 if d else 1 for d in due],
+              f"{label}: K2 calls a step {k2_calls}, the cadence corrects "
+              f"steps {[k for k, d in enumerate(due) if d]}")
+        check(all(k2_device[k] > k2_device[1] for k in range(PHYSICS_STEPS)
+                  if due[k]), f"{label}: no volume-solve launches of K2 "
+                              f"on a corrected step: {k2_device}")
+    plain = run_steps(init, cfg.replace(pallas_mode="off"),
+                            PHYSICS_STEPS, scene)
+    compare_states(state, plain, f"{label} kernels vs off")
+    del plain, init
+
+    starts = ((3, 4) if name == "volume" else (1,))
+    reset_launches(wrappers)
+    first = len(graph.captures)
+    for i in starts:
+        s0 = states[i]
+        at = int(s0.step)
+        want = run_steps(s0, cfg, GRAPH_STEPS, scene)
+        s = s0
+        for _ in range(GRAPH_STEPS):
+            s = jit_step(s, cfg, scene)
+        multi = jit_multi_step(s0, cfg, GRAPH_STEPS, scene)
+        torch.cuda.synchronize()
+        for what, got in (("jit_step", s), ("jit_multi_step", multi)):
+            same = {f: same_bits(g, w) for f, g, w in zip(want._fields, got,
+                                                          want)}
+            print(f"[{label}] {what} from step {at} (phase "
+                  f"{at % PHYSICS_EVERY if name == 'volume' else '-'}) "
+                  f"against {GRAPH_STEPS} eager steps: bitwise "
+                  f"{all(same.values())} {same}", flush=True)
+            check(all(same.values()), f"{label}: {what} from step {at} "
+                                      f"differs from the eager steps")
+        del want, s, multi
+    graph_launches = read_launches(wrappers)
+    check(all((v == 0) == (k in skips) for k, v in graph_launches.items()),
+          f"{label}: the kernels captured {graph_launches}")
+    for cap in graph.captures[first:]:
+        print(f"[{label}] capture of {cap['n_steps']} step(s), phase "
+              f"{cap['phase']}: warm-up step {cap['warmup_s']!r} s, capture "
+              f"{cap['capture_s']!r} s, graph pool "
+              f"{cap['pool_bytes'] / 2 ** 20!r} MiB", flush=True)
+    pools = [cap["pool_bytes"] for cap in graph.captures[first:]]
+
+    s0 = states[1]
+    del states
+    # every graph of the cadence captured before the timed calls
+    warm = PHYSICS_EVERY if name == "volume" else 1
+    eager_calls, _ = timed_calls(lambda x: step(x, cfg, scene), s0,
+                                 PHYSICS_TIMED, 1)
+    graph_calls, _ = timed_calls(lambda x: jit_step(x, cfg, scene), s0,
+                                 PHYSICS_TIMED, 1, warm)
+    multi_calls, _ = timed_calls(
+        lambda x: jit_multi_step(x, cfg, GRAPH_STEPS, scene), s0,
+        PHYSICS_TIMED, GRAPH_STEPS, warm)
+    result = {"launches": launches, "graph_launches": graph_launches,
+              "k2_device": k2_device, "pool_bytes": pools,
+              "eager_ms": median(ms for _, ms in eager_calls),
+              "graph_ms": median(ms for _, ms in graph_calls),
+              "multi_ms": median(ms for _, ms in multi_calls) / GRAPH_STEPS}
+    extra = ""
+    if name == "volume":
+        for key, calls in (("eager", eager_calls), ("graph", graph_calls)):
+            for tag, want in (("corrected", True), ("uncorrected", False)):
+                ms = [t for at, t in calls
+                      if (at % PHYSICS_EVERY == 0) == want]
+                result[f"{key}_{tag}_ms"] = median(ms)
+        extra = (f"; corrected / uncorrected steps: eager "
+                 f"{result['eager_corrected_ms']!r} / "
+                 f"{result['eager_uncorrected_ms']!r}, jit_step "
+                 f"{result['graph_corrected_ms']!r} / "
+                 f"{result['graph_uncorrected_ms']!r}")
+    print(f"[{label}] ms a step, medians of {PHYSICS_TIMED} after a "
+          f"warm-up (CUDA events): eager {result['eager_ms']!r}, jit_step "
+          f"{result['graph_ms']!r}, jit_multi_step({GRAPH_STEPS}) "
+          f"{result['multi_ms']!r}{extra}; each eager {eager_calls!r}, each "
+          f"jit_step {graph_calls!r} on {card}", flush=True)
+    if name == "volume":
+        result.update(physics_parity(device, cfg, s0, label))
+    if name == "levelset":
+        result["levelset_parts"] = levelset_parts(device, cfg, s0, label)
+    del s0
+    graph.clear_graphs()
+    torch.cuda.empty_cache()
+    return result
+
+
+def physics_rank(rank, n, init_method, cfg, with_scene, device):
+    """One rank of phase 11's sharded runs: SHARDED_STEPS steps of its
+    slabs (and of its scene's); rank 0 also runs the single-device steps
+    and compares the gathered state (under domain sharding the active
+    positions as sorted sets).  All ranks share `device`."""
+    import torch.distributed as dist
+    from tpu_fluid_torch import initial_state
+    from tpu_fluid_torch.kernels import build
+    from tpu_fluid_torch.kernels.particle_move import particle_move_local_cuda
+    from tpu_fluid_torch.parallel import particles_domain
+    from tpu_fluid_torch.parallel.mesh import (gather_state, make_mesh,
+                                               shard_scene, shard_state)
+    from tpu_fluid_torch.parallel.spmd_step import spmd_multi_step
+    device = torch.device(device)
+    torch.cuda.set_device(device)
+    build.library()
+    mesh = make_mesh(n, rank, init_method, device=device, backend="gloo")
+    state0 = initial_state(cfg, device)
+    ymax0 = float(active_positions(state0)[:, 1].max())
+    scene = physics_scene(cfg, device) if with_scene else None
+    domain = cfg.particle_sharding == "domain"
+    local = (particles_domain.domain_shard_state(state0, rank, n, cfg)
+             if domain else shard_state(state0, rank, n))
+    if rank != 0:
+        del state0
+    wrappers = halo_wrappers() + (particle_move_local_cuda,)
+    run = spmd_multi_step(cfg, mesh, SHARDED_STEPS,
+                          shard_scene(scene, rank, n))
+    reset_launches(wrappers)
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    local = run(local)
+    torch.cuda.synchronize()
+    dist.barrier()
+    out = {"seconds": time.perf_counter() - t0,
+           "launches": read_launches(wrappers)}
+    full = gather_state(local, mesh)
+    if rank == 0:
+        check_invariants(full, cfg, ymax0, "11 physics sharded")
+        ref = run_steps(state0, cfg, SHARDED_STEPS, scene)
+        torch.cuda.synchronize()
+        names = GRID_FIELDS if domain else ref._fields
+        fields = {}
+        for name in names:
+            a, b = getattr(full, name), getattr(ref, name)
+            err = (max_abs_err(a, b) if a.dtype.is_floating_point
+                   and a.shape == b.shape else None)
+            fields[name] = (same_bits(a, b), err)
+        if domain:
+            a = sorted_rows(active_positions(full))
+            b = sorted_rows(active_positions(ref))
+            fields["active positions, sorted"] = (
+                a.shape == b.shape and np.array_equal(a, b),
+                float(np.abs(a - b).max()) if a.shape == b.shape else None)
+            fields["dropped"] = (int(full.dropped) == 0, None)
+        out["fields"] = fields
+    return out
+
+
+def phase_physics_sharded(label: str, cfg, with_scene, expect, card,
+                          device) -> dict:
+    """Phase 11's sharded run of `cfg` on SHARDS ranks sharing the card:
+    the gathered state against the single-device steps bitwise, and the
+    kernels of `expect` launched on every rank."""
+    from tpu_fluid_torch.parallel.launch import run_ranks
+    t0 = time.perf_counter()
+    ranks = run_ranks(physics_rank, SHARDS, cfg, with_scene, str(device),
+                      timeout=RANK_TIMEOUT)
+    wall = time.perf_counter() - t0
+    fields = ranks[0]["fields"]
+    for name, (same, err) in fields.items():
+        print(f"[{label}] {name}: bitwise={same} max_abs_err={err!r} "
+              f"(tolerance 0)", flush=True)
+    check(all(same for same, _ in fields.values()),
+          f"{label}: {SHARDED_STEPS} sharded steps differ from "
+          f"{SHARDED_STEPS} single-device steps: {fields}")
+    seconds = max(r["seconds"] for r in ranks)
+    print(f"[{label}] {SHARDS} ranks sharing one card over gloo "
+          f"(host-staged transport, not a figure for the port): "
+          f"{SHARDED_STEPS / seconds!r} steps/s at grid {cfg.grid_size} on "
+          f"{card}; phase wall {wall!r} s, rank start-up included",
+          flush=True)
+    launches = {}
+    for rank, r in enumerate(ranks):
+        print(f"[{label}] rank {rank} launches: {r['launches']}", flush=True)
+        check(all(r["launches"][k] > 0 for k in expect),
+              f"{label} rank {rank}: a kernel of {expect} never launched: "
+              f"{r['launches']}")
+        for name, count in r["launches"].items():
+            launches[name] = launches.get(name, 0) + count
+    return launches
+
+
+def phase_physics(device, bench_cfg, wrappers, card) -> dict:
+    """Phase 11: (a)-(d) at the bench scene's width (`physics_case`),
+    then the sharded runs at PHYSICS_SHARDED_GRID^3 with
+    PHYSICS_SHARDED_PARTICLES particles: (a)+(b)+(c) with (d)'s scene
+    fields under index sharding, and (a) under domain sharding.  Returns
+    the launches a wrapper made, by wrapper name."""
+    from tpu_fluid_torch import FluidConfig
+    results = {}
+    launches = {}
+    for name, cfg, with_scene in physics_configs(bench_cfg):
+        r = physics_case(device, name, cfg, with_scene, wrappers, card)
+        results[name] = r
+        for counted in (r["launches"], r["graph_launches"]):
+            for k, v in counted.items():
+                launches[k] = launches.get(k, 0) + v
+    small = FluidConfig.scaled_scene(
+        PHYSICS_SHARDED_GRID, particle_count=PHYSICS_SHARDED_PARTICLES)
+    together = small.replace(surface_method="levelset",
+                             pressure_solver="redblack", **VOLUME)
+    for key, count in phase_physics_sharded(
+            "11 physics sharded index (a)+(b)+(c)+(d)", together, True,
+            ("advect_all_halo_cuda", "particle_move_cuda"), card,
+            device).items():
+        launches[key] = launches.get(key, 0) + count
+    for key, count in phase_physics_sharded(
+            "11 physics sharded domain (a)",
+            small.replace(particle_sharding="domain", **VOLUME), False,
+            ("advect_all_halo_cuda", "jacobi_pass_cuda",
+             "surface_fused_halo_cuda", "particle_move_local_cuda"), card,
+            device).items():
+        launches[key] = launches.get(key, 0) + count
+    results["launches"] = launches
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1616,6 +2049,17 @@ def main() -> int:
                                  wrappers, fused_wrappers, card, smi)
     for name, count in graph_launches.items():
         launches[name] += count
+
+    # 11: volume correction, the level set, the red-black solver and
+    # scene fields at the bench scene's width, then sharded
+    physics = phase_physics(device, bench_cfg, wrappers, card)
+    for name, count in physics["launches"].items():
+        if name in launches:
+            launches[name] += count
+        elif name == "particle_move_local_cuda":
+            domain_launches[name] += count
+        else:
+            sharded_launches[name] = sharded_launches.get(name, 0) + count
 
     def entry(name, source, replaces, n, results, key):
         r = results[key]

@@ -10,12 +10,13 @@ import pytest
 import torch
 
 from test_torch_step import CFG, KW, assert_states_close, jax_numpy
+from tpu_fluid.core import scene_fields as jscene
 from tpu_fluid.core.config import FluidConfig as JaxConfig
 from tpu_fluid.core.state import initial_state as jax_initial_state
 from tpu_fluid.solver.step import jit_multi_step as jax_jit_multi_step
 from tpu_fluid.solver.step import simulation_step as jax_step
-from tpu_fluid_torch import (initial_state, jit_multi_step, jit_step,
-                             step)
+from tpu_fluid_torch import (SceneFields, initial_state, jit_multi_step,
+                             jit_step, solid_sphere, step, vortex_force)
 from tpu_fluid_torch.core.state import state_from_numpy, state_to_numpy
 from tpu_fluid_torch.solver import graph
 
@@ -28,10 +29,33 @@ def assert_states_equal(got, want, label=""):
         assert torch.equal(g, w), (label, name)
 
 
-def eager(state, cfg, n):
+def eager(state, cfg, n, scene=None):
     for _ in range(n):
-        state = step(state, cfg)
+        state = step(state, cfg, scene)
     return state
+
+
+# the options beyond the reference: (a) volume correction every 2 steps,
+# (b) the level set, (c) the red-black solver, (d) scene fields
+VOLUME = dict(volume_correction=1.0, volume_correction_every=2,
+              volume_target_density=4.0)
+OPTIONS = {"volume": VOLUME, "levelset": dict(surface_method="levelset"),
+           "redblack": dict(pressure_solver="redblack"), "scene": {}}
+
+
+def option_scene(name, cfg, device="cpu", helpers=None):
+    """(d)'s SceneFields, the port's or, with `helpers` =
+    tpu_fluid.core.scene_fields, JAX's; None for the other options."""
+    if name != "scene":
+        return None
+    n = cfg.grid_size[0]
+    sphere, vortex = ((n // 2, 3 * n // 4, n // 2), n / 6), \
+        ((n / 2, n / 2), 30.0)
+    if helpers is None:
+        return SceneFields(solid_sphere(cfg, *sphere, device=device),
+                           vortex_force(cfg, *vortex, device=device))
+    return helpers.SceneFields(helpers.solid_sphere(cfg, *sphere),
+                               helpers.vortex_force(cfg, *vortex))
 
 
 def test_jit_multi_step_on_cpu_equals_eager_steps():
@@ -56,6 +80,25 @@ def test_jit_multi_step_matches_jax_on_a_carried_state():
     assert int(got["step"]) == 5
 
 
+@pytest.mark.parametrize("name", list(OPTIONS))
+def test_jit_multi_step_with_options_matches_jax(name):
+    """(a)-(d) on a state carried from JAX after two steps, three more on
+    each side through `jit_multi_step` (JAX's XLA stages); for (a) the
+    carried step 2 is corrected, 3 not, 4 again."""
+    jcfg = JaxConfig(**KW).replace(pallas_mode="off", **OPTIONS[name])
+    cfg = CFG.replace(**OPTIONS[name])
+    jscene_ = option_scene(name, jcfg, helpers=jscene)
+    jstep = jax.jit(jax_step, static_argnums=1)
+    jstate = jax_initial_state(jcfg)
+    for _ in range(2):
+        jstate = jstep(jstate, jcfg, jscene_)
+    state = state_from_numpy(jax_numpy(jstate), device="cpu")
+    want = jax_numpy(jax_jit_multi_step(jstate, jcfg, 3, jscene_))
+    got = state_to_numpy(jit_multi_step(state, cfg, 3,
+                                        option_scene(name, cfg)))
+    assert_states_close(got, want, name)
+
+
 def test_cpu_state_is_left_as_it_was():
     state = initial_state(CFG, device="cpu")
     before = tuple(t.clone() for t in state)
@@ -66,11 +109,9 @@ def test_cpu_state_is_left_as_it_was():
 
 
 @pytest.mark.parametrize("call", [
-    lambda s: jit_multi_step(s, CFG, 0),
-    lambda s: jit_step(s, CFG, scene=object()),
-    lambda s: jit_step(s, CFG.replace(volume_correction=0.5))])
+    lambda s: jit_multi_step(s, CFG, 0)])
 def test_bad_calls_raise(call):
-    with pytest.raises((ValueError, NotImplementedError)):
+    with pytest.raises(ValueError):
         call(initial_state(CFG, device="cpu"))
 
 
@@ -140,3 +181,42 @@ def test_cuda_state_passed_in_is_consumed(cuda_device):
     assert s2.velocity.data_ptr() == s1.velocity.data_ptr()
     assert int(s1.step) == 2 and int(s1_before.step) == 1
     assert_states_equal(s2, step(s1_before, cfg), "second replay")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(OPTIONS))
+def test_cuda_options_replay_equal_eager_steps_bitwise(cuda_device, name):
+    """(a)-(d) captured: 3 jit_step replays and one jit_multi_step of 3
+    from the state after 2 eager steps equal 3 eager steps bitwise."""
+    cfg = CARD_CFGS["16"].replace(**OPTIONS[name])
+    scene = option_scene(name, cfg, cuda_device)
+    state0 = eager(initial_state(cfg, cuda_device), cfg, 2, scene)
+    want = eager(state0, cfg, 3, scene)
+    s = state0
+    for _ in range(3):
+        s = jit_step(s, cfg, scene)
+    assert_states_equal(s, want, "jit_step")
+    assert_states_equal(jit_multi_step(state0, cfg, 3, scene), want,
+                        "multi")
+
+
+@pytest.mark.cuda
+def test_cuda_volume_cadence_across_replays(cuda_device):
+    """every = 2: the phase-0 graph corrects and the phase-1 graph does
+    not, one graph a phase, and the step of a graph's own buffers is
+    known without reading it back."""
+    cfg = CARD_CFGS["16"].replace(**VOLUME)
+    always = cfg.replace(volume_correction_every=1)
+    never = cfg.replace(volume_correction=0.0)
+    n0 = len(graph.captures)
+    s0 = initial_state(cfg, cuda_device)
+    s1 = jit_step(s0, cfg)
+    assert_states_equal(s1, step(s0, always), "phase 0")
+    keep1 = cloned(s1)
+    s2 = jit_step(s1, cfg)
+    assert_states_equal(s2, step(keep1, never), "phase 1")
+    assert not torch.equal(s2.positions, step(keep1, always).positions)
+    keep2 = cloned(s2)
+    s3 = jit_step(s2, cfg)
+    assert_states_equal(s3, step(keep2, always), "phase 0 again")
+    assert [c["phase"] for c in graph.captures[n0:]] == [0, 1]

@@ -286,11 +286,11 @@ def test_pressure_project():
          jpressure.pressure_project(J(types), J(p), J(vel), JCFG))
 
 
-@pytest.mark.parametrize("solver", ["redblack", "multigrid"])
+@pytest.mark.parametrize("solver", ["multigrid"])
 def test_other_pressure_solvers_raise(solver):
     _, tcfg = configs(pressure_solver=solver)
     types = torch.from_numpy(random_types(rng(19)))
-    with pytest.raises((NotImplementedError, ValueError)):
+    with pytest.raises(ValueError):
         tpressure.jacobi_solve(types, torch.zeros(N, N, N), tcfg)
 
 
@@ -370,13 +370,3 @@ def test_update_surface_fields(steps):
     same(got[0], fused[0])
     pick = tsurface.surface_field(got[1], got[2], tcfg)
     assert pick is (got[2] if steps % 2 else got[1])
-
-
-def test_levelset_raises():
-    _, tcfg = configs(surface_method="levelset")
-    d = TCFG.detailed_size
-    with pytest.raises(NotImplementedError):
-        tsurface.update_surface_fields(
-            torch.zeros((N, N, N), dtype=torch.uint8),
-            torch.zeros(d, dtype=torch.uint8),
-            torch.zeros(d, dtype=torch.uint8), torch.zeros(d), tcfg)

@@ -60,6 +60,10 @@ SCENARIOS = {
     "off": dict(pallas_mode="off"),
     # every kernel's plain version, the fused grid groups (K6) included
     "interpret": dict(pallas_mode="interpret", grid_fused=True),
+    # volume correction at steps 0 and 2: the slab's own particle counts,
+    # the sharded volume solve and the drift's halo plane
+    "volume": dict(pallas_mode="off", volume_correction=1.0,
+                   volume_correction_every=2, volume_target_density=4.0),
 }
 MIGRATE_CASES = ("exchange", "send_overflow", "slot_exhaustion",
                  "multi_slab", "tight", "random", "non_finite")

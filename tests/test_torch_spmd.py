@@ -17,12 +17,14 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec as P
 
+from tpu_fluid.core import scene_fields as jscene
 from tpu_fluid.core.config import FluidConfig as JaxConfig
 from tpu_fluid.core.state import initial_state as jax_initial_state
 from tpu_fluid.kernels.jacobi import jacobi_sweeps_sharded
 from tpu_fluid.parallel.mesh import make_mesh as jax_make_mesh
 from tpu_fluid.solver.step import simulation_step as jax_step
-from tpu_fluid_torch import FluidConfig, initial_state, step
+from tpu_fluid_torch import (FluidConfig, SceneFields, initial_state,
+                             solid_sphere, step, vortex_force)
 from tpu_fluid_torch.core.state import state_to_numpy
 from tpu_fluid_torch.kernels.jacobi import (jacobi_sweeps_plain,
                                             jacobi_sweeps_sharded_cuda,
@@ -33,7 +35,7 @@ from tpu_fluid_torch.parallel.halo import (all_gather_x, exchange_x_halo,
                                            psum_scatter_x)
 from tpu_fluid_torch.parallel.launch import run_ranks
 from tpu_fluid_torch.parallel.mesh import (gather_state, make_mesh,
-                                           shard_state)
+                                           shard_scene, shard_state)
 from tpu_fluid_torch.parallel.spmd_step import (spmd_multi_step, spmd_step,
                                                 validate_spmd_config)
 from tpu_fluid_torch.stages.pressure import jacobi_fold, jacobi_solve
@@ -69,13 +71,43 @@ SCENARIOS = {
     # of 2 shards, not the 16-row slab of 4, which takes the per-pass path
     "long_blur": dict(pallas_mode="interpret",
                       float_density_diffuse_steps=16),
+    # the options beyond the reference together, with scene fields (a
+    # solid sphere and a vortex force across the shard borders): volume
+    # correction at steps 0 and 2 through the red-black solver, the level
+    # set on a block with its band's halo
+    "physics": dict(pallas_mode="off", volume_correction=1.0,
+                    volume_correction_every=2, volume_target_density=4.0,
+                    surface_method="levelset", pressure_solver="redblack"),
+    # volume correction through the folded Jacobi sweeps: index-sharded
+    # counts summed onto the slabs
+    "volume": dict(pallas_mode="interpret", volume_correction=1.0,
+                   volume_correction_every=2, volume_target_density=4.0),
+    # a band of 20 + 2 detailed cells, ht = 11 sim planes: the halo route
+    # on the 16-row slabs of 2 shards, the gathered route on the 8-row
+    # slabs of 4
+    "levelset_wide": dict(pallas_mode="off", surface_method="levelset",
+                          levelset_sweeps=20),
 }
+WITH_SCENE = ("physics",)
+SPHERE, VORTEX = ((16, 13, 8), 2.5), ((16, 8), 40.0)
 JACOBI_SHAPE, JACOBI_ITERS, JACOBI_KS = (16, 8, 8), 11, (1, 3, None)
 JACOBI_CFG = FluidConfig(grid_size=JACOBI_SHAPE, jacobi_iters=25)
 
 
 def cfg_of(name, package=FluidConfig):
     return package(**BASE, **SCENARIOS[name])
+
+
+def scene_of(name, cfg, helpers=None):
+    """The scenario's SceneFields (the port's, or JAX's with `helpers` =
+    tpu_fluid.core.scene_fields), else None."""
+    if name not in WITH_SCENE:
+        return None
+    if helpers is None:
+        return SceneFields(solid_sphere(cfg, *SPHERE, device="cpu"),
+                           vortex_force(cfg, *VORTEX, device="cpu"))
+    return helpers.SceneFields(helpers.solid_sphere(cfg, *SPHERE),
+                               helpers.vortex_force(cfg, *VORTEX))
 
 
 def jacobi_scene():
@@ -102,7 +134,8 @@ def _rank(rank, n, init_method):
     for name in SCENARIOS:
         cfg = cfg_of(name)
         local = shard_state(initial_state(cfg, device="cpu"), rank, n)
-        local = spmd_multi_step(cfg, mesh, STEPS)(local)
+        scene = shard_scene(scene_of(name, cfg), rank, n)
+        local = spmd_multi_step(cfg, mesh, STEPS, scene)(local)
         full = gather_state(local, mesh)
         out[name] = state_to_numpy(full) if rank == 0 else None
     q0, code, c2 = jacobi_inputs()
@@ -151,7 +184,7 @@ def single():
         cfg = cfg_of(name)
         state = initial_state(cfg, device="cpu")
         for _ in range(STEPS):
-            state = step(state, cfg)
+            state = step(state, cfg, scene_of(name, cfg))
         out[name] = state_to_numpy(state)
     return out
 
@@ -187,15 +220,16 @@ def jax_single():
             jcfg = cfg_of(name, JaxConfig)
             jstate = jax_initial_state(jcfg)
             jstep = jax.jit(jax_step, static_argnums=1)
+            scene = scene_of(name, jcfg, jscene)
             for _ in range(STEPS):
-                jstate = jstep(jstate, jcfg)
+                jstate = jstep(jstate, jcfg, scene)
             out[name] = {k: np.asarray(v) for k, v in
                          jstate._asdict().items()}
         return out[name]
     return get
 
 
-@pytest.mark.parametrize("name", ["off", "obstacles"])
+@pytest.mark.parametrize("name", ["off", "obstacles", "physics"])
 def test_sharded_steps_match_jax_single_device(sharded, jax_single, name):
     got = scenario_state(sharded, name)
     for field, w in jax_single(name).items():
@@ -294,6 +328,21 @@ def test_one_shard_without_spawning_equals_single_device(single):
                    single["fused"], "n=1")
 
 
+@pytest.mark.parametrize("name", ["obstacles", "physics"])
+def test_one_shard_through_the_kernel_wrappers(single, monkeypatch, name):
+    """The unfused stages with every kernel wrapper in place of the plain
+    calls: on CPU tensors each wrapper checks its inputs (dtype, shape,
+    contiguity) as on the card, then runs its plain version."""
+    from tpu_fluid_torch.parallel import spmd_step as spmd_module
+    monkeypatch.setattr(spmd_module, "kernel_choice", lambda cfg, dev: True)
+    cfg = cfg_of(name)
+    mesh = make_mesh(1, device="cpu")
+    state = spmd_multi_step(cfg, mesh, STEPS, scene_of(name, cfg))(
+        shard_state(initial_state(cfg, device="cpu"), 0, 1))
+    assert_bitwise(state_to_numpy(gather_state(state, mesh)), single[name],
+                   f"n=1 wrappers {name}")
+
+
 def test_validate_spmd_config_rejections():
     cfg = cfg_of("off")
     with pytest.raises(ValueError):
@@ -309,16 +358,6 @@ def test_validate_spmd_config_rejections():
         validate_spmd_config(cfg.replace(particle_sharding="rows"), 2)
     # slots are sized per shard, so the count need not divide the mesh
     validate_spmd_config(domain.replace(particle_count=4097), 8)
-    for change in (dict(volume_correction=0.5),
-                   dict(surface_method="levelset")):
-        with pytest.raises(NotImplementedError):
-            validate_spmd_config(cfg.replace(**change), 2)
-    with pytest.raises(NotImplementedError):
-        spmd_step(cfg, make_mesh(1, device="cpu"), scene=object())
-    bad = cfg.replace(pressure_solver="redblack")
-    with pytest.raises(NotImplementedError):
-        spmd_step(bad, make_mesh(1, device="cpu"))(
-            initial_state(bad, device="cpu"))
 
 
 def test_make_mesh_rejections():

@@ -214,17 +214,3 @@ def test_sim_only_mode():
     assert bool((state.cell_types == CellType.WATER).any())
     pos = state.positions[state.active]
     assert float(pos.min()) > 0 and float(pos.max()) < 12
-
-
-@pytest.mark.parametrize("change", [dict(volume_correction=0.5),
-                                    dict(surface_method="levelset"),
-                                    dict(pressure_solver="redblack")])
-def test_unported_options_raise(change):
-    cfg = CFG.replace(**change)
-    with pytest.raises(NotImplementedError):
-        step(initial_state(cfg, device="cpu"), cfg)
-
-
-def test_scene_fields_raise():
-    with pytest.raises(NotImplementedError):
-        step(initial_state(CFG, device="cpu"), CFG, scene=object())

@@ -72,7 +72,7 @@ class FluidConfig:
     float_density_diffuse_steps: int = 4
     surface_enabled: bool = True
 
-    # --- beyond-reference physics (not ported yet: step raises) -------------
+    # --- beyond-reference physics (stages/volume.py, surface/levelset.py) ---
     volume_correction: float = 0.0
     volume_correction_every: int = 1
     volume_drift_max: float = 2.0
@@ -103,7 +103,7 @@ class FluidConfig:
     particle_sampler: str = "packed"      # "packed" | "gather"
     packed_pair_z: bool = True            # TPU table layout; no effect here
     pallas_mode: str = "auto"        # "auto" | "on" | "interpret" | "off"
-    pressure_solver: str = "jacobi"       # "jacobi" | "redblack" (not ported)
+    pressure_solver: str = "jacobi"       # "jacobi" | "redblack"
     grid_fused: bool = False              # fused grid kernels (K6)
     particle_sharding: str = "index"
     particle_slot_slack: float = 1.5

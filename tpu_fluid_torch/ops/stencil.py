@@ -6,6 +6,7 @@ robust-access zero of the reference shaders.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # Axis unit moves, same order as the reference's `moves[6]` tables and the
@@ -53,6 +54,14 @@ def div_scalar(a: torch.Tensor, b: float) -> torch.Tensor:
     divisor is filled in on the device, never copied from the host, so the
     division can be captured in a CUDA graph."""
     return a / torch.full((), b, dtype=a.dtype, device=a.device)
+
+
+def div_const(a: torch.Tensor, b: float) -> torch.Tensor:
+    """a / b as the JAX package's jitted programs compute a division by a
+    constant: XLA's algebraic simplifier turns it into a product with the
+    f32 reciprocal of b, which can differ from the quotient in the last
+    bit (`div_scalar` keeps the quotient)."""
+    return a * float(np.float32(1.0) / np.float32(b))
 
 
 def neighbor_sum(a: torch.Tensor, fill=0, moves=MOVES) -> torch.Tensor:

@@ -122,6 +122,19 @@ def shard_state(state: FluidState, rank: int, n_shards: int) -> FluidState:
     return FluidState(**parts)
 
 
+def shard_scene(scene, rank: int, n_shards: int):
+    """Shard `rank`'s part of a SceneFields: the x-slabs of its solid mask
+    and of its force field (dim 1), absent fields left absent."""
+    if scene is None:
+        return None
+    solid, force = scene
+    return type(scene)(
+        solid=None if solid is None
+        else solid.chunk(n_shards, dim=0)[rank].contiguous(),
+        force=None if force is None
+        else force.chunk(n_shards, dim=1)[rank].contiguous())
+
+
 def gather_state(local: FluidState, mesh: Mesh) -> FluidState:
     """The full state from every shard's part, on every rank."""
     from tpu_fluid_torch.parallel.halo import all_gather_x

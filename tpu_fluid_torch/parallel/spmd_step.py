@@ -23,6 +23,14 @@ Particles (stages 14-15) follow `cfg.particle_sharding`:
     the border crossers to the neighbours, and the occupancy is scattered
     onto the local detailed slab.  No all_gather and no psum_scatter run.
 
+The options beyond the reference run as in JAX's step: a scene's slabs
+(`mesh.shard_scene`) in stages 03 and 08; the volume drift from the
+slab's particle counts (index sharding: the whole grid's counts of each
+shard's particles, psum_scatter onto the slabs; domain sharding: the
+slab's own), by the sharded solve, added to the slab before any gather;
+the level set on a block with a halo of its band; the red-black solver
+with one plane exchanged a half-sweep.
+
 Every stage adds in the single-device order, so the gathered grid fields
 equal the single-device step's bitwise, and so do the particles: in slot
 order under index sharding, as a set under domain sharding
@@ -49,6 +57,7 @@ from tpu_fluid_torch.kernels import kernel_choice
 from tpu_fluid_torch.kernels import surface_fused as k5
 from tpu_fluid_torch.kernels.advect import (advect_all_halo_cuda,
                                             advect_from_types_halo_plain)
+from tpu_fluid_torch.ops.scatter import particle_cell_histogram
 from tpu_fluid_torch.ops.stencil import AXIS_MOVES, MOVES, neighbor_sum
 from tpu_fluid_torch.ops.stencil import shifted
 from tpu_fluid_torch.parallel.halo import (all_gather_x, halo_extend,
@@ -56,17 +65,21 @@ from tpu_fluid_torch.parallel.halo import (all_gather_x, halo_extend,
                                            psum_scatter_x)
 from tpu_fluid_torch.parallel.mesh import Mesh
 from tpu_fluid_torch.parallel.particles_domain import (
-    detailed_occupancy_local, migrate, migrate_capacity, move_particles_local)
+    cell_histogram_local, detailed_occupancy_local, migrate,
+    migrate_capacity, move_particles_local)
 from tpu_fluid_torch.stages import celltypes, particles, pressure
 from tpu_fluid_torch.stages import surface_fields
 from tpu_fluid_torch.stages import velocity as vstages
+from tpu_fluid_torch.stages.volume import density_drift, volume_due
+from tpu_fluid_torch.surface.levelset import levelset_field
 
 
 # --------------------------------------------------------------- cell types
 def _update_air_spmd(types: torch.Tensor, cfg: FluidConfig, x0: int,
-                     mesh: Mesh) -> torch.Tensor:
+                     mesh: Mesh, extra_solid=None) -> torch.Tensor:
     """Stage 03 on a local slab: the water-neighbour test reads one halo
-    plane; the SOLID rule (JAX's `_solid_mask_spmd`) is global."""
+    plane; the SOLID rule (JAX's `_solid_mask_spmd`) is global, and a
+    scene's solid slab adds its cells."""
     water = types == CellType.WATER
     we = halo_extend(water, 1, mesh)
     around = torch.zeros_like(we)
@@ -76,14 +89,17 @@ def _update_air_spmd(types: torch.Tensor, cfg: FluidConfig, x0: int,
     out = torch.where(air, torch.full_like(types, CellType.AIR), types)
     solid = celltypes.solid_mask(types.shape, cfg, types.device, x0,
                                  cfg.grid_size[0])
+    if extra_solid is not None:
+        solid = solid | (extra_solid != 0)
     return torch.where(solid, torch.full_like(types, CellType.SOLID), out)
 
 
 # ------------------------------------------------------------------- forces
 def _forces_spmd(types: torch.Tensor, vel: torch.Tensor, cfg: FluidConfig,
-                 x0: int, mesh: Mesh) -> torch.Tensor:
+                 x0: int, mesh: Mesh, force_field=None) -> torch.Tensor:
     """Stage 08 on a local slab (`stages/velocity.apply_forces`): the
-    fountain and force cells are global cells."""
+    fountain and force cells are global cells; a scene's force slab tests
+    the wetness of x faces on one halo plane."""
     lx, gy, gz = types.shape
     water = types == CellType.WATER
     wet_face = water | shifted(water, (0, -1, 0), fill=False)
@@ -100,17 +116,23 @@ def _forces_spmd(types: torch.Tensor, vel: torch.Tensor, cfg: FluidConfig,
                                 cfg.fountain_force, 0.0).to(vel.dtype)
     out = vel.clone()
     out[1] = vel[1] + cfg.dt * force
-    if cfg.extra_forces:
+    if cfg.extra_forces or force_field is not None:
         water_e = halo_extend(water, 1, mesh)
-        for cell, fvec in cfg.extra_forces:
-            at = cell_mask(cell)
-            for c in range(3):
-                if fvec[c] == 0.0:
-                    continue
-                mv = tuple(-1 if k == c else 0 for k in range(3))
-                wet_c = water | halo_inner(shifted(water_e, mv, fill=False))
-                out[c] = out[c] + torch.where(at & wet_c, cfg.dt * fvec[c],
-                                              0.0).to(vel.dtype)
+    for cell, fvec in cfg.extra_forces:
+        at = cell_mask(cell)
+        for c in range(3):
+            if fvec[c] == 0.0:
+                continue
+            mv = tuple(-1 if k == c else 0 for k in range(3))
+            wet_c = water | halo_inner(shifted(water_e, mv, fill=False))
+            out[c] = out[c] + torch.where(at & wet_c, cfg.dt * fvec[c],
+                                          0.0).to(vel.dtype)
+    if force_field is not None:
+        for c in range(3):
+            mv = tuple(-1 if k == c else 0 for k in range(3))
+            wet_c = water | halo_inner(shifted(water_e, mv, fill=False))
+            out[c] = out[c] + torch.where(wet_c, cfg.dt * force_field[c],
+                                          0.0).to(vel.dtype)
     return out
 
 
@@ -130,7 +152,9 @@ def _advect_spmd(types: torch.Tensor, vel: torch.Tensor, cfg: FluidConfig,
         halo = halo_planes(vel, r, mesh)
         advect = (advect_all_halo_cuda if use_kernels
                   else advect_from_types_halo_plain)
-        return advect(vel, types_e, r, cfg.dt, halo, x0,
+        # the unfused stages leave the slab a strided view (halo_inner of
+        # dim 1); the kernel takes a contiguous one
+        return advect(vel.contiguous(), types_e, r, cfg.dt, halo, x0,
                       (gx,) + tuple(types.shape[1:]))
     if cfg.advect_method not in ("shift", "gather"):
         raise ValueError(f"unknown advect_method {cfg.advect_method!r}")
@@ -179,16 +203,54 @@ def _surface_per_pass(occ, inertia, f2, skip, cfg, mesh):
 
 
 # -------------------------------------------------------------- local step
-def _local_step(state: FluidState, cfg: FluidConfig,
-                mesh: Mesh) -> FluidState:
+def _levelset_spmd(types: torch.Tensor, occ: torch.Tensor, cfg: FluidConfig,
+                   x0: int, mesh: Mesh) -> torch.Tensor:
+    """The level set (`surface/levelset.py`) of this shard's detailed slab.
+    Its band reaches sweeps + smooth detailed cells, so it is computed on
+    a block extended by ht = ceil((sweeps + smooth) / r) sim planes a side
+    and cut back; where ht exceeds the slab, on the gathered grids, then
+    sliced.  Either way the rows equal the single-device field's."""
+    r = cfg.surface_render_resolution
+    lx = types.shape[0]
+    ht = -(-(cfg.levelset_sweeps_value + cfg.levelset_smooth) // r)
+    if ht <= lx:
+        f = levelset_field(halo_extend(types, ht, mesh),
+                           halo_extend(occ, ht * r, mesh), cfg)
+        return halo_inner(f, ht * r)
+    f = levelset_field(all_gather_x(types, mesh, axis=0),
+                       all_gather_x(occ, mesh, axis=0), cfg)
+    return f[x0 * r:(x0 + lx) * r]
+
+
+def _volume_drift_spmd(state: FluidState, types: torch.Tensor,
+                       cfg: FluidConfig, x0: int, mesh: Mesh) -> torch.Tensor:
+    """The volume drift on this shard's slab: the slab's particle counts
+    (index sharding: every shard's counts over the whole grid, summed onto
+    the slabs; domain sharding: the slab's own particles, no collective),
+    then the sharded solve and the drift stencil with one halo plane."""
+    lx = types.shape[0]
+    if cfg.particle_sharding == "domain":
+        counts = cell_histogram_local(state.positions, state.active,
+                                      cfg.grid_size, x0, lx)
+    else:
+        counts = psum_scatter_x(particle_cell_histogram(
+            state.positions, state.active, cfg.grid_size), mesh)
+    return density_drift(counts, types, cfg, mesh=mesh, x0=x0)
+
+
+def _local_step(state: FluidState, cfg: FluidConfig, mesh: Mesh,
+                scene=None) -> FluidState:
     """One frame on this shard's slabs, in the single-device stage order
-    (`solver/step.simulation_step`)."""
+    (`solver/step.simulation_step`).  `scene` holds this shard's slabs of
+    the SceneFields, if any."""
     device = state.velocity.device
     use_kernels = kernel_choice(cfg, device)
     gx = cfg.grid_size[0]
     lx = gx // mesh.size
     x0 = mesh.rank * lx
-    fuse_grid = fuse_grid_choice(cfg, device) and lx >= 2
+    fuse_grid = fuse_grid_choice(cfg, device, scene) and lx >= 2
+    scene_solid = scene.solid if scene is not None else None
+    scene_force = scene.force if scene is not None else None
     if use_kernels:
         classify_extrap = grid_fused.classify_extrap_halo_cuda
         forces_solids_div = grid_fused.forces_solids_div_halo_cuda
@@ -212,7 +274,8 @@ def _local_step(state: FluidState, cfg: FluidConfig,
                                      halos=halos, x0=x0, global_gx=gx)
     else:
         new_types = celltypes.update_water(occ_sim)
-        new_types = _update_air_spmd(new_types, cfg, x0, mesh)
+        new_types = _update_air_spmd(new_types, cfg, x0, mesh,
+                                     extra_solid=scene_solid)
         # 04-05 on 1-plane halo blocks, interior kept
         ot_e = halo_extend(old_types, 1, mesh)
         nt_e = halo_extend(new_types, 1, mesh)
@@ -231,7 +294,8 @@ def _local_step(state: FluidState, cfg: FluidConfig,
         vel, div = forces_solids_div(types, vel, cfg, halos=halos, x0=x0,
                                      global_gx=gx)
     else:
-        vel = _forces_spmd(types, vel, cfg, x0, mesh)
+        vel = _forces_spmd(types, vel, cfg, x0, mesh,
+                           force_field=scene_force)
         if not cfg.reference_diffuse_noop:
             vel = halo_inner(vstages.diffuse(halo_extend(types, 1, mesh),
                                              halo_extend(vel, 1, mesh), cfg))
@@ -253,12 +317,18 @@ def _local_step(state: FluidState, cfg: FluidConfig,
             halo_extend(types, 1, mesh), halo_extend(p, 1, mesh),
             halo_extend(vel, 1, mesh), cfg))
 
-    # 14-15
+    # 14-15, moving through vel plus the volume drift on a corrected
+    # step.  Every shard holds the same step, so all take the same branch
+    # and run the same collectives.  The drift is added to the slab before
+    # any gather.
+    move_vel = vel
+    if cfg.volume_correction > 0.0 and volume_due(cfg, int(state.step)):
+        move_vel = vel + _volume_drift_spmd(state, types, cfg, x0, mesh)
     if cfg.particle_sharding == "domain":
         # each shard moves the particles of its slab, hands the border
         # crossers to its neighbours and scatters onto its detailed slab
-        pos = move_particles_local(vel, state.positions, state.active, cfg,
-                                   x0, mesh)
+        pos = move_particles_local(move_vel, state.positions, state.active,
+                                   cfg, x0, mesh)
         pos, active, ndrop = migrate(pos, state.active, x0, lx,
                                      migrate_capacity(pos.shape[0], cfg),
                                      mesh)
@@ -271,13 +341,16 @@ def _local_step(state: FluidState, cfg: FluidConfig,
         # detailed grid (one K3+K4 launch on the card); the sum over shards
         # lands on the x-slabs
         active, dropped = state.active, state.dropped
-        vel_full = all_gather_x(vel, mesh, axis=1)
+        vel_full = all_gather_x(move_vel, mesh, axis=1)
         pos, occ_full = particles.move_and_scatter(vel_full, state.positions,
                                                    active, cfg)
         occ = (psum_scatter_x(occ_full, mesh) > 0).to(torch.uint8)
 
     # 16-18
-    if cfg.surface_enabled:
+    if cfg.surface_enabled and cfg.surface_method == "levelset":
+        inertia = state.inertia
+        f1 = f2 = _levelset_spmd(types, occ, cfg, x0, mesh)
+    elif cfg.surface_enabled:
         steps = cfg.float_density_diffuse_steps
         h = steps + 1
         skip = surface_fields.solid_parent_mask(types, cfg).to(torch.uint8)
@@ -315,8 +388,7 @@ def _local_step(state: FluidState, cfg: FluidConfig,
 
 # ------------------------------------------------------------ entry points
 def validate_spmd_config(cfg: FluidConfig, n_shards: int) -> None:
-    """Raise ValueError where the layout cannot hold the config, and
-    NotImplementedError for the options the port's step does not run yet."""
+    """Raise ValueError where the layout cannot hold the config."""
     gx = cfg.grid_size[0]
     if gx % n_shards:
         raise ValueError(f"grid x size {gx} must divide the mesh "
@@ -337,31 +409,27 @@ def validate_spmd_config(cfg: FluidConfig, n_shards: int) -> None:
     if lx < cfg.advect_max_displacement + 1:
         raise ValueError(f"local slab width {lx} too small for advection "
                          f"halo {cfg.advect_max_displacement + 1}")
-    if cfg.volume_correction > 0.0:
-        raise NotImplementedError("volume_correction is not ported")
-    if cfg.surface_enabled and cfg.surface_method == "levelset":
-        raise NotImplementedError("surface_method='levelset' is not ported")
 
 
 def spmd_step(cfg: FluidConfig, mesh: Mesh, scene=None):
     """This shard's step: a function local_state -> local_state over the
     slabs `mesh.shard_state` cuts (`particles_domain.domain_shard_state`
     with domain-sharded particles), run with autograd off.  Every shard of
-    the mesh calls its own in lockstep."""
+    the mesh calls its own in lockstep.  `scene` is this shard's part of a
+    SceneFields (`mesh.shard_scene`)."""
     validate_spmd_config(cfg, mesh.size)
-    if scene is not None:
-        raise NotImplementedError("scene fields are not ported")
 
     @torch.no_grad()
     def step(state: FluidState) -> FluidState:
-        return _local_step(state, cfg, mesh)
+        return _local_step(state, cfg, mesh, scene)
 
     return step
 
 
-def spmd_multi_step(cfg: FluidConfig, mesh: Mesh, n_steps: int):
+def spmd_multi_step(cfg: FluidConfig, mesh: Mesh, n_steps: int,
+                    scene=None):
     """n_steps frames per call, a loop over `spmd_step`."""
-    step = spmd_step(cfg, mesh)
+    step = spmd_step(cfg, mesh, scene)
 
     def multi(state: FluidState) -> FluidState:
         for _ in range(n_steps):

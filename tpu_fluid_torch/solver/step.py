@@ -16,30 +16,30 @@ from tpu_fluid_torch.kernels import fuse_grid_choice, kernel_choice
 from tpu_fluid_torch.kernels import grid_fused
 from tpu_fluid_torch.stages import celltypes, particles, pressure
 from tpu_fluid_torch.stages import surface_fields
+from tpu_fluid_torch.stages.volume import (corrected_move_velocity,
+                                           volume_due)
 from tpu_fluid_torch.stages import velocity as vstages
 
 
-def check_ported(cfg: FluidConfig, scene=None) -> None:
-    """Raise NotImplementedError for what the step does not run yet: scene
-    fields and volume correction."""
-    if scene is not None:
-        raise NotImplementedError("scene fields are not ported")
-    if cfg.volume_correction > 0.0:
-        raise NotImplementedError("volume_correction is not ported")
-
-
-def simulation_step(state: FluidState, cfg: FluidConfig,
-                    scene=None) -> FluidState:
+def simulation_step(state: FluidState, cfg: FluidConfig, scene=None,
+                    volume_step: int | None = None) -> FluidState:
     """One frame, stage order exactly as the reference's step section list:
 
       01 histogram -> 02 water -> 03 air/solid -> 04/05 extrapolate ->
       06 commit types -> 07 advect -> 08 forces -> 09 diffuse -> 10 solids ->
       11 divergence -> 12 Jacobi xN -> 13 project -> 14 move particles ->
       15 detail histogram -> 16 inertia -> 17 signed field -> 18 blur xM
+
+    `scene` is an optional `core/scene_fields.SceneFields`.  With volume
+    correction every K > 1 steps, the step runs the correction or not as
+    JAX's `lax.cond` does, one branch: `volume_step` is the caller's
+    value of `state.step` (the CUDA graphs pass it), else the step reads
+    it from the state.
     """
-    check_ported(cfg, scene)
     device = state.velocity.device
     fuse_grid = fuse_grid_choice(cfg, device, scene)
+    scene_solid = scene.solid if scene is not None else None
+    scene_force = scene.force if scene is not None else None
     if fuse_grid and kernel_choice(cfg, device):
         classify_extrap = grid_fused.classify_extrap_cuda
         forces_solids_div = grid_fused.forces_solids_div_cuda
@@ -62,7 +62,8 @@ def simulation_step(state: FluidState, cfg: FluidConfig,
         occ_sim = particles.occupancy_to_sim_grid(state.detailed_occ, cfg)
         # 02-03: classify cells
         new_types = celltypes.update_water(occ_sim)
-        new_types = celltypes.update_air(new_types, cfg)
+        new_types = celltypes.update_air(new_types, cfg,
+                                         extra_solid=scene_solid)
         # 04-05: velocity extrapolation into newly active faces
         extrapolated = vstages.compute_extrapolated_velocities(old_types,
                                                                vel)
@@ -79,7 +80,8 @@ def simulation_step(state: FluidState, cfg: FluidConfig,
         vel, div = forces_solids_div(types, vel, cfg)
     else:
         # 08-10: force, diffuse, solid clamp
-        vel = vstages.apply_forces(types, vel, cfg)
+        vel = vstages.apply_forces(types, vel, cfg,
+                                   force_field=scene_force)
         vel = vstages.diffuse(types, vel, cfg)
         vel = vstages.apply_solids(types, vel, cfg)
         # 11
@@ -92,10 +94,17 @@ def simulation_step(state: FluidState, cfg: FluidConfig,
     else:
         vel = pressure.pressure_project(types, p, vel, cfg)
 
-    # 14-15: move particles through the projected field and scatter their
-    # occupancy (also the next frame's stage 01), one K3+K4 launch on the
-    # card
-    pos, occ = particles.move_and_scatter(vel, state.positions,
+    # 14-15: move particles through the projected field, plus the volume
+    # drift on a corrected step, and scatter their occupancy (also the
+    # next frame's stage 01), one K3+K4 launch on the card
+    move_vel = vel
+    if cfg.volume_correction > 0.0:
+        if volume_step is None and cfg.volume_correction_every > 1:
+            volume_step = int(state.step)
+        if volume_due(cfg, volume_step or 0):
+            move_vel = corrected_move_velocity(vel, state.positions,
+                                               state.active, types, cfg)
+    pos, occ = particles.move_and_scatter(move_vel, state.positions,
                                           state.active, cfg)
 
     # 16-18: the surface fields
@@ -123,5 +132,9 @@ def simulation_step(state: FluidState, cfg: FluidConfig,
 @torch.no_grad()
 def step(state: FluidState, cfg: FluidConfig, scene=None) -> FluidState:
     """One eager step with autograd off.  `solver/graph.jit_step` replays
-    it as a CUDA graph, the counterpart of the JAX package's `jit_step`."""
+    it as a CUDA graph, the counterpart of the JAX package's `jit_step`.
+    With volume correction every K > 1 steps it reads `state.step` on the
+    host, once a step."""
+    if scene is not None:
+        scene.validate(cfg)
     return simulation_step(state, cfg, scene)

@@ -35,13 +35,17 @@ def solid_mask(shape, cfg=None, device=None, x0: int = 0,
 
 
 def update_air(types: torch.Tensor, cfg=None, x0: int = 0,
-               global_gx: int | None = None) -> torch.Tensor:
+               global_gx: int | None = None,
+               extra_solid: torch.Tensor | None = None) -> torch.Tensor:
     """Stage 03: static solid cells become SOLID; non-water cells with at
     least one WATER neighbour become AIR (neighbours read from the stage-02
     output, which resolves the reference's in-place race
     deterministically).  `x0` and `global_gx` place an x-slab in the
-    domain, as for `solid_mask`."""
+    domain, as for `solid_mask`.  `extra_solid` (a scene's solid mask, of
+    the same shape as `types`) makes its nonzero cells SOLID too."""
     solid = solid_mask(types.shape, cfg, types.device, x0, global_gx)
+    if extra_solid is not None:
+        solid = solid | (extra_solid != 0)
     water = types == CellType.WATER
     water_around = torch.zeros_like(water)
     for mv in MOVES:

@@ -1,5 +1,5 @@
-"""Particle stages: occupancy (01, 15) and particle advection (14)
-(`tpu_fluid.stages.particles`)."""
+"""Particle stages: histograms and occupancy (01, 15) and particle
+advection (14) (`tpu_fluid.stages.particles`)."""
 
 from __future__ import annotations
 
@@ -11,6 +11,25 @@ from tpu_fluid_torch.kernels.particle_move import (particle_move_cuda,
                                                    particle_move_plain,
                                                    scatter_occupancy)
 from tpu_fluid_torch.ops.sampling import velocity_at
+from tpu_fluid_torch.ops.scatter import particle_cell_histogram
+
+
+def particle_densities(positions: torch.Tensor, active: torch.Tensor,
+                       cfg: FluidConfig) -> torch.Tensor:
+    """Stage 01 as the reference computes it: the particles-per-cell
+    histogram of the sim grid (`update_densities.comp:29-36`).  The step
+    needs only the occupancy; the volume correction counts with it."""
+    return particle_cell_histogram(positions, active, cfg.grid_size)
+
+
+def detailed_densities(positions: torch.Tensor, active: torch.Tensor,
+                       cfg: FluidConfig) -> torch.Tensor:
+    """Stage 15 as the reference computes it: the particles-per-cell
+    histogram of the detailed grid, indexed by pos * resolution
+    (`update_detailed_densities.comp:24-32`)."""
+    return particle_cell_histogram(
+        positions, active, cfg.detailed_size,
+        scale=float(cfg.surface_render_resolution))
 
 
 def detailed_occupancy(positions: torch.Tensor, active: torch.Tensor,

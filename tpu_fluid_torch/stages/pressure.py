@@ -1,9 +1,12 @@
 """Pressure stages: divergence (11), Jacobi iteration (12), projection (13)
 (`tpu_fluid.stages.pressure`).
 
-The solve always takes the JAX package's kernel formulation: the per-cell
-constants fold into (rd code, c2, q0) and the sweeps run in the K2 kernel,
-or in its plain version where `kernel_choice` does not pick the kernel.
+The Jacobi solve always takes the JAX package's kernel formulation: the
+per-cell constants fold into (rd code, c2, q0) and the sweeps run in the K2
+kernel, or in its plain version where `kernel_choice` does not pick the
+kernel.  The red-black Gauss-Seidel solve (`pressure_solver="redblack"`)
+runs only as XLA in the JAX package, so here it is plain torch in JAX's
+unfolded form, added in the same order.
 
 With `mesh` (the x-slab multi-device step; JAX passes `axis_name`) the
 inputs and the result are this shard's slabs: the neighbour counts read one
@@ -94,7 +97,7 @@ def poisson_solve(types: torch.Tensor, rhs: torch.Tensor, cfg: FluidConfig,
     with rd shipped as the u8 aii code; non-water cells read back as
     boundary_value."""
     if cfg.pressure_solver == "redblack":
-        raise NotImplementedError("pressure_solver='redblack' is not ported")
+        return redblack_solve(types, rhs, cfg, iters, boundary_value, mesh)
     if cfg.pressure_solver != "jacobi":
         raise ValueError(f"unknown pressure_solver {cfg.pressure_solver!r}")
     water, q0, code, c2 = jacobi_fold(types, rhs, cfg, boundary_value, mesh)
@@ -108,6 +111,60 @@ def poisson_solve(types: torch.Tensor, rhs: torch.Tensor, cfg: FluidConfig,
     else:
         q = jacobi_sweeps_plain(q0, code, c2, iters)
     return torch.where(water, q, boundary_value)
+
+
+def redblack_solve(types: torch.Tensor, rhs: torch.Tensor, cfg: FluidConfig,
+                   iters: int, boundary_value: float,
+                   mesh=None) -> torch.Tensor:
+    """`poisson_solve` by red-black Gauss-Seidel: each of the `iters`
+    sweeps updates the cells with (x + y + z) even, then the odd ones from
+    the fresh even half, each by
+        p = (sum of the six pw neighbours + const) / max(aii, 1)
+    with pw = where(water, p, 0), the neighbours added to zeros in MOVES
+    order, and const = n_air * boundary_value - rhs, as JAX's XLA sweep
+    (`tpu_fluid/stages/pressure.py:188-211`).  With `mesh` the parity takes
+    the global x and the x neighbours come from the neighbour shards'
+    planes, one exchange a half-sweep (`:157-172`)."""
+    if mesh is not None:
+        from tpu_fluid_torch.parallel.halo import (halo_extend, halo_inner,
+                                                   halo_planes)
+        water, aii, n_air = (halo_inner(a) for a in jacobi_stats(
+            halo_extend(types, 1, mesh), cfg))
+        x0 = mesh.rank * types.shape[0]
+    else:
+        water, aii, n_air = jacobi_stats(types, cfg)
+        x0 = 0
+    dev = types.device
+    const = n_air * boundary_value - rhs.to(torch.float32)
+    denom = torch.clamp(aii, min=1.0)
+    update = water & (aii > 0)
+    lx, gy, gz = types.shape
+    even = ((torch.arange(x0, x0 + lx, device=dev)[:, None, None]
+             + torch.arange(gy, device=dev)[None, :, None]
+             + torch.arange(gz, device=dev)[None, None, :]) % 2) == 0
+    halves = (update & even, update & ~even)
+    dry = ~water
+    # pw with a ring of zeros: each shifted neighbour is a view of it
+    pad = torch.zeros((lx + 2, gy + 2, gz + 2), dtype=torch.float32,
+                      device=dev)
+    inner = pad[1:-1, 1:-1, 1:-1]
+    views = {mv: pad[1 + mv[0]:1 + mv[0] + lx, 1 + mv[1]:1 + mv[1] + gy,
+                     1 + mv[2]:1 + mv[2] + gz] for mv in MOVES}
+    p = torch.full(types.shape, boundary_value, dtype=torch.float32,
+                   device=dev)
+    for _ in range(iters):
+        for mask in halves:
+            inner.copy_(p)
+            inner.masked_fill_(dry, 0.0)
+            if mesh is not None:
+                left, right = halo_planes(inner, 1, mesh)
+                pad[:1, 1:-1, 1:-1].copy_(left)
+                pad[-1:, 1:-1, 1:-1].copy_(right)
+            neigh = torch.zeros_like(p)
+            for mv in MOVES:
+                neigh.add_(views[mv])
+            p = torch.where(mask, (neigh + const) / denom, p)
+    return p
 
 
 def pressure_project(types: torch.Tensor, pressure: torch.Tensor,

@@ -79,9 +79,14 @@ def update_surface_fields(types: torch.Tensor, occ: torch.Tensor,
                           cfg: FluidConfig):
     """Stages 16-18: (types, occupancy, inertia, stale f2) -> (inertia',
     f1', f2') through the K5 route: the CUDA kernels where `kernel_choice`
-    picks them, else their plain version."""
+    picks them, else their plain version.  With `surface_method =
+    "levelset"` the field is the rebuilt level set instead
+    (`surface/levelset.py`), the same tensor for f1 and f2, and the
+    inertia is carried through."""
     if cfg.surface_method == "levelset":
-        raise NotImplementedError("surface_method='levelset' is not ported")
+        from tpu_fluid_torch.surface.levelset import levelset_field
+        f = levelset_field(types, occ, cfg)
+        return inertia, f, f
     if cfg.surface_method != "inertia":
         raise ValueError(f"unknown surface_method {cfg.surface_method!r}")
     skip = solid_parent_mask(types, cfg).to(torch.uint8)

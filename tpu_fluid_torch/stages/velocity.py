@@ -123,11 +123,13 @@ def advect(types: torch.Tensor, vel: torch.Tensor,
     return advect_shift(types, vel, cfg)
 
 
-def apply_forces(types: torch.Tensor, vel: torch.Tensor,
-                 cfg: FluidConfig) -> torch.Tensor:
+def apply_forces(types: torch.Tensor, vel: torch.Tensor, cfg: FluidConfig,
+                 force_field: torch.Tensor | None = None) -> torch.Tensor:
     """Stage 08: gravity on wet y-faces plus the fountain impulse and the
-    configured extra cell forces (`08_forces/forces.comp:33-55`).  +y is
-    down in the reference scene."""
+    configured extra cell forces (`08_forces/forces.comp:33-55`), then a
+    scene's (3, X, Y, Z) `force_field`, component c on every face c whose
+    cell or lower-c neighbour is WATER.  +y is down in the reference
+    scene."""
     water = types == CellType.WATER
     wet_face = water | shifted(water, (0, -1, 0), fill=False)
     ynz = axis_nonzero(types.shape, 1, types.device)
@@ -149,6 +151,12 @@ def apply_forces(types: torch.Tensor, vel: torch.Tensor,
             mv = tuple(-1 if k == c else 0 for k in range(3))
             wet_c = water | shifted(water, mv, fill=False)
             out[c] = out[c] + torch.where(at & wet_c, cfg.dt * fvec[c],
+                                          0.0).to(vel.dtype)
+    if force_field is not None:
+        for c in range(3):
+            mv = tuple(-1 if k == c else 0 for k in range(3))
+            wet_c = water | shifted(water, mv, fill=False)
+            out[c] = out[c] + torch.where(wet_c, cfg.dt * force_field[c],
                                           0.0).to(vel.dtype)
     return out
 
