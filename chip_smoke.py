@@ -110,10 +110,31 @@ Phases, one line each (more for the parity and scene phases):
               fields under index sharding, and (a) under domain sharding;
               each gathered state bitwise against the single-device steps
               (domain: the active positions as sorted sets).
+ 12 facade    the engine, checkpoints, meshing, rendering and the CLI
+              (tpu_fluid_torch/engine.py, io/, surface/, render/, cli.py):
+              Simulation(scaled_scene(128)) on the card runs 10 steps
+              with frames, meshes and diagnostics every 5 and a
+              checkpoint at 10 (1024^2 frames): the final state must
+              equal 10 jit_step replays bitwise, every kernel of the path
+              must launch under the run, the PNGs and OBJs must be written
+              and non-empty; it prints the run's steps/s including host
+              work, surface_mesh, splat and native render_frame ms
+              (medians of 5) with the triangle count, and the checkpoint's
+              save and load seconds and megabytes; the loaded checkpoint
+              must equal the state and step as it bitwise.  Then
+              reference_scene() after 5 engine steps: the card's mesh
+              against the port's CPU mesh of the same field (count and
+              mask bitwise, vertices within 2 ULP, normals within 1e-6)
+              and the card's 512^2 splat frame against the CPU's (at
+              least 99.9% of the pixels equal).  Then
+              `python -m tpu_fluid_torch.cli` for 4 steps with frames,
+              meshes and a checkpoint, and its --resume for 2, in
+              subprocesses: both must exit 0, the resume at step 4.
 The line before the last is a JSON object with the kernels' numbers (times
 and bounds at the large scene, the halo forms' and the local-slab form's at
-shard 1 of phases 8 and 9; library_ms is null: no single PyTorch call
-computes any of these functions); the last line is
+shard 1 of phases 8 and 9, the launches of phases 4-12; library_ms is
+null: no single PyTorch call computes any of these functions); the last
+line is
 {"ok": true, "device": {...}}.  Any
 failed check raises, so the script then exits nonzero without that line;
 without CUDA it exits 2.
@@ -1872,6 +1893,250 @@ def phase_physics(device, bench_cfg, wrappers, card) -> dict:
     return results
 
 
+# ------------------------------------------------------------- 12: facade
+# Simulation.run at the bench scene, and the card's mesh and frame against
+# the CPU's at the reference scene
+FACADE_STEPS = 10
+FACADE_EVERY = 5
+FACADE_SIZE = 1024
+FACADE_COMPARE_SIZE = 512
+FACADE_TIMED = 5
+CHECKPOINT_TIMED = 3
+FACADE_REF_STEPS = 5
+# the CPU mesh against the card's: vertices in ULP, normals absolute
+MESH_ULP = 2
+MESH_NORMAL_ATOL = 1e-6
+FRAME_SHARE = 0.999
+CLI_TIMEOUT = 300
+
+
+def ulp_diff(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance in f32 units of the last place, a NaN
+    matching a NaN."""
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    d = (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+    return int(torch.where(same, 0, d).max()) if d.numel() else 0
+
+
+def median_ms(fn, reps: int, events: bool) -> tuple:
+    """(median ms of `reps` calls after one untimed call, the last
+    result): by CUDA events around each call where the work is on the
+    card, else by the host's clock (the call returns host data)."""
+    from statistics import median
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        if events:
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            out = fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return median(times), out
+
+
+def run_cli(args, cwd: str) -> str:
+    """`python -m tpu_fluid_torch.cli` in a subprocess; raise unless it
+    exits 0; its standard output."""
+    proc = subprocess.run([sys.executable, "-m", "tpu_fluid_torch.cli",
+                           *args], cwd=cwd, capture_output=True, text=True,
+                          timeout=CLI_TIMEOUT)
+    check(proc.returncode == 0, f"12 facade: the CLI {args} exited "
+                                f"{proc.returncode}:\n{proc.stdout}\n"
+                                f"{proc.stderr}")
+    return proc.stdout
+
+
+def facade_bench(device, cfg, wrappers, card: str, out: str) -> dict:
+    """Simulation.run at `cfg` through every cadence, against FACADE_STEPS
+    jit_step replays; timings of the facade's parts; the checkpoint read
+    back and stepped."""
+    import os
+
+    from tpu_fluid_torch import Simulation, initial_state, jit_step
+    from tpu_fluid_torch.io.checkpoint import (load_checkpoint,
+                                               save_checkpoint)
+    from tpu_fluid_torch.solver import graph
+    graph.clear_graphs()
+    reset_launches(wrappers)
+    t0 = time.perf_counter()
+    sim = Simulation(cfg)
+    check(sim.state.velocity.device == device,
+          f"12 facade: Simulation(cfg) put the state on "
+          f"{sim.state.velocity.device}")
+    sim.run(FACADE_STEPS, frame_every=FACADE_EVERY, mesh_every=FACADE_EVERY,
+            log_every=FACADE_EVERY, checkpoint_every=FACADE_STEPS,
+            width=FACADE_SIZE, height=FACADE_SIZE, frame_dir=out,
+            checkpoint_path=os.path.join(out, "checkpoint.npz"))
+    sim.sync()
+    run_s = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    print(f"[12 facade bench] Simulation(scaled_scene(128)).run("
+          f"{FACADE_STEPS}, frame/mesh/log every {FACADE_EVERY}, checkpoint "
+          f"every {FACADE_STEPS}, {FACADE_SIZE}^2): {run_s!r} s, "
+          f"{FACADE_STEPS / run_s!r} steps/s including host work (the "
+          f"state's set-up, the graph's capture, frames, meshes, the "
+          f"checkpoint) on {card}; wrapper launches {launches}", flush=True)
+    check(all(v > 0 for v in launches.values()),
+          f"12 facade: a kernel of the path did not launch under "
+          f"Simulation.run: {launches}")
+    final = clone_state(sim.state)
+    # the graph's own buffers are sim.state: clone before replaying it
+    s = initial_state(cfg, device)
+    for _ in range(FACADE_STEPS):
+        s = jit_step(s, cfg)
+    same = {f: same_bits(a, b) for f, a, b in zip(final._fields, final, s)}
+    print(f"[12 facade bench] run against {FACADE_STEPS} jit_step replays: "
+          f"bitwise {all(same.values())} {same}", flush=True)
+    check(all(same.values()), f"12 facade: the run differs from the "
+                              f"replays: {same}")
+    names = [f"frame_{k:06d}.png" for k in (5, 10)] + \
+        [f"mesh_{k:06d}.obj" for k in (5, 10)] + ["checkpoint.npz"]
+    sizes = {n: os.path.getsize(os.path.join(out, n))
+             if os.path.exists(os.path.join(out, n)) else 0 for n in names}
+    print(f"[12 facade bench] files (bytes): {sizes}", flush=True)
+    check(all(v > 0 for v in sizes.values()),
+          f"12 facade: a file is missing or empty: {sizes}")
+
+    sim.state = final
+    mesh_ms, mesh = median_ms(sim.surface_mesh, FACADE_TIMED, True)
+    splat_ms, img = median_ms(
+        lambda: sim.render_frame(FACADE_SIZE, FACADE_SIZE), FACADE_TIMED,
+        True)
+    native_ms, nimg = median_ms(
+        lambda: sim.render_frame(FACADE_SIZE, FACADE_SIZE, method="native"),
+        FACADE_TIMED, False)
+    triangles = int(mesh.count)
+    check(triangles > 0 and tuple(img.shape) == (FACADE_SIZE,) * 2 + (3,)
+          and bool((img != 0).any()) and bool((nimg != 0).any()),
+          "12 facade: an empty mesh or frame")
+    path = os.path.join(out, "again.npz")
+    save_ms, _ = median_ms(lambda: save_checkpoint(path, final, cfg),
+                           CHECKPOINT_TIMED, False)
+    load_ms, (loaded, loaded_cfg) = median_ms(
+        lambda: load_checkpoint(os.path.join(out, "checkpoint.npz")),
+        CHECKPOINT_TIMED, False)
+    mb = os.path.getsize(path) / 1e6
+    raw = sum(t.numel() * t.element_size() for t in final) / 1e6
+    print(f"[12 facade bench] medians of {FACADE_TIMED} after one call: "
+          f"surface_mesh {mesh_ms!r} ms ({triangles} triangles, CUDA "
+          f"events), splat render_frame {splat_ms!r} ms at {FACADE_SIZE}^2 "
+          f"(mesh included, CUDA events), native render_frame "
+          f"{native_ms!r} ms (host clock: mesh, copies and raster); "
+          f"checkpoint save {save_ms / 1e3!r} s, load {load_ms / 1e3!r} s "
+          f"(medians of {CHECKPOINT_TIMED}, host clock), "
+          f"{mb!r} MB on disk for {raw!r} MB of state, on {card}",
+          flush=True)
+    check(loaded_cfg == cfg, "12 facade: the checkpoint's config differs")
+    same = {f: same_bits(a, b) for f, a, b in zip(final._fields, loaded,
+                                                  final)}
+    check(all(same.values()), f"12 facade: the loaded checkpoint differs: "
+                              f"{same}")
+    a = clone_state(jit_step(loaded, cfg))
+    b = clone_state(jit_step(clone_state(final), cfg))
+    same = {f: same_bits(x, y) for f, x, y in zip(a._fields, a, b)}
+    print(f"[12 facade bench] checkpoint loaded bitwise; one jit_step from "
+          f"it against one from the saved state: bitwise "
+          f"{all(same.values())}", flush=True)
+    check(all(same.values()), f"12 facade: a step from the loaded state "
+                              f"differs: {same}")
+    del sim, final, s, loaded, a, b, mesh, img
+    graph.clear_graphs()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "steps_per_s": FACADE_STEPS / run_s,
+            "mesh_ms": mesh_ms, "splat_ms": splat_ms,
+            "native_ms": native_ms, "triangles": triangles,
+            "save_s": save_ms / 1e3, "load_s": load_ms / 1e3, "mb": mb}
+
+
+def facade_reference(device, cfg, wrappers, card: str) -> dict:
+    """At `cfg` after FACADE_REF_STEPS engine steps: the card's mesh
+    against the port's CPU mesh of the same field, and the card's splat
+    frame against the CPU's at FACADE_COMPARE_SIZE^2."""
+    from tpu_fluid_torch import Simulation
+    from tpu_fluid_torch.render.splat import render_particles_and_surface
+    from tpu_fluid_torch.solver import graph
+    from tpu_fluid_torch.stages.surface_fields import surface_field
+    from tpu_fluid_torch.surface.marching_cubes import extract_surface
+    reset_launches(wrappers)
+    sim = Simulation(cfg).step(FACADE_REF_STEPS).sync()
+    launches = read_launches(wrappers)
+    mesh = sim.surface_mesh()
+    field = surface_field(sim.state.float_dens_1, sim.state.float_dens_2,
+                          cfg).cpu()
+    cpu_mesh = extract_surface(field, cfg)
+    check(int(mesh.count) == int(cpu_mesh.count) and int(mesh.count) > 0
+          and torch.equal(mesh.valid.cpu(), cpu_mesh.valid),
+          f"12 facade reference: the card's mesh has {int(mesh.count)} "
+          f"triangles, the CPU's {int(cpu_mesh.count)}, or their masks "
+          f"differ")
+    valid = cpu_mesh.valid
+    ulp = ulp_diff(mesh.vertices.cpu()[valid], cpu_mesh.vertices[valid])
+    nerr = max_abs_err(mesh.normals.cpu()[valid], cpu_mesh.normals[valid])
+    print(f"[12 facade reference] mesh of reference_scene() after "
+          f"{FACADE_REF_STEPS} steps: {int(mesh.count)} triangles on both; "
+          f"vertices {ulp} ULP apart at most (tolerance {MESH_ULP}), normals "
+          f"{nerr!r} (tolerance {MESH_NORMAL_ATOL})", flush=True)
+    check(ulp <= MESH_ULP and nerr <= MESH_NORMAL_ATOL,
+          "12 facade reference: the card's mesh is outside tolerance")
+    size = FACADE_COMPARE_SIZE
+    img = sim.render_frame(size, size).cpu()
+    cpu_img = render_particles_and_surface(
+        sim.state.positions.cpu(), sim.state.active.cpu(),
+        cpu_mesh.vertices, cpu_mesh.normals, cpu_mesh.valid,
+        sim.camera.mvp(), cfg, size, size)
+    share = float((img == cpu_img).all(-1).double().mean())
+    print(f"[12 facade reference] splat frame at {size}^2, card against "
+          f"CPU: {share!r} of the pixels equal (at least {FRAME_SHARE})",
+          flush=True)
+    check(share >= FRAME_SHARE, f"12 facade reference: only {share!r} of "
+                                f"the pixels equal")
+    del sim, mesh, cpu_mesh, img, cpu_img, field
+    graph.clear_graphs()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "share": share, "ulp": ulp,
+            "normal_err": nerr}
+
+
+def phase_facade(device, ref_cfg, bench_cfg, wrappers, card: str) -> dict:
+    """Phase 12: the engine's run at the bench scene (`facade_bench`), the
+    card's mesh and frame against the CPU's at the reference scene
+    (`facade_reference`), then the CLI and its resume in subprocesses.
+    Returns the launches a wrapper made, by wrapper name."""
+    import os
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as out:
+        bench = facade_bench(device, bench_cfg, wrappers, card, out)
+    ref = facade_reference(device, ref_cfg, wrappers, card)
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        run_cli(["--steps", "4", "--frame-every", "2", "--mesh-every", "2",
+                 "--checkpoint-every", "4", "--out", out], root)
+        t1 = time.perf_counter()
+        said = run_cli(["--resume", os.path.join(out, "checkpoint.npz"),
+                        "--steps", "2", "--out", out], root)
+        t2 = time.perf_counter()
+        files = sorted(os.listdir(out))
+    print(f"[12 facade cli] python -m tpu_fluid_torch.cli --steps 4 "
+          f"--frame-every 2 --mesh-every 2 --checkpoint-every 4: exit 0 in "
+          f"{t1 - t0!r} s, files {files}; --resume --steps 2: exit 0 in "
+          f"{t2 - t1!r} s, said {said.splitlines()[0]!r}", flush=True)
+    check("at step 4" in said, f"12 facade cli: the resume did not print "
+                               f"step 4: {said!r}")
+    launches = dict(bench["launches"])
+    for name, count in ref["launches"].items():
+        launches[name] += count
+    return {"launches": launches, "bench": bench, "reference": ref}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2060,6 +2325,12 @@ def main() -> int:
             domain_launches[name] += count
         else:
             sharded_launches[name] = sharded_launches.get(name, 0) + count
+
+    # 12: the facade (Simulation.run, the mesh and frame, checkpoints, the
+    # CLI) at the bench and reference scenes
+    facade = phase_facade(device, ref_cfg, bench_cfg, wrappers, card)
+    for name, count in facade["launches"].items():
+        launches[name] += count
 
     def entry(name, source, replaces, n, results, key):
         r = results[key]

@@ -22,6 +22,16 @@ the red-black solver (`pressure_solver="redblack"`), scene presets
     cfg = dam_break_obstacle(64)
     scene = SceneFields(solid=solid_sphere(cfg, (32, 48, 32), 6))
     state = jit_step(initial_state(cfg), cfg, scene)
+
+The engine and the CLI, as in the JAX package: `Simulation(cfg)` steps,
+meshes, renders, checkpoints and runs the headless loop on the card
+(`device="cpu"` else), and `python -m tpu_fluid_torch.cli` (the
+`tpu-fluid-torch` script) drives it:
+
+    sim = Simulation(FluidConfig.scaled_scene(64)).step(10)
+    sim.save("out/checkpoint.npz")
+    img = sim.render_frame(512, 512)      # (H, W, 3) uint8 on the card
+    sim = Simulation.load("out/checkpoint.npz")
 """
 
 from tpu_fluid_torch.core import scenes
@@ -32,6 +42,7 @@ from tpu_fluid_torch.core.scenes import (SCENES, dam_break,
                                          dam_break_obstacle, drop, fountain)
 from tpu_fluid_torch.core.state import FluidState, initial_state
 from tpu_fluid_torch.core.types import CellType
+from tpu_fluid_torch.engine import Simulation
 from tpu_fluid_torch.solver.graph import jit_multi_step, jit_step
 from tpu_fluid_torch.solver.step import simulation_step, step
 
@@ -41,6 +52,7 @@ __all__ = [
     "CellType",
     "SCENES",
     "SceneFields",
+    "Simulation",
     "dam_break",
     "dam_break_obstacle",
     "drop",
