@@ -15,7 +15,7 @@ Phases, one line each (more for the parity and scene phases):
               positions among them, and positions NaN on one, two and
               three axes, which move only their NaN coordinates and
               occupy detailed index 0 on those axes), and K1, K2, K3+K4,
-              K5, K6a and K6b
+              K5, K6a, K6b and K6c
               also at two odd non-cubic shapes (5 and 199 sweeps; 0, 1, 4
               and 12 blur passes, u8 and int32 inertia; K6a at pools 1, 2
               and 3); K1 and K3+K4 also on the velocity, types, positions
@@ -47,10 +47,13 @@ Phases, one line each (more for the parity and scene phases):
               first each halo-form kernel against its plain version,
               bitwise, at the local-slab shapes of scaled_scene(256) split
               4 ways (K1, K2's pass and K6 on (64 + 2h) x 256 x 256 slabs,
-              K5 on a 128 x 512 x 512 detailed slab), at shards 0, 1 and 3;
-              then scaled_scene(256) on 4 ranks, spawned processes that
-              share this one card over a gloo group (halo planes and
-              collectives staged through the host), for 2 steps: the
+              K5 on a 128 x 512 x 512 detailed slab), at shards 0, 1 and 3,
+              and K6c's also at the 3 slabs of a (39, 45, 70) grid with
+              NaN in the right and velocity halo planes, which it must
+              not read; then scaled_scene(256) on 4 ranks, spawned
+              processes that share this one card over a gloo group
+              (halo planes and collectives staged through the host),
+              for 2 steps: the
               gathered state must equal 2 single-device steps from the
               same initial state bitwise in every field, hold the
               invariants, and every halo-form kernel must have launched on
@@ -82,9 +85,13 @@ Phases, one line each (more for the parity and scene phases):
               steps and captures); each capture's seconds and graph pool;
               eager, jit_step and jit_multi_step ms a step (medians of 7
               after a warm-up, CUDA events); at the large scene the state
-              hand-over, the copy each replay ends with.  Then
-              tpu_fluid_torch.bench at 128^3 for 40 steps, whose JSON line
-              it prints.
+              hand-over, the copy each replay ends with.  At the reference
+              and bench scenes, two lineages of one graph key stepped in
+              turn (3 jit_steps, then a jit_multi_step of 3 each), with
+              and without the volume cadence every 2 (the lineages at
+              different phases): each bitwise against its own eager
+              steps.  Then tpu_fluid_torch.bench at 128^3 for 40 steps,
+              whose JSON line it prints.
  11 physics   the options beyond the reference at the bench scene's width
               (128^3, 1M particles): (a) volume_correction=1.0 every 4
               steps toward a density of 4.0, (b) surface_method=
@@ -165,6 +172,9 @@ GRAPH_TIMED = 7
 BENCH_WINDOW = 40
 PARITY_SHARDS = (0, 1, 3)
 ODD_SHAPES = ((13, 22, 17), (37, 45, 29))
+# phase 8: K6c's halo form also at the slabs of an odd grid
+ODD_HALO_GRID = (39, 45, 70)
+ODD_HALO_SHARDS = 3
 RANK_TIMEOUT = 480.0
 # f32 tolerances of the kernel path against pallas_mode="off" where the two
 # are not bitwise equal (tests/test_full_step_oracle.py)
@@ -322,9 +332,16 @@ def _move_bytes(name: str, args, outs) -> int:
 
 def bound(name: str, args, kw, outs) -> tuple:
     """(bound_ms, "bytes" or "operations") of one call from its inputs and
-    outputs."""
-    moved = (_move_bytes(name, args, outs) if name.startswith("particle_move")
-             else tensor_bytes(args) + tensor_bytes(kw) + tensor_bytes(outs))
+    outputs.  K6c's halo form needs of its halo planes only the left ones
+    of the types and pressure."""
+    if name.startswith("particle_move"):
+        moved = _move_bytes(name, args, outs)
+    elif name == "project_halo_cuda":
+        (t_left, _), (p_left, _), _ = kw["halos"]
+        moved = tensor_bytes(args) + tensor_bytes((t_left, p_left)) + \
+            tensor_bytes(outs)
+    else:
+        moved = tensor_bytes(args) + tensor_bytes(kw) + tensor_bytes(outs)
     byte_ms = moved / HBM_BYTES_PER_S * 1e3
     op_ms = OPS[name](args, kw, outs) / F32_OPS_PER_S * 1e3
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
@@ -566,12 +583,13 @@ def non_finite_velocity(vel: np.ndarray, rng, device,
 
 
 def odd_cases(device):
-    """K1, K3+K4, K2, K5, K6a and K6b at odd non-cubic shapes: K2 on its
+    """K1, K3+K4, K2, K5 and K6 at odd non-cubic shapes: K2 on its
     one-block route (13, 22, 17) and its blocked route (37, 45, 29), 5
     sweeps (a remainder pass) and 199; K5 with 0, 1 and 4 blur passes, and
     int32 inertia, and with 12 (a second launch of blur passes only); K6a
-    at pools 1, 2 and 3 (several y and z tiles at (37, 45, 29)); K1 at R =
-    1, 2 and 3, on finite velocities and with NaNs and infinities."""
+    at pools 1, 2 and 3 (several y and z tiles at (37, 45, 29)), K6b and
+    K6c; K1 at R = 1, 2 and 3, on finite velocities and with NaNs and
+    infinities."""
     from tpu_fluid_torch import FluidConfig
     from tpu_fluid_torch.kernels.advect import (advect_all_cuda,
                                                 advect_from_types_plain)
@@ -617,8 +635,7 @@ def odd_cases(device):
                           kw))
         for kernel, plain, args, kw in grid_fused_cases(
                 t, rng, cfg, shape, pools=(1, 2, 3)):
-            if kernel.__name__ != "project_cuda":
-                cases.append((f"{shape} {kw}", kernel, plain, args, kw))
+            cases.append((f"{shape} {kw}", kernel, plain, args, kw))
         vel_np = (rng.standard_normal((3,) + shape) * 60).astype(np.float32)
         vel, types = t(vel_np), t(random_types(rng, shape))
         for r in (1, 2, 3):
@@ -994,6 +1011,41 @@ def halo_cases(device, cfg):
     return cases
 
 
+def odd_halo_cases(device):
+    """(wrapper, plain, args, kwargs, shard) for K6c's halo form at every
+    slab of ODD_HALO_GRID split ODD_HALO_SHARDS ways, with the right halo
+    planes and both velocity halo planes replaced (NaN, the right type
+    plane WATER): the kernel reads none of them."""
+    from tpu_fluid_torch import FluidConfig
+    from tpu_fluid_torch.kernels import grid_fused as k6
+    gx, gy, gz = ODD_HALO_GRID
+    lx = gx // ODD_HALO_SHARDS
+    cfg = FluidConfig(grid_size=ODD_HALO_GRID)
+    rng = np.random.default_rng(SEED + 30)
+    cases = []
+    for shard in range(ODD_HALO_SHARDS):
+        x0 = shard * lx
+        types = torch.from_numpy(type_rows(rng, x0 - 1, lx + 2, cfg))
+        p = torch.from_numpy((rng.standard_normal((lx + 2, gy, gz)) * 50
+                              ).astype(np.float32))
+        if x0 == 0:
+            p[0] = 0.0            # past the domain
+        vel = torch.from_numpy((rng.standard_normal((3, lx, gy, gz)) * 3
+                                ).astype(np.float32))
+        t, (t_lo, t_hi) = split_rows(types.to(device), 1)
+        q, (p_lo, p_hi) = split_rows(p.to(device), 1)
+        vel = vel.to(device)
+        nan = torch.full((3, 1, gy, gz), float("nan"), device=device)
+        cases.append((k6.project_halo_cuda, k6.project_halo_plain,
+                      (t, q, vel, cfg),
+                      dict(halos=((t_lo, torch.full_like(t_hi, 2)),
+                                  (p_lo, torch.full_like(p_hi,
+                                                         float("nan"))),
+                                  (nan, nan.clone())),
+                           x0=x0, global_gx=gx), shard))
+    return cases
+
+
 def phase_halo_parity(device, cfg) -> dict:
     results = {}
     for kernel, plain, args, kw, shard in halo_cases(device, cfg):
@@ -1003,6 +1055,12 @@ def phase_halo_parity(device, cfg) -> dict:
         entry = results.setdefault(name, {"max_abs_err": 0.0})
         entry["max_abs_err"] = max(entry["max_abs_err"], r["max_abs_err"])
         entry[shard] = r
+    for kernel, plain, args, kw, shard in odd_halo_cases(device):
+        r = run_case(f"8 parity odd {ODD_HALO_GRID} shard {shard}/"
+                     f"{ODD_HALO_SHARDS}, unread planes NaN", kernel, plain,
+                     args, kw, 10)
+        entry = results[kernel.__name__]
+        entry["max_abs_err"] = max(entry["max_abs_err"], r["max_abs_err"])
     return results
 
 
@@ -1463,12 +1521,63 @@ def graph_scene(device, scene: str, cfg, wrappers, card: str) -> dict:
     return result
 
 
+def two_lineages(device, scene: str, cfg) -> None:
+    """Phase 10's donation check at one scene, with and without the volume
+    cadence every 2: lineage A from the initial state and B after 2 eager
+    steps (3 with the cadence: the other phase), B's velocity offset by
+    0.5 so that no state of one equals a state of the other, both of one
+    graph key; 3 `jit_step`s each in turn, then one `jit_multi_step` of 3
+    each, every field of each result bitwise against its own eager steps,
+    read after the other lineage's call."""
+    from tpu_fluid_torch import initial_state, jit_multi_step, jit_step, step
+    from tpu_fluid_torch.solver import graph
+    cadence = dict(VOLUME, volume_correction_every=2)
+    for label, c, b_steps in (("", cfg, 2),
+                              (", volume every 2", cfg.replace(**cadence),
+                               3)):
+        graph.clear_graphs()
+        first = len(graph.captures)
+        a = initial_state(c, device)
+        b = run_steps(initial_state(c, device), c, b_steps)
+        b = b._replace(velocity=b.velocity + 0.5)
+        want_a, want_b = a, b
+        differ = []
+        for k in range(GRAPH_STEPS):
+            a, b = jit_step(a, c), jit_step(b, c)
+            want_a, want_b = step(want_a, c), step(want_b, c)
+            differ += [f"{name} jit_step {k}: {f}" for name, got, want in
+                       (("A", a, want_a), ("B", b, want_b))
+                       for f, g, w in zip(want._fields, got, want)
+                       if not same_bits(g, w)]
+        a = jit_multi_step(a, c, GRAPH_STEPS)
+        b = jit_multi_step(b, c, GRAPH_STEPS)
+        want_a = run_steps(want_a, c, GRAPH_STEPS)
+        want_b = run_steps(want_b, c, GRAPH_STEPS)
+        differ += [f"{name} jit_multi_step: {f}" for name, got, want in
+                   (("A", a, want_a), ("B", b, want_b))
+                   for f, g, w in zip(want._fields, got, want)
+                   if not same_bits(g, w)]
+        torch.cuda.synchronize()
+        phases = [cap["phase"] for cap in graph.captures[first:]]
+        print(f"[10 graph {scene}] two lineages of one key{label} (B "
+              f"after {b_steps} eager steps), {GRAPH_STEPS} jit_steps each "
+              f"in turn, then jit_multi_step({GRAPH_STEPS}) each, against "
+              f"their own eager steps: every field bitwise {not differ} "
+              f"{differ}; {len(phases)} captures (phases {phases})",
+              flush=True)
+        check(not differ, f"10 graph {scene}: a lineage differs from its "
+                          f"own eager steps{label}: {differ}")
+        del a, b, want_a, want_b
+    graph.clear_graphs()
+
+
 def phase_graph(device, scenes, wrappers, fused_wrappers, card: str,
                 smi: str) -> dict:
-    """Phase 10: the CUDA-graph step at each scene (`graph_scene`), then
-    the port's bench (`tpu_fluid_torch.bench`) for a short window at
-    128^3, whose JSON line it prints; returns the wrappers' counts over
-    the captures."""
+    """Phase 10: the CUDA-graph step at each scene (`graph_scene`), two
+    lineages of one key at the scenes without the fused kernels
+    (`two_lineages`), then the port's bench (`tpu_fluid_torch.bench`) for
+    a short window at 128^3, whose JSON line it prints; returns the
+    wrappers' counts over the captures of `graph_scene`."""
     from tpu_fluid_torch import bench
     launches = {}
     for scene, cfg in scenes:
@@ -1476,6 +1585,9 @@ def phase_graph(device, scenes, wrappers, fused_wrappers, card: str,
         counted = graph_scene(device, scene, cfg, paths, card)["launches"]
         for name, count in counted.items():
             launches[name] = launches.get(name, 0) + count
+        if not cfg.grid_fused:
+            two_lineages(device, scene, cfg)
+            torch.cuda.empty_cache()
     _, sps, chunks = bench._run_once(128, 1_000_000, BENCH_WINDOW, 5)
     print(f"[10 graph bench] tpu_fluid_torch.bench at 128^3, {BENCH_WINDOW} "
           f"steps, per-chunk steps/s {chunks!r}", flush=True)
@@ -1987,8 +2099,7 @@ def facade_bench(device, cfg, wrappers, card: str, out: str) -> dict:
     check(all(v > 0 for v in launches.values()),
           f"12 facade: a kernel of the path did not launch under "
           f"Simulation.run: {launches}")
-    final = clone_state(sim.state)
-    # the graph's own buffers are sim.state: clone before replaying it
+    final = sim.state
     s = initial_state(cfg, device)
     for _ in range(FACADE_STEPS):
         s = jit_step(s, cfg)
@@ -2005,7 +2116,6 @@ def facade_bench(device, cfg, wrappers, card: str, out: str) -> dict:
     check(all(v > 0 for v in sizes.values()),
           f"12 facade: a file is missing or empty: {sizes}")
 
-    sim.state = final
     mesh_ms, mesh = median_ms(sim.surface_mesh, FACADE_TIMED, True)
     splat_ms, img = median_ms(
         lambda: sim.render_frame(FACADE_SIZE, FACADE_SIZE), FACADE_TIMED,
@@ -2039,8 +2149,8 @@ def facade_bench(device, cfg, wrappers, card: str, out: str) -> dict:
                                                   final)}
     check(all(same.values()), f"12 facade: the loaded checkpoint differs: "
                               f"{same}")
-    a = clone_state(jit_step(loaded, cfg))
-    b = clone_state(jit_step(clone_state(final), cfg))
+    a = jit_step(loaded, cfg)
+    b = jit_step(final, cfg)
     same = {f: same_bits(x, y) for f, x, y in zip(a._fields, a, b)}
     print(f"[12 facade bench] checkpoint loaded bitwise; one jit_step from "
           f"it against one from the saved state: bitwise "

@@ -1,8 +1,10 @@
 """`jit_step` and `jit_multi_step` (`tpu_fluid_torch/solver/graph.py`): on
 the CPU n eager steps, against the port's `step` bitwise and against the
-JAX package's `jit_multi_step` on a state carried from JAX; on the card
-(the `cuda` tests, which skip here) CUDA-graph replays against the eager
-step bitwise, the capture cache and the donation rule."""
+JAX package's `jit_multi_step` on a state carried from JAX; the entries'
+bookkeeping (one per live lineage, the donation rule) behind a stand-in
+capture that replays eager steps on the CPU; on the card (the `cuda`
+tests, which skip here) CUDA-graph replays against the eager step bitwise,
+the capture cache and the donation rule."""
 
 import jax
 import numpy as np
@@ -17,8 +19,10 @@ from tpu_fluid.solver.step import jit_multi_step as jax_jit_multi_step
 from tpu_fluid.solver.step import simulation_step as jax_step
 from tpu_fluid_torch import (SceneFields, initial_state, jit_multi_step,
                              jit_step, solid_sphere, step, vortex_force)
-from tpu_fluid_torch.core.state import state_from_numpy, state_to_numpy
+from tpu_fluid_torch.core.state import (FluidState, state_from_numpy,
+                                        state_to_numpy)
 from tpu_fluid_torch.solver import graph
+from tpu_fluid_torch.solver.step import simulation_step
 
 torch.set_num_threads(2)
 
@@ -27,6 +31,10 @@ def assert_states_equal(got, want, label=""):
     for name, g, w in zip(want._fields, got, want):
         assert g.dtype == w.dtype and g.shape == w.shape, (label, name)
         assert torch.equal(g, w), (label, name)
+
+
+def cloned(state):
+    return type(state)(*(t.clone() for t in state))
 
 
 def eager(state, cfg, n, scene=None):
@@ -108,6 +116,119 @@ def test_cpu_state_is_left_as_it_was():
     assert not graph._GRAPHS                     # no graph on the CPU
 
 
+def step_two_lineages(cfg, device, b_steps):
+    """Lineage A from the initial state and B after `b_steps` eager steps,
+    both of one graph key: 3 `jit_step`s each in turn, then one
+    `jit_multi_step` of 3 each, every result held bitwise against its own
+    eager steps after the other lineage's call.  B's velocity is offset,
+    so that no step of one lineage equals a step of the other."""
+    a = initial_state(cfg, device)
+    b = eager(initial_state(cfg, device), cfg, b_steps)
+    b = b._replace(velocity=b.velocity + 0.5)
+    want_a, want_b = a, b
+    for k in range(3):
+        a = jit_step(a, cfg)
+        b = jit_step(b, cfg)
+        want_a, want_b = step(want_a, cfg), step(want_b, cfg)
+        assert_states_equal(a, want_a, f"A, jit_step {k}")
+        assert_states_equal(b, want_b, f"B, jit_step {k}")
+    a = jit_multi_step(a, cfg, 3)
+    b = jit_multi_step(b, cfg, 3)
+    assert_states_equal(a, eager(want_a, cfg, 3), "A, jit_multi_step")
+    assert_states_equal(b, eager(want_b, cfg, 3), "B, jit_multi_step")
+
+
+def reuse_dropped_lineage(cfg, device):
+    """A lineage held through a view of one field keeps its entry; once
+    dropped, the next lineage of its key replays in that entry, with no
+    capture."""
+    a = jit_step(jit_step(initial_state(cfg, device), cfg), cfg)
+    n0 = len(graph.captures)
+    kept = a.velocity[0]
+    del a
+    b0 = eager(initial_state(cfg, device), cfg, 1)
+    b = jit_step(b0, cfg)
+    assert len(graph.captures) == n0 + 1         # a's entry is held
+    del kept, b
+    c0 = eager(initial_state(cfg, device), cfg, 2)
+    c = jit_step(c0, cfg)
+    assert len(graph.captures) == n0 + 1         # a's entry, reused
+    assert_states_equal(c, step(c0, cfg), "reused entry")
+
+
+class StandInGraph:
+    """What a captured graph does, as eager steps on the CPU: n steps from
+    its buffers and scene buffers, the result copied back into them."""
+
+    def __init__(self, cfg, n_steps, first, entry_buffers):
+        self.cfg, self.n_steps, self.first = cfg, n_steps, first
+        self.buffers, self.scene_buffers = entry_buffers
+
+    def replay(self):
+        out = self.buffers
+        for k in range(self.n_steps):
+            out = simulation_step(out, self.cfg, self.scene_buffers,
+                                  volume_step=self.first + k)
+        graph._load(self.buffers, out)
+
+
+@pytest.fixture
+def stand_in(monkeypatch):
+    """jit_step on CPU states through the graph cache, each capture a
+    StandInGraph; records whether a capture asked for the warm-up."""
+    def capture(state, cfg, n_steps, scene, first, phase, warm_up):
+        buffers = FluidState(*(t.clone() for t in state))
+        scene_buffers = None if scene is None else type(scene)(
+            *(None if t is None else t.clone() for t in scene))
+        graph.captures.append({"n_steps": n_steps, "phase": phase,
+                               "warm_up": warm_up})
+        return graph._Entry(StandInGraph(cfg, n_steps, first,
+                                         (buffers, scene_buffers)),
+                            buffers, scene_buffers)
+    monkeypatch.setattr(graph, "on_cuda", lambda t: True)
+    monkeypatch.setattr(graph, "_capture", capture)
+    graph.clear_graphs()
+    yield torch.device("cpu")
+    graph.clear_graphs()
+
+
+@pytest.mark.parametrize("name,b_steps", [("plain", 2), ("volume", 3)])
+def test_lineages_keep_their_entries_behind_a_stand_in(stand_in, name,
+                                                       b_steps):
+    """Two lineages of one key in turn, each bitwise against its own
+    eager steps; with the volume cadence every 2 at different phases.  One
+    warm-up a key, however many entries it has."""
+    cfg = CFG.replace(**(VOLUME if name == "volume" else {}))
+    n0 = len(graph.captures)
+    step_two_lineages(cfg, stand_in, b_steps)
+    made = graph.captures[n0:]
+    keys = [(c["n_steps"], c["phase"]) for c in made]
+    assert [c["warm_up"] for c in made] == \
+        [keys.index(k) == i for i, k in enumerate(keys)]
+    if name == "plain":
+        assert keys == [(1, None), (1, None), (3, None), (3, None)]
+
+
+def test_dropped_lineage_entry_is_reused_behind_a_stand_in(stand_in):
+    reuse_dropped_lineage(CFG, stand_in)
+
+
+def test_returned_state_is_consumed_only_when_passed_in(stand_in):
+    """A returned state is written by the call given it, and by no other
+    call; a state no entry owns is left as it was."""
+    s0 = initial_state(CFG, stand_in)
+    keep0 = cloned(s0)
+    s1 = jit_step(s0, CFG)
+    assert_states_equal(s0, keep0, "foreign state")
+    keep1 = cloned(s1)
+    other = jit_step(initial_state(CFG, stand_in), CFG)
+    assert_states_equal(s1, keep1, "another lineage's call")
+    s2 = jit_step(s1, CFG)
+    assert s2.velocity.data_ptr() == s1.velocity.data_ptr()
+    assert_states_equal(s2, step(keep1, CFG), "replay in place")
+    assert other.velocity.data_ptr() != s2.velocity.data_ptr()
+
+
 @pytest.mark.parametrize("call", [
     lambda s: jit_multi_step(s, CFG, 0)])
 def test_bad_calls_raise(call):
@@ -131,10 +252,6 @@ CARD_CFGS = {
     "16": CFG.replace(grid_size=(16, 16, 16)),
     "16-fused": CFG.replace(grid_size=(16, 16, 16), grid_fused=True),
 }
-
-
-def cloned(state):
-    return type(state)(*(t.clone() for t in state))
 
 
 @pytest.mark.cuda
@@ -220,3 +337,22 @@ def test_cuda_volume_cadence_across_replays(cuda_device):
     s3 = jit_step(s2, cfg)
     assert_states_equal(s3, step(keep2, always), "phase 0 again")
     assert [c["phase"] for c in graph.captures[n0:]] == [0, 1]
+
+
+@pytest.mark.cuda
+def test_cuda_two_lineages_of_one_key_step_apart(cuda_device):
+    """Two lineages of one key in turn, 3 jit_steps and a jit_multi_step
+    of 3 each, bitwise against their own eager steps."""
+    step_two_lineages(CARD_CFGS["16"], cuda_device, 2)
+
+
+@pytest.mark.cuda
+def test_cuda_two_lineages_at_two_volume_phases(cuda_device):
+    """The same with the volume cadence every 2, the lineages at phases 0
+    and 1."""
+    step_two_lineages(CARD_CFGS["16"].replace(**VOLUME), cuda_device, 3)
+
+
+@pytest.mark.cuda
+def test_cuda_dropped_lineage_entry_is_reused(cuda_device):
+    reuse_dropped_lineage(CARD_CFGS["16"], cuda_device)

@@ -3,8 +3,10 @@ the JAX package's Pallas kernel in the Pallas interpreter, at the grid of
 tests/test_grid_fused.py, with and without solid boxes and extra forces;
 K6a's pooled plain version (stage 01 taken in) against JAX's
 `occupancy_to_sim_grid` followed by its kernel, at pools 1-3; the
-wrappers' checks.  The wrappers' CPU routing and the CUDA kernels against
-their plain versions are cases of tests/test_torch_kernels.py.
+wrappers' checks; K6c's halo form over 4 slabs, with NaN in the halo
+planes it does not read, against its single-device form.  The wrappers'
+CPU routing and the CUDA kernels against their plain versions are cases
+of tests/test_torch_kernels.py.
 
 Cell types must be equal.  f32 results must agree within 1 ULP of the
 field's scale: XLA:CPU may contract a*b+c into one fused multiply-add
@@ -28,7 +30,10 @@ from tpu_fluid_torch.kernels.grid_fused import (classify_extrap_cuda,
                                                 classify_extrap_plain,
                                                 forces_solids_div_cuda,
                                                 forces_solids_div_plain,
-                                                project_cuda, project_plain)
+                                                project_cuda,
+                                                project_halo_cuda,
+                                                project_halo_plain,
+                                                project_plain)
 
 torch.set_num_threads(2)
 EPS = np.finfo(np.float32).eps
@@ -171,17 +176,17 @@ def wrapper_calls(device="cpu"):
     ]
 
 
-# K6a at pools 1-3 and K6b at odd non-cubic grids: several y and z tiles
-# and x segments on the card
+# K6a at pools 1-3, K6b and K6c at odd non-cubic grids: several y and z
+# tiles and x segments on the card
 ODD_GRIDS = [(13, 22, 17), (37, 45, 29)]
 POOLS = [1, 2, 3]
 
 
 def odd_wrapper_calls(device="cpu"):
-    """(wrapper, plain, args, kwargs): K6a at each pool and K6b, at each
-    odd grid, with a solid box and an extra force, and the fountain and
-    the force cell wet; then K6a with no solid box: cases of the wrapper
-    tests in tests/test_torch_kernels.py."""
+    """(wrapper, plain, args, kwargs): K6a at each pool, K6b and K6c, at
+    each odd grid, with a solid box and an extra force, and the fountain
+    and the force cell wet; then K6a with no solid box: cases of the
+    wrapper tests in tests/test_torch_kernels.py."""
     calls = []
     for i, shape in enumerate(ODD_GRIDS):
         r = np.random.default_rng(50 + i)
@@ -204,6 +209,10 @@ def odd_wrapper_calls(device="cpu"):
             types[cell[0], cell[1] - 1:cell[1] + 1, cell[2]] = 2
         calls.append((forces_solids_div_cuda, forces_solids_div_plain,
                       (T(types).to(device), T(vel).to(device), cfg), {}))
+        p = (50.0 * r.standard_normal(shape)).astype(np.float32)
+        calls.append((project_cuda, project_plain,
+                      tuple(T(a).to(device) for a in (types, p, vel))
+                      + (cfg,), {}))
     # no solid box, as in the scaled scenes
     occ = sparse_occupancy(r, shape, 2)
     calls.append((classify_extrap_cuda, classify_extrap_plain,
@@ -238,3 +247,63 @@ def test_wrappers_reject_bad_inputs():
         project_cuda(types, p.double(), vel, cfg)
     with pytest.raises(ValueError):
         project_cuda(types, p.transpose(0, 2), vel, cfg)
+
+
+# ------------------------------------------------------------- K6c slabs
+# Stage 13 reads only lower neighbours, and K6c's halo form reads of its
+# halo planes only the left ones of the types and pressure.  Its slabs
+# stitched together equal the single-device form, with the right planes
+# and both velocity planes NaN (the right type plane WATER).
+PROJECT_SLABS = 4
+
+
+def project_by_slabs(wrapper, types, p, vel, cfg):
+    gx, n = types.shape[0], PROJECT_SLABS
+    lx = gx // n
+    out = []
+    for k in range(n):
+        rows = slice(k * lx, (k + 1) * lx)
+        left = slice(k * lx - 1, k * lx) if k else None
+
+        def halo(a):
+            lo = (a[..., left, :, :] if left else
+                  torch.zeros_like(a[..., :1, :, :]))
+            return (lo.contiguous(),
+                    torch.full_like(a[..., :1, :, :],
+                                    2 if a.dtype == torch.uint8
+                                    else float("nan")))
+
+        def nan_pair(a):
+            return tuple(torch.full_like(a[:, :1], float("nan"))
+                         for _ in range(2))
+
+        out.append(wrapper(
+            *(a[..., rows, :, :].contiguous() for a in (types, p, vel)),
+            cfg, halos=(halo(types), halo(p), nan_pair(vel)), x0=k * lx,
+            global_gx=gx))
+    return torch.cat(out, dim=1)
+
+
+def project_slab_case(device):
+    _, cfg = configs(dt=0.013, fluid_density=0.7, cell_width=1.3)
+    _, types, vel, p = fields(6)
+    return tuple(T(a).to(device) for a in (types, p, vel)) + (cfg,)
+
+
+def test_project_slabs_equal_the_single_device_form():
+    args = project_slab_case("cpu")
+    same(project_by_slabs(project_halo_plain, *args), project_plain(*args))
+    same(project_by_slabs(project_halo_cuda, *args), project_cuda(*args))
+
+
+@pytest.mark.cuda
+def test_cuda_project_slabs_equal_the_single_device_form():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are compiled and run "
+                    "only there")
+    args = project_slab_case(torch.device("cuda", 0))
+    whole = project_cuda(*args)
+    slabs = project_by_slabs(project_halo_cuda, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(slabs, whole)
+    assert torch.equal(whole, project_plain(*args))

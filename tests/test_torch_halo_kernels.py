@@ -7,8 +7,10 @@ version on the same rows, bitwise.  K3+K4's local-slab form, which
 domain-sharded particles run, is held against JAX's table and
 `sample_and_move` on a numpy-built edge-replicated slab, stragglers
 included.  On a CUDA card only (marked `cuda`), each halo-form CUDA kernel
-against its plain version, bitwise (K6a and K6b also at every shard of an
-odd grid).
+against its plain version, bitwise (K6a, K6b and K6c also at every shard
+of an odd grid).  K6c's halo form reads no right halo plane and no
+velocity plane: NaN there leaves its result as it was, on the CPU and on
+the card.
 
 `jacobi_sweeps_sharded`, whose passes exchange planes with the neighbours,
 is held against JAX under shard_map in tests/test_torch_spmd.py.
@@ -492,8 +494,8 @@ def halo_calls(device):
                          for a in (q0, code, fold_c2e(q0, code, c2)))]
         calls.append((jacobi_pass_cuda, jacobi_pass_plain,
                       tuple(ext) + (h, kk), {}))
-    # K6a and K6b at every shard of an odd grid split 3 ways: 13-row slabs,
-    # two tiles along y
+    # K6a, K6b and K6c at every shard of an odd grid split 3 ways: 13-row
+    # slabs, two tiles along y
     shape = ODD_GRID
     r = np.random.default_rng(100)
     cfg = FluidConfig(grid_size=shape, fountain_position=(19, 19, 8),
@@ -504,12 +506,14 @@ def halo_calls(device):
     types = random_types(r, shape)
     types[19, 18:20, 8], types[12, 10:12, 5] = 2, 2
     vel = (3.0 * r.standard_normal((3,) + shape)).astype(np.float32)
+    p = (50.0 * r.standard_normal(shape)).astype(np.float32)
     for shard in SHARDS:
         for wrapper, plain, arrays, h in (
                 (classify_extrap_halo_cuda, classify_extrap_halo_plain,
                  (occ, old, vel), 2),
                 (forces_solids_div_halo_cuda, forces_solids_div_halo_plain,
-                 (types, vel), 1)):
+                 (types, vel), 1),
+                (project_halo_cuda, project_halo_plain, (types, p, vel), 1)):
             parts = [slab(a, shard, h=h) for a in arrays]
             calls.append((wrapper, plain,
                           tuple(dev(q[0]) for q in parts) + (cfg,),
@@ -521,7 +525,7 @@ def halo_calls(device):
 
 
 ODD_GRID = (39, 45, 17)
-N_HALO_CALLS = 28
+N_HALO_CALLS = 31
 
 
 @pytest.fixture
@@ -556,3 +560,45 @@ def test_halo_wrapper_on_cpu_runs_plain_version_without_launch(case):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert wrapper.launches == before
+
+
+def project_halo_unread(device, shard):
+    """(K6c's halo-form arguments at `shard` with the right halo planes
+    and both velocity halo planes replaced, the same with the true planes)
+    at the odd grid: the right type plane all WATER, every replaced float
+    NaN."""
+    _, cfg = configs(dt=0.013, fluid_density=0.7, cell_width=1.3)
+    r = np.random.default_rng(110 + shard)
+    types = random_types(r, ODD_GRID)
+    p = (50.0 * r.standard_normal(ODD_GRID)).astype(np.float32)
+    vel = (3.0 * r.standard_normal((3,) + ODD_GRID)).astype(np.float32)
+    parts = [slab(a, shard, h=1) for a in (types, p, vel)]
+    dev = lambda a: T(a).to(device)                   # noqa: E731
+    true = tuple((dev(q[1][0]), dev(q[1][1])) for q in parts)
+    nan = lambda a: torch.full_like(a, float("nan"))  # noqa: E731
+    (t_lo, t_hi), (p_lo, p_hi), (v_lo, v_hi) = true
+    unread = ((t_lo, torch.full_like(t_hi, 2)), (p_lo, nan(p_hi)),
+              (nan(v_lo), nan(v_hi)))
+    args = tuple(dev(q[0]) for q in parts) + (cfg,)
+    kw = dict(x0=shard * ODD_GRID[0] // N_SHARDS, global_gx=ODD_GRID[0])
+    return args, dict(kw, halos=unread), dict(kw, halos=true)
+
+
+@pytest.mark.parametrize("shard", SHARDS)
+def test_project_halo_reads_no_right_or_velocity_plane(shard):
+    """K6c's halo form reads only the left planes of the types and
+    pressure: the plain version's result is the same whatever the right
+    planes and the velocity planes hold."""
+    args, unread, true = project_halo_unread("cpu", shard)
+    assert torch.equal(project_halo_plain(*args, **unread),
+                       project_halo_plain(*args, **true))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shard", SHARDS)
+def test_cuda_project_halo_reads_no_right_or_velocity_plane(cuda_device,
+                                                             shard):
+    args, unread, true = project_halo_unread(cuda_device, shard)
+    got = project_halo_cuda(*args, **unread)
+    torch.cuda.synchronize()
+    assert torch.equal(got, project_halo_plain(*args, **true))

@@ -383,7 +383,8 @@ ODD_SURFACE = [(0, np.uint8), (1, np.int32), (4, np.uint8), (4, np.int32),
 
 def _wrapper_calls(device="cpu"):
     """(wrapper, plain, args, kwargs) at small shapes, then K2 and K5 at
-    the odd shapes, then K6a at pools 1-3 and K6b at the odd shapes."""
+    the odd shapes, then K6a at pools 1-3, K6b and K6c at the odd
+    shapes."""
     vel, _ = advect_inputs((6, 7, 8), 7)
     types = random_types(np.random.default_rng(7), (6, 7, 8))
     q0, code, c2 = jacobi_inputs(6, 8)
@@ -422,7 +423,7 @@ def odd_surface_cfg(steps, inertia_dtype):
     return cfg.replace(max_inertia=300) if inertia_dtype == np.int32 else cfg
 
 
-N_CALLS = 7 + len(ODD_JACOBI) + len(ODD_SURFACE) + 9
+N_CALLS = 7 + len(ODD_JACOBI) + len(ODD_SURFACE) + 11
 
 
 @pytest.mark.parametrize("case", range(N_CALLS))

@@ -1,6 +1,6 @@
 """The launch plans of the marching kernels (`kernels/tiling.py`): K2's
-routes and passes, K5's launches and K1's, K6a's and K6b's passes, checked
-on the CPU before any card runs them.
+routes and passes, K5's launches and K1's, K6a's, K6b's and K6c's passes,
+checked on the CPU before any card runs them.
 
 A torch emulation follows a plan block by block, as the CUDA kernels do:
 each block computes its levels from its own window (its output rows and
@@ -12,7 +12,9 @@ that is one short leaves a stale ring or a NaN in the result.  The
 geometry is what the kernels are given (`Pass.blocks` lists each block's
 box as the kernel derives it from its block index)."""
 
+import dataclasses
 import inspect
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -26,7 +28,8 @@ from tpu_fluid_torch.kernels.advect import (advect_from_types_halo_plain,
                                             advect_from_types_plain)
 from tpu_fluid_torch.kernels.grid_fused import (
     classify_extrap_halo_plain, classify_extrap_plain,
-    forces_solids_div_halo_plain, forces_solids_div_plain)
+    forces_solids_div_halo_plain, forces_solids_div_plain,
+    project_halo_plain, project_plain)
 from tpu_fluid_torch.kernels.jacobi import (fold_c2e, jacobi_pass_plain,
                                             jacobi_sweeps_plain)
 from tpu_fluid_torch.kernels.surface_fused import (_blur, _surface,
@@ -462,6 +465,86 @@ def test_k6_halo_plan_blocks_see_their_windows(kind, shard):
     sharded step pools its slab before K6a, so K6a runs at pool 1."""
     p, ext, run, inside, r = k6_halo_case(kind, shard, 31 + shard)
     check_k6_plan(p, ext, (1,) * len(ext), run, inside, r)
+
+
+# ------------------------------------------------------------------ K6c
+# K6c reads the types and pressure of the cell below along each axis and
+# the velocity of its own cell only: a block's window is its box with a
+# low ring of the types and pressure and no ring of the velocity, and its
+# tile has no halo.  (12, 40, 70) adds tiles along z.
+PROJECT_RINGS = ((1, 0), (1, 0), (0, 0))
+PROJECT_SHAPES = K6_SHAPES + [(12, 40, 70)]
+
+
+def k6c_fields(shape, seed):
+    """A config with a solid box, cell types with the solid border, and a
+    pressure and velocity from a numpy seed."""
+    cfg, r, types, _, _ = k6_case(shape, seed)
+    p = T((r.standard_normal(shape) * 50).astype(np.float32))
+    vel = T((r.standard_normal((3,) + shape) * 3).astype(np.float32))
+    return cfg, r, (types, p, vel)
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("shape", PROJECT_SHAPES)
+def test_project_plan_blocks_see_their_windows(shape, sms):
+    cfg, r, fields = k6c_fields(shape, 41)
+    p = tiling.project_pass(shape, sms=sms)
+    assert (p.levels, p.halo, p.xs, p.xe, p.out_x0) == \
+        (1, 0, 0, shape[0], 0)
+    assert (p.inner_y, p.inner_z) == (tiling.PROJECT_ROWS,
+                                      tiling.PROJECT_COLS)
+    check_k6_plan(p, fields, (1, 1, 1),
+                  lambda *f: (project_plain(*f, cfg),),
+                  torch.ones(shape[0], dtype=torch.bool), r, PROJECT_RINGS)
+
+
+@pytest.mark.parametrize("shard", [0, 1, 3])
+def test_project_halo_plan_blocks_see_their_windows(shard):
+    """The halo form at the first, a middle and the last of 4 slabs of
+    (40, 45, 70).  The kernel runs the slab's own plan and reads the left
+    planes of the types and pressure as the row before the slab's first:
+    here that plan is shifted by the one left plane the extended fields
+    hold, and the right planes and the velocity's lie outside every
+    window."""
+    shape = (40, 45, 70)
+    cfg, r, fields = k6c_fields(shape, 71 + shard)
+    lx = shape[0] // SHARDS
+    x0 = shard * lx
+    rows = np.arange(x0 - 1, x0 + lx + 1)
+    inside = T((rows >= 0) & (rows < shape[0]))
+    idx = T(np.clip(rows, 0, shape[0] - 1))
+    ext = [torch.where(inside.reshape(-1, 1, 1), a[..., idx, :, :],
+                       torch.zeros_like(a[..., idx, :, :])) for a in fields]
+
+    def run(*e):
+        return (project_halo_plain(
+            *(a[..., 1:1 + lx, :, :].contiguous() for a in e), cfg,
+            halos=tuple((a[..., :1, :, :].contiguous(),
+                         a[..., 1 + lx:, :, :].contiguous()) for a in e),
+            x0=x0, global_gx=shape[0]),)
+    p = tiling.project_pass((lx,) + shape[1:], sms=3)
+    assert (p.xs, p.xe, p.out_x0) == (0, lx, 0)
+    shifted_plan = dataclasses.replace(p, shape=tuple(ext[0].shape), xs=1,
+                                       xe=1 + lx, out_x0=1)
+    (want,) = check_k6_plan(shifted_plan, ext, (1, 1, 1), run, inside, r,
+                            PROJECT_RINGS)
+    assert torch.equal(want, project_plain(*fields, cfg)[:, x0:x0 + lx])
+
+
+def test_project_pass_matches_the_kernel():
+    """The plan's tile is the kernel's; 256^3 marches 2 segments of 128
+    rows, a 64-row slab 2 of 32: one wave of blocks, not one plane a
+    block."""
+    src = (Path(tiling.__file__).parents[1] / "csrc" / "grid_fused.cu"
+           ).read_text()
+    assert f"constexpr int kProjectCols = {tiling.PROJECT_COLS};" in src
+    assert "kProjectRows = kTilePlane / kProjectCols;" in src
+    assert tiling.PROJECT_ROWS * tiling.PROJECT_COLS == tiling.TILE ** 2
+    big = tiling.project_pass((256,) * 3)
+    assert (big.tiles, big.seg, big.segments) == ((4, 16), 128, 2)
+    slab = tiling.project_pass((64, 256, 256))
+    assert (slab.seg, slab.segments) == (32, 2)
 
 
 # ------------------------------------------------------------------ K1

@@ -21,22 +21,18 @@ positions and active flags of `scaled_scene(256)` after 2 steps; K2
 solves the folded system of a random cell field for 199 sweeps at 20^3,
 128^3 and 256^3; K5 runs 4 blur passes at the detailed grids 100^3, 256^3
 and 512^3; K6a (stages 01-06) takes the 512^3 detailed occupancy at pool
-2 and K6b (08-11) its 256^3 fields; and at shard 1 of `scaled_scene(256)`
-split 4 ways, K1's halo form runs on a 64 x 256^2 slab with 2 velocity
-planes and 1 type plane a side, K2's sharded pass runs 8 sweeps on an 80 x
-256^2 slab, K5's halo form runs on a 128 x 512^2 slab with 5 halo planes a
-side, K6a's and K6b's halo forms on 64 x 256^2 slabs with 2 and 1, and
-K3+K4's local-slab form moves that slab's particles and 20,000
-stragglers.  A tree whose K1 takes the condition masks and whose K3+K4
-returns the positions alone (the parent of the commit that took both
-in) is timed with its own plain passes beside them (`parent_shims`): its
-condition masks in front of K1, its occupancy scatter after K3+K4, so
-that both trees compute the same function from the same inputs.  Each
-line printed is one JSON object with the tree's label, the kernel, the
-scene, the input shape, the mean ms by CUDA events over `REPS` calls after
-two warm-up calls, the kernel launches one call made (where the tree
-counts them) and a digest of the output bytes, which must agree between
-trees: both are bitwise equal to the same plain version.
+2 and K6b (08-11) and K6c (13) their 256^3 fields; and at shard 1 of
+`scaled_scene(256)` split 4 ways, K1's halo form runs on a 64 x 256^2 slab
+with 2 velocity planes and 1 type plane a side, K2's sharded pass runs 8
+sweeps on an 80 x 256^2 slab, K5's halo form runs on a 128 x 512^2 slab
+with 5 halo planes a side, K6a's, K6b's and K6c's halo forms on 64 x 256^2
+slabs with 2, 1 and 1, and K3+K4's local-slab form moves that slab's
+particles and 20,000 stragglers.  Each line printed is one JSON object
+with the tree's label, the kernel, the scene, the input shape, the mean ms
+by CUDA events over `REPS` calls after two warm-up calls, the kernel
+launches one call made (where the tree counts them) and a digest of the
+output bytes, which must agree between trees: both are bitwise equal to
+the same plain version.
 
 `--split`: `SPLIT_STEPS` steps of scaled_scene(256) after one warm-up,
 with CUDA events around every stage call of `solver/step.py` and the
@@ -59,7 +55,6 @@ import argparse
 import functools
 import hashlib
 import importlib
-import inspect
 import json
 import re
 import statistics
@@ -75,10 +70,11 @@ REPS = {"reference": 200, "bench": 20, "large": 8, "large shard 1/4": 10}
 REPS["large scene"] = REPS["large"]
 SCENE_KERNELS = ("advect_all_cuda", "jacobi_sweeps_cuda",
                  "particle_move_cuda", "surface_fused_cuda",
-                 "classify_extrap_cuda", "forces_solids_div_cuda")
+                 "classify_extrap_cuda", "forces_solids_div_cuda",
+                 "project_cuda")
 HALO_KERNELS = ("advect_all_halo_cuda", "jacobi_pass_cuda",
                 "surface_fused_halo_cuda", "classify_extrap_halo_cuda",
-                "forces_solids_div_halo_cuda")
+                "forces_solids_div_halo_cuda", "project_halo_cuda")
 SPLIT_STEPS = 5
 # (module, function, label, top level): the stage calls of
 # solver/step.simulation_step on the fused path, and inside stages 07
@@ -86,10 +82,6 @@ SPLIT_STEPS = 5
 SPLIT = (
     ("kernels.grid_fused", "classify_extrap_cuda", "K6a (01-06)", True),
     ("stages.velocity", "advect", "07 advect", True),
-    ("stages.velocity", "_advect_conditions", "07 condition masks (plain)",
-     False),
-    ("stages.velocity", "advect_conditions", "07 condition masks (plain)",
-     False),
     ("stages.velocity", "advect_all_cuda", "07 K1", False),
     ("kernels.grid_fused", "forces_solids_div_cuda", "08-11 K6b", True),
     ("stages.pressure", "jacobi_solve", "12 pressure solve", True),
@@ -98,10 +90,6 @@ SPLIT = (
     ("kernels.grid_fused", "project_cuda", "13 K6c", True),
     ("stages.particles", "move_and_scatter",
      "14-15 move and scatter (K3+K4)", True),
-    ("stages.particles", "move_particles", "14 move particles (K3+K4)",
-     True),
-    ("stages.particles", "detailed_occupancy",
-     "15 occupancy scatter (plain)", True),
     ("stages.surface_fields", "update_surface_fields", "16-18 K5", True),
 )
 
@@ -113,53 +101,9 @@ def digest(tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def parent_shims() -> None:
-    """Give a tree whose K1 takes the condition masks (`cond3`) and whose
-    K3+K4 returns the positions alone this checkout's signatures, computing
-    the same functions: its masks and then its K1 (the halo form from the
-    slab's types with one neighbour plane a side), its K3+K4 and then its
-    plain occupancy scatter.  The plain versions `chip_smoke.py` imports
-    beside them are not timed here and stay unset."""
-    from tpu_fluid_torch.kernels import advect, particle_move
-    if "cond3" in inspect.signature(advect.advect_all_cuda).parameters:
-        from tpu_fluid_torch.stages.velocity import _advect_conditions
-        k1, k1_halo = advect.advect_all_cuda, advect.advect_all_halo_cuda
-
-        @functools.wraps(k1)
-        def advect_all_cuda(vel, types, r, dt):
-            return k1(vel, _advect_conditions(types), r, dt)
-
-        @functools.wraps(k1_halo)
-        def advect_all_halo_cuda(vel, types_e, r, dt, halo, x0, shape):
-            lx = vel.shape[1]
-            cond3 = _advect_conditions(types_e, x0 - 1)[:, 1:lx + 1]
-            return k1_halo(vel, cond3.contiguous(), r, dt, halo, x0, shape)
-
-        advect.advect_all_cuda = advect_all_cuda
-        advect.advect_all_halo_cuda = advect_all_halo_cuda
-        advect.advect_from_types_plain = None
-        advect.advect_from_types_halo_plain = None
-    if "res" not in inspect.signature(
-            particle_move.particle_move_cuda).parameters:
-        from tpu_fluid_torch.core.config import FluidConfig
-        from tpu_fluid_torch.stages.particles import detailed_occupancy
-        k34 = particle_move.particle_move_cuda
-
-        @functools.wraps(k34)
-        def particle_move_cuda(vel, pos, active, dt, res):
-            moved = k34(vel, pos, active, dt)
-            cfg = FluidConfig(grid_size=tuple(vel.shape[1:]),
-                              surface_render_resolution=res)
-            return moved, detailed_occupancy(moved, active, cfg)
-
-        particle_move.particle_move_cuda = particle_move_cuda
-        particle_move.particle_move_occupancy_plain = None
-
-
 def time_kernels(label, chip_smoke, device) -> None:
     import torch
     from tpu_fluid_torch import FluidConfig, initial_state
-    parent_shims()
 
     def report(scene, kernel, call_args, kw):
         module = importlib.import_module(kernel.__module__)

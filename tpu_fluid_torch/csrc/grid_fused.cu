@@ -2,7 +2,7 @@
 //
 //   K6a classify_march_kernel   stages 01-06 (01: the occupancy max-pool)
 //   K6b forces_march_kernel     stages 08, 10 and 11 (09 is the no-op)
-//   K6c project_kernel          stage 13
+//   K6c project_march_kernel    stage 13
 //
 // Replaces tpu_fluid/kernels/grid_fused.py:classify_extrap_pallas,
 // forces_solids_div_pallas and project_pallas (kernel bodies
@@ -20,17 +20,20 @@
 // byte and 12 velocity bytes a cell and writes 13 (about 570 MB at 256^3);
 // K6b reads 13 and writes 16 bytes a cell, K6c reads 17 and writes 12.
 // One thread a cell with a bounds-checked 64-bit read of every neighbour
-// recomputed K6a's new type 4 times a cell and K6b's forced velocity 6
-// times, and reached 14-20% of the bytes bound (PERF.md has its register
-// and instruction counts).  K6a and K6b now march like K2 and K5 (kernels/tiling.py plans them): a
-// block of 32 x 32 threads owns a y-z tile with a 2-cell (K6a) or 1-cell
-// (K6b) halo and walks along its segment of x, one plane a step, every
-// plane load issued kPrefetch steps before its use.  Each value another
-// cell needs is computed once, by its own thread, and passed on through a
+// and 64-bit division for its coordinates recomputed K6a's new type 4
+// times a cell and K6b's forced velocity 6 times, and held K6a and K6b at
+// 14-20% of the bytes bound and K6c's halo form at 29% (PERF.md).  All
+// three now march like K2 and K5 (kernels/tiling.py plans them): a block
+// of 32 x 32 threads owns a y-z tile with a 2-cell (K6a) or 1-cell (K6b)
+// halo, or none and a low ring (K6c, which reads only lower neighbours),
+// and walks along its segment of x, one plane a step, every plane load
+// issued kPrefetch steps before its use.  Each value another cell needs is
+// computed or loaded once, by its own thread, and passed on through a
 // shared-memory plane (double-buffered, with a ring of zeros that is never
-// written, so no neighbour read is tested) or, along x, through the
-// thread's registers.  Index math is 32-bit with running offsets; the
-// entry points refuse fields whose offsets do not fit.
+// written where it lies outside the domain, so no neighbour read is
+// tested) or, along x, through the thread's registers.  Index math is
+// 32-bit with running offsets; the entry points refuse fields whose
+// offsets do not fit.
 //
 // K6a, step t: load the occupancy of plane t + 1 (pooled from the pool^3
 // detailed cells under each sim cell, z-contiguous), the old types and
@@ -40,15 +43,21 @@
 // K6b, step t: load the types of plane t + 1 and the velocity of plane t;
 // compute stages 08 and 10 at plane t and write it; then the divergence of
 // plane t - 1 from the forced velocity of planes t - 1 and t.
+// K6c, step t: load the types, pressure and velocity of plane t and the
+// ring's types and pressure; project plane t from them and from plane
+// t - 1's types and pressure.
 //
 // Halo forms (the x-slab multi-device step: the `halos`, `x0` and
-// `global_gx` arguments of the JAX wrappers): the inputs hold the local
-// slab with its neighbour planes, 2 a side for K6a and 1 for K6b and K6c,
-// nx rows whose row 0 lies at global x xb; the output is rows [xs, xe) of
-// the inputs.  Cell coordinates, the border and box SOLID rule, the
-// fountain and force cells and the out-of-domain zero are all global, so
-// every row equals the single-device row.  Single device: xb = 0, gx = nx
-// and [xs, xe) = [0, nx).  The halo form of K6a runs at pool 1.
+// `global_gx` arguments of the JAX wrappers): the inputs of K6a and K6b
+// hold the local slab with its neighbour planes, 2 a side for K6a and 1
+// for K6b, nx rows whose row 0 lies at global x xb; the output is rows
+// [xs, xe) of the inputs.  K6c reads the slab and, through pointers of
+// their own, the types and pressure of its left neighbour plane: it reads
+// no right plane and no velocity plane.  Cell coordinates, the border and
+// box SOLID rule, the fountain and force cells and the out-of-domain zero
+// are all global, so every row equals the single-device row.  Single
+// device: xb = 0, gx = nx and [xs, xe) = [0, nx).  The halo form of K6a
+// runs at pool 1.
 
 #include "common.cuh"
 
@@ -551,68 +560,146 @@ __global__ void __launch_bounds__(kTilePlane, 1)
 }
 
 // --------------------------------------------------------------- stage 13
-// The domain (gx, gy, gz), the output rows [x0, x0 + lx) and the input
-// rows [xb, xb + mx), all in global x; one thread a cell.
-struct Grid {
-  int gx, gy, gz, x0, lx, xb, mx;
+// K6c's tile: kProjectRows rows (y) of kProjectCols cells (z), one thread
+// a cell, a warp 32 cells of one row (kernels/tiling.py PROJECT_ROWS and
+// PROJECT_COLS).  The stage reads only lower neighbours, so a tile is its
+// block's output, with a low ring below it.  At 256^3, 16 x 64 tiles ran
+// 2% faster than 32 x 32 ones (PERF.md).
+constexpr int kProjectCols = 64;
+constexpr int kProjectRows = kTilePlane / kProjectCols;
+// a shared plane: the ring row and the tile's rows, each row the ring
+// cell and the tile's cells; rounded up to the 16 bytes zero_shared
+// writes at once
+constexpr int kProjectPitch = kProjectCols + 1;
+constexpr int kProjectPlane = ((kProjectRows + 1) * kProjectPitch + 15) / 16
+                              * 16;
 
-  // output cells (one component)
-  __device__ long long cells() const {
-    return static_cast<long long>(lx) * gy * gz;
-  }
-  // input cells (one component)
-  __device__ long long mem_cells() const {
-    return static_cast<long long>(mx) * gy * gz;
-  }
-  __device__ bool inside(const int* p) const {
-    return p[0] >= 0 && p[0] < gx && p[1] >= 0 && p[1] < gy && p[2] >= 0
-           && p[2] < gz;
-  }
-  // index of p in the inputs
-  __device__ long long at(const int* p) const {
-    return (static_cast<long long>(p[0] - xb) * gy + p[1]) * gz + p[2];
-  }
-  // global coordinates of output cell `cell`
-  __device__ void coords(long long cell, int* p) const {
-    p[2] = static_cast<int>(cell % gz);
-    p[1] = static_cast<int>((cell / gz) % gy);
-    p[0] = x0 + static_cast<int>(cell / (static_cast<long long>(gy) * gz));
-  }
+// One plane of a K6c thread's loads: the types, pressure and velocity of
+// its cell, and for the tile's first row and column the types and
+// pressure of the cell below it along y and along z (the low ring).
+struct ProjectPlane {
+  int t, t_y, t_z;
+  float p, p_y, p_z;
+  float v[3];
 };
 
-__global__ void project_kernel(const uint8_t* __restrict__ types,
-                               const float* __restrict__ pressure,
-                               const float* __restrict__ vel,
-                               float* __restrict__ out, Grid g,
-                               float scale) {
-  const long long n = g.cells();
-  const long long nm = g.mem_cells();
-  const long long cell = blockIdx.x * static_cast<long long>(blockDim.x)
-                         + threadIdx.x;
-  if (cell >= n) return;
-  int p[3];
-  g.coords(cell, p);
-  const long long here = g.at(p);
-  const int t = types[here];
-  const bool water = t == kWater;
-  const bool solid = t == kSolid;
-  const float pc = pressure[here];
-  for (int c = 0; c < 3; ++c) {
-    int q[3] = {p[0], p[1], p[2]};
-    q[c] -= 1;
-    bool lo_water = false;
-    bool lo_solid = false;
-    float plo = 0.0f;
-    if (g.inside(q)) {
-      const long long j = g.at(q);
-      lo_water = types[j] == kWater;
-      lo_solid = types[j] == kSolid;
-      plo = pressure[j];
+// K6c, step t: the thread loads plane t + kPrefetch, puts the types and
+// pressure of plane t (its cell, and the ring's) into a shared plane, and
+// projects its cell of plane t from them and from its own cell of plane
+// t - 1, which it carries in registers.
+__global__ void __launch_bounds__(kTilePlane, 1)
+    project_march_kernel(const uint8_t* __restrict__ types,
+                         const float* __restrict__ pressure,
+                         const float* __restrict__ vel,
+                         const uint8_t* __restrict__ types_left,
+                         const float* __restrict__ p_left,
+                         float* __restrict__ out, March a, float scale) {
+  // types and pressure of plane t, double-buffered; the ring cells of a
+  // tile at y = 0 or z = 0 lie outside the domain, are never written and
+  // read INACTIVE with pressure 0
+  __shared__ __align__(16) float p_planes[2][kProjectPlane];
+  __shared__ __align__(16) uint8_t ty_planes[2][kProjectPlane];
+  zero_shared(p_planes, sizeof(p_planes));
+  zero_shared(ty_planes, sizeof(ty_planes));
+  __syncthreads();
+
+  const int tid = threadIdx.y * kTile + threadIdx.x;
+  const int ty = tid / kProjectCols;
+  const int tz = tid % kProjectCols;
+  const int y = blockIdx.y * kProjectRows + ty;
+  const int z = blockIdx.x * kProjectCols + tz;
+  const bool in_yz = y < a.gy && z < a.gz;
+  const int yz = in_yz ? y * a.gz + z : 0;
+  const int me = (ty + 1) * kProjectPitch + tz + 1;
+  const int x_lo = a.xs + blockIdx.z * a.seg;
+  const int x_hi = min(x_lo + a.seg, a.xe);
+  const int plane = a.gy * a.gz;
+  const int n_out = (a.xe - a.xs) * plane;
+  const bool ring_y = ty == 0 && in_yz && y > 0;
+  const bool ring_z = tz == 0 && in_yz && z > 0;
+
+  ProjectPlane pf[kPrefetch];
+  int load_t = x_lo;
+  int at = load_t * plane + yz;
+  auto load = [&](ProjectPlane& q) {
+    q.t = q.t_y = q.t_z = kInactive;
+    q.p = q.p_y = q.p_z = 0.0f;
+    q.v[0] = q.v[1] = q.v[2] = 0.0f;
+    if (in_yz && load_t < x_hi) {
+      q.t = types[at];
+      q.p = pressure[at];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) q.v[c] = vel[c * a.nx * plane + at];
+      if (ring_y) {
+        q.t_y = types[at - a.gz];
+        q.p_y = pressure[at - a.gz];
+      }
+      if (ring_z) {
+        q.t_z = types[at - 1];
+        q.p_z = pressure[at - 1];
+      }
     }
-    const float cond = ind(p[c] != 0 && (water || lo_water) && !solid
-                           && !lo_solid);
-    const float grad = pc - plo;
-    out[c * n + cell] = vel[c * nm + here] - scale * (cond * grad);
+    ++load_t;
+    at += plane;
+  };
+#pragma unroll
+  for (int j = 0; j < kPrefetch; ++j) load(pf[j]);
+
+  // this cell at plane x_lo - 1: the row before, or the left halo plane
+  // (global x xb - 1) before the slab's first row, or outside the domain
+  int t_m1 = kInactive;
+  float p_m1 = 0.0f;
+  if (in_yz && x_lo > 0) {
+    const int j = (x_lo - 1) * plane + yz;
+    t_m1 = types[j];
+    p_m1 = pressure[j];
+  } else if (in_yz && a.xb > 0) {
+    t_m1 = types_left[yz];
+    p_m1 = p_left[yz];
+  }
+  int s = 0;  // the buffers plane t writes
+  int out_at = (x_lo - a.xs) * plane + yz;
+
+  // unrolled by two, the prefetch slots need no moves
+#pragma unroll 2
+  for (int t = x_lo; t < x_hi; ++t) {
+    const ProjectPlane q = pf[0];
+#pragma unroll
+    for (int j = 0; j + 1 < kPrefetch; ++j) pf[j] = pf[j + 1];
+    load(pf[kPrefetch - 1]);
+
+    ty_planes[s][me] = static_cast<uint8_t>(q.t);
+    p_planes[s][me] = q.p;
+    if (ring_y) {
+      ty_planes[s][me - kProjectPitch] = static_cast<uint8_t>(q.t_y);
+      p_planes[s][me - kProjectPitch] = q.p_y;
+    }
+    if (ring_z) {
+      ty_planes[s][me - 1] = static_cast<uint8_t>(q.t_z);
+      p_planes[s][me - 1] = q.p_z;
+    }
+    __syncthreads();
+
+    if (in_yz) {
+      const bool water = q.t == kWater;
+      const bool solid = q.t == kSolid;
+      const int t_lo[3] = {t_m1, ty_planes[s][me - kProjectPitch],
+                           ty_planes[s][me - 1]};
+      const float p_lo[3] = {p_m1, p_planes[s][me - kProjectPitch],
+                             p_planes[s][me - 1]};
+      const bool nonzero[3] = {a.xb + t != 0, y != 0, z != 0};
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float cond = ind(nonzero[c] && (water || t_lo[c] == kWater) &&
+                               !solid && t_lo[c] != kSolid);
+        const float grad = q.p - p_lo[c];
+        out[c * n_out + out_at] = q.v[c] - scale * (cond * grad);
+      }
+    }
+    t_m1 = q.t;
+    p_m1 = q.p;
+    out_at += plane;
+    s ^= 1;
   }
 }
 
@@ -709,18 +796,28 @@ extern "C" int tf_forces_solids_div(const uint8_t* types, const float* vel,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K6c: the domain (gx, gy, gz), output rows [x0, x0 + lx), input rows
-// [xb, xb + mx).
+// K6c, one launch of kernels/tiling.py project_pass: types, pressure and
+// vel of nx rows, row 0 at global x xb of a domain gx rows wide, all of
+// them inside it; types_left and p_left hold global row xb - 1 and are
+// read only where xb > 0; out receives the nx rows, in segments of seg
+// rows.
 extern "C" int tf_project(const uint8_t* types, const float* pressure,
-                          const float* vel, float* out, int gx, int gy,
-                          int gz, int x0, int lx, int xb, int mx, float scale,
+                          const float* vel, const uint8_t* types_left,
+                          const float* p_left, float* out, int nx, int gy,
+                          int gz, int xb, int gx, int seg, float scale,
                           void* stream) {
-  const Grid g{gx, gy, gz, x0, lx, xb, mx};
-  const long long n = static_cast<long long>(lx) * gy * gz;
-  if (n == 0) return 0;
-  project_kernel<<<tf::blocks_for(n), tf::kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      types, pressure, vel, out, g, scale);
+  March a;
+  if (xb < 0 || xb > gx - nx ||
+      (xb > 0 && (types_left == nullptr || p_left == nullptr)) ||
+      !march_of(nx, gy, gz, xb, gx, 0, nx, seg, 1, &a)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((gz + kProjectCols - 1) / kProjectCols,
+                  (gy + kProjectRows - 1) / kProjectRows,
+                  (nx + seg - 1) / seg);
+  project_march_kernel<<<grid, dim3(kTile, kTile), 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      types, pressure, vel, types_left, p_left, out, a, scale);
   ++g_launches;
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,10 +11,10 @@ and particle-render toggles (R/F), checkpointing, and per-step
 diagnostics.
 
 The state lives on the card unless `Simulation(cfg, device="cpu")` (or a
-CPU state) is given.  On the card, `self.state` is the step graph's own
-buffers, which the next replay overwrites in place: read it between
-steps, and clone it to keep it across a `step()` (JAX's donation
-invalidates a kept state; here it would change under the caller).
+CPU state) is given.  On the card, `self.state` lives in the step graph's
+buffers for this simulation's lineage: the next `step()` consumes it, as
+JAX's donation does, so clone it to keep it across a `step()`.  No other
+simulation's steps write it.
 Meshing and rendering run eagerly, outside the graph: their shapes depend
 on the data.
 """

@@ -16,8 +16,10 @@ over VMEM x-slabs with 2- or 1-row halos; on the card K6a and K6b march
 32 x 32 y-z tiles with 2- and 1-cell halos along x
 (`tiling.grid_fused_pass`), computing each cell's new type (K6a) or forced
 velocity (K6b) once and passing it to its neighbours through shared
-memory; K6c is one thread a cell.  Each group is one pass over its fields
-instead of the dozens of elementwise passes of the stage functions.
+memory; K6c marches 16 x 64 tiles with a low ring (`tiling.project_pass`),
+since stage 13 reads only lower neighbours.  Each group is one pass over
+its fields instead of the dozens of elementwise passes of the stage
+functions.
 
 The plain versions follow the kernel bodies' arithmetic, not the stage
 functions' selects: 0/1 float indicators, `(1-gone)*(born*extr +
@@ -33,10 +35,13 @@ The halo forms (`classify_extrap_halo_cuda`, `forces_solids_div_halo_cuda`,
 calls of the three JAX kernels (`halos`, `x0`, `global_gx`;
 `tpu_fluid/parallel/spmd_step.py:232-290`): the local slab of global rows
 [x0, x0 + lx) with 2 neighbour planes a side for K6a and 1 for K6b and
-K6c, zeros past the domain.  Coordinates, the SOLID rule, the force cells
-and the out-of-domain zero are global, so each row equals the
-single-device row.  K6a's halo form takes the pooled sim-grid occupancy
-(the sharded step pools its slab in plain torch).
+K6c, zeros past the domain.  K6c reads of them only the left planes of
+the types and pressure, through their own pointers (no copy of the slab);
+the wrapper takes and checks all three pairs, as JAX's does.
+Coordinates, the SOLID rule, the force cells and the out-of-domain zero
+are global, so each row equals the single-device row.  K6a's halo form
+takes the pooled sim-grid occupancy (the sharded step pools its slab in
+plain torch).
 """
 
 from __future__ import annotations
@@ -59,7 +64,7 @@ _FORCES_ARGTYPES = ((build.POINTER,) * 4 + (build.INT,) * 8
                     + (build.FLOAT,) * 2
                     + (build.POINTER, build.POINTER, build.INT,
                        build.POINTER))
-_PROJECT_ARGTYPES = ((build.POINTER,) * 4 + (build.INT,) * 7
+_PROJECT_ARGTYPES = ((build.POINTER,) * 6 + (build.INT,) * 6
                      + (build.FLOAT, build.POINTER))
 
 # Halo planes a side of the halo forms: each kernel's own halo (K6a's
@@ -108,18 +113,22 @@ def _in_domain(rows: int, xb: int, gx: int, device) -> torch.Tensor:
     return ((x >= 0) & (x < gx)).reshape(-1, 1, 1)
 
 
+def _check_halos(arrays, halos, h) -> None:
+    """Each (left, right) pair of `halos` holds h-plane halos on the x
+    axis of its local slab (X, Y, Z) or (3, X, Y, Z)."""
+    for a, pair in zip(arrays, halos):
+        shape = list(a.shape)
+        shape[a.ndim - 3] = h
+        for plane in pair:
+            require(plane, "halo plane", a.dtype, shape, a.device)
+
+
 def _with_halos(arrays, halos, h):
     """Each local slab (X, Y, Z) or (3, X, Y, Z) with its (left, right)
     h-plane halos on the x axis."""
-    out = []
-    for a, (left, right) in zip(arrays, halos):
-        ax = a.ndim - 3
-        shape = list(a.shape)
-        shape[ax] = h
-        for plane in (left, right):
-            require(plane, "halo plane", a.dtype, shape, a.device)
-        out.append(torch.cat([left, a, right], dim=ax))
-    return out
+    _check_halos(arrays, halos, h)
+    return [torch.cat([left, a, right], dim=a.ndim - 3)
+            for a, (left, right) in zip(arrays, halos)]
 
 
 def _check_global(shape, global_gx, x0):
@@ -425,14 +434,20 @@ def project_halo_plain(types, p, vel, cfg, *, halos, x0, global_gx):
     return _project(*ext, cfg, x0 - h)[:, h:-h]
 
 
-def _project_launch(types, p, vel, cfg, geometry):
-    lx = geometry[4]
-    out = torch.empty((3, lx) + tuple(vel.shape[2:]), dtype=vel.dtype,
-                      device=vel.device)
+def _project_launch(types, p, vel, cfg, xb, gx, left=(None, None)):
+    """K6c on slabs of nx rows whose row 0 lies at global x xb of a domain
+    gx rows wide; `left` holds the types and pressure of global row xb - 1
+    where xb > 0."""
+    nx, gy, gz = types.shape
     with torch.cuda.device(vel.device):
+        plan = tiling.project_pass(types.shape,
+                                   sms=build.sm_count(vel.device.index))
+        out = torch.empty_like(vel)
         stream = torch.cuda.current_stream(vel.device).cuda_stream
         build.call("tf_project", _PROJECT_ARGTYPES, types.data_ptr(),
-                   p.data_ptr(), vel.data_ptr(), out.data_ptr(), *geometry,
+                   p.data_ptr(), vel.data_ptr(),
+                   *(None if t is None else t.data_ptr() for t in left),
+                   out.data_ptr(), nx, gy, gz, xb, gx, plan.seg,
                    _project_scale(cfg), stream)
     return out
 
@@ -445,8 +460,7 @@ def project_cuda(types, p, vel, cfg):
     require(p, "p", torch.float32, shape, vel.device)
     if not on_cuda(vel):
         return project_plain(types, p, vel, cfg)
-    gx = shape[0]
-    out = _project_launch(types, p, vel, cfg, (*shape, 0, gx, 0, gx))
+    out = _project_launch(types, p, vel, cfg, 0, shape[0])
     project_cuda.launches += 1
     return out
 
@@ -456,7 +470,10 @@ project_cuda.launches = 0
 
 def project_halo_cuda(types, p, vel, cfg, *, halos, x0, global_gx):
     """K6c halo-form wrapper (arguments as `project_halo_plain`): the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+    kernel for CUDA tensors, the plain version for CPU tensors.  The
+    kernel reads the slabs and the left halo planes of the types and
+    pressure; the right planes and the velocity's are checked, not
+    read."""
     shape = _check_vel(vel)
     require(types, "types", torch.uint8, shape, vel.device)
     require(p, "p", torch.float32, shape, vel.device)
@@ -464,10 +481,9 @@ def project_halo_cuda(types, p, vel, cfg, *, halos, x0, global_gx):
         return project_halo_plain(types, p, vel, cfg, halos=halos, x0=x0,
                                   global_gx=global_gx)
     _check_global(shape, global_gx, x0)
-    h = PROJECT_HALO
-    ext = _with_halos((types, p, vel), halos, h)
-    out = _project_launch(*ext, cfg, (global_gx,) + shape[1:]
-                          + (x0, shape[0], x0 - h, shape[0] + 2 * h))
+    _check_halos((types, p, vel), halos, PROJECT_HALO)
+    left = (halos[0][0], halos[1][0])
+    out = _project_launch(types, p, vel, cfg, x0, global_gx, left)
     project_halo_cuda.launches += 1
     return out
 

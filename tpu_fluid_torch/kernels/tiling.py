@@ -1,11 +1,11 @@
 """Launch geometry of the marching stencil kernels: K2's blocked route
-(`csrc/jacobi.cu`), K5 (`csrc/surface_fused.cu`) and K6a and K6b
-(`csrc/grid_fused.cu`).
+(`csrc/jacobi.cu`), K5 (`csrc/surface_fused.cu`), K6a, K6b and K6c
+(`csrc/grid_fused.cu`) and K1 (`csrc/advect.cu`).
 
 The kernels apply a chain of 6-neighbour stencil levels (K2: Jacobi
 sweeps; K5: stage 16+17, then the blur passes; K6a: the new cell types,
 then the extrapolated velocity; K6b: the forced velocity, then the
-divergence) in each launch.  A block of
+divergence; K6c: the projection, one level) in each launch.  A block of
 TILE x TILE threads owns the (y, z) positions of an extended tile, one or
 two a thread (K5: `tile_z` = TILE along z; K2: 2 TILE): an inner tile of
 (TILE - 2 halo) x (tile_z - 2 halo) cells with `halo` rings around it.
@@ -56,10 +56,11 @@ class Pass:
     out_x0: int = 0
     fold: bool = False
     tile_z: int = TILE
+    tile_y: int = TILE
 
     @property
     def inner_y(self) -> int:
-        return TILE - 2 * self.halo
+        return self.tile_y - 2 * self.halo
 
     @property
     def inner_z(self) -> int:
@@ -262,3 +263,30 @@ def _grid_fused_pass(shape, halo, slab_halo, sms) -> Pass:
                          f"halos")
     return _pass(2, halo, shape, slab_halo, shape[0] - slab_halo, sms,
                  out_x0=slab_halo)
+
+
+# K6c's tile: PROJECT_ROWS x PROJECT_COLS (y, z) cells, one thread a cell
+# (csrc/grid_fused.cu kProjectRows, kProjectCols).
+PROJECT_COLS = 64
+PROJECT_ROWS = TILE * TILE // PROJECT_COLS
+
+
+def project_pass(shape, *, sms: int = DEFAULT_SMS) -> Pass:
+    """The one launch of K6c on a field of `shape` (rows, Y, Z), on a
+    single device or a slab: 1 level with no halo, all rows written.
+    Stage 13 reads only lower neighbours, so a block reads its box and, of
+    the types and pressure only, the plane, row and column just below it
+    (its low ring, from the left halo plane before a slab's first row),
+    and its tile is its output."""
+    return _project_pass(tuple(shape), sms)
+
+
+@functools.lru_cache(maxsize=256)
+def _project_pass(shape, sms) -> Pass:
+    probe = Pass(1, 0, shape, 0, shape[0], 1, tile_y=PROJECT_ROWS,
+                 tile_z=PROJECT_COLS)
+    tz, ty = probe.tiles
+    # a block marches its rows and about two planes more: the row before
+    # them and the prefetch's lead (costed as a 1-plane halo a side)
+    seg = segment_rows(shape[0], 1, tz * ty, sms)
+    return dataclasses.replace(probe, seg=seg)

@@ -3,27 +3,35 @@ counterparts of `tpu_fluid/solver/step.py:jit_step` and `jit_multi_step`.
 
 JAX compiles a step, or `lax.scan` over n steps, into one XLA program that
 the host dispatches once.  The port's eager step launches a few hundred
-PyTorch ops and kernels from Python, one by one.  Here the first call for
-a (config, n, device, field shapes and dtypes) records n steps into one
-CUDA graph, and every call replays it: one host call for n steps.
+PyTorch ops and kernels from Python, one by one.  Here a call for a
+(config, n, device, field shapes and dtypes) replays a CUDA graph of n
+steps: one host call for n steps.
 
-On a CUDA state, the first call for its key
-  - runs one eager step on a side stream, which builds the kernels and
-    fills every cache a step fills on the host (launch plans, the K6
-    constant tables), and drops its result;
-  - copies the state into the graph's own buffers and captures n steps
-    from them under `torch.cuda.graph`, the graph ending with a copy of
-    the n-th state back into those buffers;
-  - replays the graph once.
-Later calls replay it.
+Each such key holds a few entries: a graph, the buffers it steps (its own
+state and scene) and the step those buffers hold.  A call on a CUDA state
 
-Donation, as `donate_argnums=0` in JAX: the state returned is the graph's
-own buffers, and the next replay of that graph overwrites them in place.
-So a state returned by one call is consumed by the next call that is given
-it; clone its tensors to keep it.  A state that is not the graph's own is
-copied into its buffers first and is left as it was.  The copy back at
-the end of the graph reads and writes the whole state once per replay:
-`jit_multi_step(state, cfg, n)` pays it once per n steps.
+  - replays the entry whose buffers the state is (every field's
+    `data_ptr`), as `jit_step(jit_step(s))` does on one lineage;
+  - else takes a free entry of the key and copies the state into its
+    buffers, or captures a new entry: fresh buffers cloned from the state,
+    n steps recorded from them under `torch.cuda.graph`, the graph ending
+    with a copy of the n-th state back into those buffers.  The first
+    capture of a key runs one eager step on a side stream first, which
+    builds the kernels and fills every cache a step fills on the host
+    (launch plans, the K6 constant tables), and drops its result.
+
+Donation, as `donate_argnums=0` in JAX: a state that a call returns stays
+valid until that same state is passed back in; a call given any other
+state never writes it.  The returned tensors are new tensor objects over
+the entry's buffers, and the entry keeps weak references to them.  An
+entry is free once none of them is held (a view taken of one holds it), or
+once the state it returned was passed to a call, which consumes it.  So
+two live states of one key (two `Simulation`s, or one beside a loaded
+checkpoint) step in entries of their own, and a dropped lineage's entry is
+reused rather than captured again.  A state that is no entry's buffers is
+copied in and left as it was.  The copy back at the end of the graph reads
+and writes the whole state once per replay: `jit_multi_step(state, cfg,
+n)` pays it once per n steps.
 
 A scene (`core/scene_fields.SceneFields`) is a graph input like the
 state: the graph reads it from buffers of its own, which every call fills
@@ -33,20 +41,22 @@ Volume correction every K > 1 steps (`volume_correction_every`) runs on
 the steps with `step % K == 0` only, one branch as JAX's `lax.cond`.  A
 capture cannot read the step on the host, so each graph is also keyed on
 the phase `step % K` of its first step and has the schedule of its n steps
-unrolled into it: at most K graphs a (config, n).  The host knows the step
-of a graph's own buffers (the step it loaded, plus n); it reads the step
-of any other state once, before the replay.
+unrolled into it: at most K keys a (config, n).  Each entry knows the step
+of its buffers (the step it loaded, plus n); the host reads the step of
+any other state once, before the replay.
 
 A failed capture or replay raises; nothing falls back to the eager step on
 the card.  The kernel wrappers' launch counters count the kernels they
-launch at the warm-up step and in the capture, not the replays.  On a CPU
+launch at the warm-up step and in the captures, not the replays.  On a CPU
 state (the caller's choice, as in the tests) both functions run the eager
 step n times.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
+import weakref
 
 import torch
 
@@ -55,19 +65,43 @@ from tpu_fluid_torch.core.state import FluidState
 from tpu_fluid_torch.kernels import on_cuda
 from tpu_fluid_torch.solver.step import simulation_step, step
 
-# key -> (graph, buffers, scene buffers)
+
+@dataclasses.dataclass(eq=False)
+class _Entry:
+    """A captured graph and the buffers it steps."""
+    graph: torch.cuda.CUDAGraph
+    buffers: FluidState
+    scene_buffers: object = None
+    step: int | None = None       # the step its buffers hold (cadence)
+    held: list = dataclasses.field(default_factory=list)
+
+    def __post_init__(self):
+        self.ptrs = _ptrs(self.buffers)
+
+    def free(self) -> bool:
+        """No state this entry returned is still held, or it was passed
+        to a call."""
+        return all(ref() is None for ref in self.held)
+
+
+# key -> [_Entry]
 _GRAPHS: dict = {}
-# data_ptr of a graph's step buffer -> the step its buffers hold
-_OWN_STEP: dict = {}
+# keys whose eager warm-up step has run
+_WARM: set = set()
 # one record a capture: the scene's grid, n, the phase of the volume
-# cadence (None without one), the warm-up step's and the capture's seconds,
-# and the device memory the graph's private pool took
+# cadence (None without one), the warm-up step's seconds (0.0 after the
+# key's first capture) and the capture's, and the device memory the graph's
+# private pool took
 captures: list = []
 
 
 def _fields(tensors) -> tuple:
     return tuple(None if t is None else (tuple(t.shape), t.dtype)
                  for t in tensors)
+
+
+def _ptrs(state) -> tuple:
+    return tuple(t.data_ptr() for t in state)
 
 
 def _key(state: FluidState, cfg: FluidConfig, n_steps: int, scene,
@@ -84,47 +118,67 @@ def _load(buffers, values) -> None:
             dst.copy_(src)
 
 
+def _alias(t: torch.Tensor) -> torch.Tensor:
+    """A new tensor object over `t`'s memory.  It is no view of `t`, so a
+    view taken of it keeps it alive."""
+    return torch.empty(0, dtype=t.dtype, device=t.device).set_(
+        t.untyped_storage(), t.storage_offset(), t.shape, t.stride())
+
+
+def _owner(state: FluidState):
+    """The entry whose buffers `state` is, of any key, else None."""
+    ptrs = _ptrs(state)
+    for entries in _GRAPHS.values():
+        for entry in entries:
+            if entry.ptrs == ptrs:
+                return entry
+    return None
+
+
 def _capture(state: FluidState, cfg: FluidConfig, n_steps: int, scene,
-             first: int, phase):
+             first: int, phase, warm_up: bool) -> _Entry:
     device = state.velocity.device
-    current = torch.cuda.current_stream(device)
-    t0 = time.perf_counter()
-    side = torch.cuda.Stream(device)
-    side.wait_stream(current)
-    with torch.cuda.stream(side):
-        simulation_step(state, cfg, scene, volume_step=first)
-    current.wait_stream(side)
-    buffers = FluidState(*(t.clone() for t in state))
-    scene_buffers = None if scene is None else type(scene)(
-        *(None if t is None else t.clone() for t in scene))
-    torch.cuda.synchronize(device)
-    t1 = time.perf_counter()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        # read here: entering the capture empties PyTorch's cache
-        reserved = torch.cuda.memory_reserved(device)
-        out = buffers
-        for k in range(n_steps):
-            # the step number unrolls the volume cadence; no host read
-            out = simulation_step(out, cfg, scene_buffers,
-                                  volume_step=first + k)
-        _load(buffers, out)
-    torch.cuda.synchronize(device)
+    with torch.cuda.device(device):
+        t0 = time.perf_counter()
+        if warm_up:
+            current = torch.cuda.current_stream(device)
+            side = torch.cuda.Stream(device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                simulation_step(state, cfg, scene, volume_step=first)
+            current.wait_stream(side)
+        buffers = FluidState(*(t.clone() for t in state))
+        scene_buffers = None if scene is None else type(scene)(
+            *(None if t is None else t.clone() for t in scene))
+        torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            # read here: entering the capture empties PyTorch's cache
+            reserved = torch.cuda.memory_reserved(device)
+            out = buffers
+            for k in range(n_steps):
+                # the step number unrolls the volume cadence; no host read
+                out = simulation_step(out, cfg, scene_buffers,
+                                      volume_step=first + k)
+            _load(buffers, out)
+        torch.cuda.synchronize(device)
     captures.append({"grid": tuple(cfg.grid_size), "n_steps": n_steps,
                      "phase": phase,
-                     "warmup_s": t1 - t0,
+                     "warmup_s": t1 - t0 if warm_up else 0.0,
                      "capture_s": time.perf_counter() - t1,
                      "pool_bytes": torch.cuda.memory_reserved(device)
                      - reserved})
-    return graph, buffers, scene_buffers
+    return _Entry(graph, buffers, scene_buffers)
 
 
 @torch.no_grad()
 def jit_multi_step(state: FluidState, cfg: FluidConfig, n_steps: int,
                    scene=None) -> FluidState:
     """n steps: on a CUDA state one replay of a CUDA graph of n steps,
-    which consumes the graph's own buffers (module docstring); on a CPU
-    state n eager steps.  `scene` is an optional SceneFields."""
+    which consumes `state` where it is a state this module returned
+    (module docstring); on a CPU state n eager steps.  `scene` is an
+    optional SceneFields."""
     if n_steps < 1:
         raise ValueError(f"n_steps = {n_steps}, expected >= 1")
     if scene is not None:
@@ -133,27 +187,36 @@ def jit_multi_step(state: FluidState, cfg: FluidConfig, n_steps: int,
         for _ in range(n_steps):
             state = step(state, cfg, scene)
         return state
+    owner = _owner(state)
     # the phase of the volume cadence keys the graph where there is one
     every = cfg.volume_correction_every if cfg.volume_correction > 0.0 else 0
     first = None
     if every > 1:
-        first = _OWN_STEP.get(state.step.data_ptr())
-        if first is None:
-            first = int(state.step)        # a state that is not a graph's
+        known = owner.step if owner is not None else None
+        first = int(state.step) if known is None else known
     phase = first % every if every > 1 else None
     key = _key(state, cfg, n_steps, scene, phase)
-    with torch.cuda.device(state.velocity.device):
-        if key not in _GRAPHS:
-            _GRAPHS[key] = _capture(state, cfg, n_steps, scene, first or 0,
-                                    phase)
-        graph, buffers, scene_buffers = _GRAPHS[key]
-        _load(buffers, state)
-        if scene is not None:
-            _load(scene_buffers, scene)
-        graph.replay()
+    entries = _GRAPHS.setdefault(key, [])
+    if owner is not None and owner in entries:
+        entry = owner
+    else:
+        if owner is not None:
+            owner.held = []        # consumed: passed in, as JAX donates
+        entry = next((e for e in entries if e.free()), None)
+        if entry is None:
+            entry = _capture(state, cfg, n_steps, scene, first or 0, phase,
+                             key not in _WARM)
+            _WARM.add(key)
+            entries.append(entry)
+        _load(entry.buffers, state)
+    if scene is not None:
+        _load(entry.scene_buffers, scene)
+    entry.graph.replay()
     if every > 1:
-        _OWN_STEP[buffers.step.data_ptr()] = first + n_steps
-    return buffers
+        entry.step = first + n_steps
+    out = FluidState(*(_alias(t) for t in entry.buffers))
+    entry.held = [weakref.ref(t) for t in out]
+    return out
 
 
 def jit_step(state: FluidState, cfg: FluidConfig,
@@ -164,6 +227,6 @@ def jit_step(state: FluidState, cfg: FluidConfig,
 
 def clear_graphs() -> None:
     """Drop every captured graph and its buffers (their device memory
-    returns to PyTorch's allocator)."""
+    returns to PyTorch's allocator once no returned state holds it)."""
     _GRAPHS.clear()
-    _OWN_STEP.clear()
+    _WARM.clear()
