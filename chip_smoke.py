@@ -137,14 +137,41 @@ Phases, one line each (more for the parity and scene phases):
               `python -m tpu_fluid_torch.cli` for 4 steps with frames,
               meshes and a checkpoint, and its --resume for 2, in
               subprocesses: both must exit 0, the resume at step 4.
+ 13 spmd      the SPMD program form (parallel/spmd_step.py: jit_spmd_step
+              and jit_spmd_multi_step, the sharded step as CUDA-graph
+              replays) on a 1-rank mesh: (a) at the reference and bench
+              scenes with index-sharded particles and at the large scene
+              with domain-sharded ones (grid_fused on), from the state
+              after 2 eager single-device steps, 3 eager sharded steps
+              against 3 single-device steps, and 3 jit_spmd_step replays
+              and one jit_spmd_multi_step of 3 against the eager sharded
+              steps, every field bitwise (domain: the grid fields, and the
+              active positions as sorted rows); every kernel of the path
+              launched (its halo forms, K2's sharded pass, K3+K4 or its
+              local-slab form); each capture's seconds and pool; eager
+              sharded, jit_spmd_step, jit_spmd_multi_step and jit_step ms
+              a step (medians of 7, CUDA events).  (b) each halo and local
+              form at its 1-rank shapes (the whole grid as one slab, zero
+              halos) against its plain version bitwise, timed beside its
+              bound, with its launches a step.  (c) TPU_FLUID_BENCH_SPMD=1
+              python -m tpu_fluid_torch.bench at 128^3 for 40 steps in a
+              subprocess, whose JSON line it prints.  (d) with at least 2
+              visible cards, 2 ranks (and 4 where 4 are visible) one a
+              card over nccl, graphed, at the bench scene (index) and the
+              large one (domain, with chip_smoke.domain_scene's border
+              forces) against the single-device steps; with one card, a
+              line saying it did not run.
 The line before the last is a JSON object with the kernels' numbers (times
 and bounds at the large scene, the halo forms' and the local-slab form's at
-shard 1 of phases 8 and 9, the launches of phases 4-12; library_ms is
+shard 1 of phases 8 and 9, the launches of phases 4-13; library_ms is
 null: no single PyTorch call computes any of these functions); the last
 line is
 {"ok": true, "device": {...}}.  Any
 failed check raises, so the script then exits nonzero without that line;
 without CUDA it exits 2.
+
+`python3 chip_smoke.py --multi-card`, on a machine with several cards,
+runs the build and phase 13d alone.
 """
 
 from __future__ import annotations
@@ -882,10 +909,11 @@ def type_rows(rng, lo: int, n: int, cfg) -> np.ndarray:
     return t
 
 
-def halo_cases(device, cfg):
+def halo_cases(device, cfg, shards: int = SHARDS, parity=PARITY_SHARDS):
     """(wrapper, plain, args, kwargs, shard) for each halo-form kernel at
-    the local-slab shapes of `cfg` split SHARDS ways, at PARITY_SHARDS, on
-    numpy-seeded slabs whose halo planes past the domain are zero."""
+    the local-slab shapes of `cfg` split `shards` ways, at the shards of
+    `parity`, on numpy-seeded slabs whose halo planes past the domain are
+    zero."""
     from tpu_fluid_torch.kernels import grid_fused as k6
     from tpu_fluid_torch.kernels.advect import (advect_all_halo_cuda,
                                                 advect_from_types_halo_plain)
@@ -898,7 +926,7 @@ def halo_cases(device, cfg):
     from tpu_fluid_torch.stages.surface_fields import solid_parent_mask
 
     gx, gy, gz = cfg.grid_size
-    lx = gx // SHARDS
+    lx = gx // shards
     r = cfg.advect_max_displacement
     res = cfg.surface_render_resolution
     dsize = cfg.detailed_size
@@ -915,7 +943,7 @@ def halo_cases(device, cfg):
                dec=cfg.inertia_decrease, max_inertia=cfg.max_inertia,
                div_coef=cfg.float_density_division_coefficient)
     cases = []
-    for shard in PARITY_SHARDS:
+    for shard in parity:
         x0 = shard * lx
         rng = np.random.default_rng(SEED + shard)
 
@@ -985,7 +1013,7 @@ def halo_cases(device, cfg):
                       dict(halos=(types_h, p_h, vel1_h), x0=x0,
                            global_gx=gx), shard))
         # K5 on the detailed slab, h = steps + 1 planes a side
-        dlx = dsize[0] // SHARDS
+        dlx = dsize[0] // shards
         dshape = (dlx,) + tuple(dsize[1:])
         dlo = lambda h: shard * dlx - h                       # noqa: E731
         sim_lo = (shard * dlx - h5) // res
@@ -1197,27 +1225,28 @@ def domain_scene(cfg):
     return cfg.replace(particle_sharding="domain", extra_forces=forces)
 
 
-def local_move_cases(device, cfg, state0):
+def local_move_cases(device, cfg, state0, shards: int = SHARDS,
+                     parity=PARITY_SHARDS):
     """(shard, args) of K3+K4's local-slab form at the slabs of `cfg` split
-    SHARDS ways, at PARITY_SHARDS: a numpy-seeded velocity slab with one
-    edge-replicated plane a side; the shard's segment of
+    `shards` ways, at the shards of `parity`: a numpy-seeded velocity slab
+    with one edge-replicated plane a side; the shard's segment of
     `domain_shard_state(state0)` (its own particles, then inactive slots);
     and STRAGGLERS seeded particles, half within 3 rows past either slab
     end and half up to 1.5 cells past either domain end in x, over the box
     and 1.5 cells past it in y and z, a tenth of them inactive."""
     from tpu_fluid_torch.parallel.particles_domain import domain_shard_state
     gx, gy, gz = cfg.grid_size
-    lx = gx // SHARDS
+    lx = gx // shards
     cases = []
-    for shard in PARITY_SHARDS:
+    for shard in parity:
         x0 = shard * lx
         rng = np.random.default_rng(SEED + 10 + shard)
         v = rng.standard_normal((3, lx + 2, gy, gz), dtype=np.float32) * 5
         if shard == 0:
             v[:, 0] = v[:, 1]
-        if shard == SHARDS - 1:
+        if shard == shards - 1:
             v[:, -1] = v[:, -2]
-        seg = domain_shard_state(state0, shard, SHARDS, cfg)
+        seg = domain_shard_state(state0, shard, shards, cfg)
         k = STRAGGLERS
         s = rng.random((k, 3)) * (np.array(cfg.grid_size) + 3.0) - 1.5
         low = rng.random(k) < 0.5
@@ -2247,7 +2276,316 @@ def phase_facade(device, ref_cfg, bench_cfg, wrappers, card: str) -> dict:
     return {"launches": launches, "bench": bench, "reference": ref}
 
 
-def main() -> int:
+# --------------------------------------------------- 13: the SPMD program form
+# 13c: the bench's SPMD route's window; 13d: the limit of each multi-card
+# run, rank start-up included (12-21 s each on 2 and 4 cards)
+SPMD_BENCH_STEPS = 40
+SPMD_RANK_TIMEOUT = 300.0
+
+
+def spmd_wrappers(cfg) -> tuple:
+    """The kernel wrappers the 1-rank SPMD form of `cfg` launches: K1's,
+    K5's and K6's halo forms (K6 where grid_fused is on), K2's sharded
+    pass, and K3+K4 (index sharding) or its local-slab form (domain)."""
+    from tpu_fluid_torch.kernels.particle_move import particle_move_local_cuda
+    k1, k2, k5, k6a, k6b, k6c, k34 = halo_wrappers()
+    move = k34 if cfg.particle_sharding == "index" else \
+        particle_move_local_cuda
+    return (k1, k2, k5) + ((k6a, k6b, k6c) if cfg.grid_fused else ()) + \
+        (move,)
+
+
+def spmd_differences(got, want, cfg) -> list:
+    """The fields of a (gathered) sharded state that differ from the
+    single-device state: every field under index sharding; under domain
+    sharding the grid fields, the active positions as sorted rows, and a
+    drop."""
+    if cfg.particle_sharding == "index":
+        return [f for f, g, w in zip(want._fields, got, want)
+                if not same_bits(g, w)]
+    differ = [f for f in GRID_FIELDS
+              if not same_bits(getattr(got, f), getattr(want, f))]
+    a = sorted_rows(active_positions(got))
+    b = sorted_rows(active_positions(want))
+    if a.shape != b.shape or not np.array_equal(a, b):
+        differ.append("active positions, sorted")
+    if int(got.dropped) != int(want.dropped):
+        differ.append("dropped")
+    return differ
+
+
+def spmd_scene(device, scene: str, cfg, card: str) -> dict:
+    """Phase 13a at one scene on a 1-rank mesh: from the state after 2
+    eager single-device steps, GRAPH_STEPS eager sharded steps against
+    GRAPH_STEPS single-device steps, and GRAPH_STEPS `jit_spmd_step`
+    replays and one `jit_spmd_multi_step(GRAPH_STEPS)` against the eager
+    sharded steps, every field bitwise; the wrappers' launches over the
+    eager steps, the warm-up steps and the captures; eager sharded,
+    `jit_spmd_step`, `jit_spmd_multi_step` and `jit_step` ms a step."""
+    from statistics import median
+
+    from tpu_fluid_torch import initial_state, jit_step
+    from tpu_fluid_torch.parallel.mesh import make_mesh
+    from tpu_fluid_torch.parallel.particles_domain import layout_state
+    from tpu_fluid_torch.parallel.spmd_step import (jit_spmd_multi_step,
+                                                    jit_spmd_step, spmd_step)
+    from tpu_fluid_torch.solver import graph
+    label = f"13 spmd {scene}, {cfg.particle_sharding} sharding"
+    wrappers = spmd_wrappers(cfg)
+    state0 = run_steps(initial_state(cfg, device), cfg, 2)
+    mesh = make_mesh(1, device=device)
+    local0 = layout_state(state0, 0, 1, cfg)
+    eager_step = spmd_step(cfg, mesh)
+    torch.cuda.synchronize()
+    first = len(graph.captures)
+    reset_launches(wrappers)
+    k6_before = k6_device_launches(device)
+    eager = local0
+    for _ in range(GRAPH_STEPS):
+        eager = eager_step(eager)
+    torch.cuda.synchronize()
+    eager_launches = read_launches(wrappers)
+    per_step = {name: n / GRAPH_STEPS for name, n in eager_launches.items()}
+    k6_eager = k6_device_launches(device) - k6_before
+    one = jit_spmd_step(cfg, mesh)
+    s = local0
+    for _ in range(GRAPH_STEPS):
+        s = one(s)
+    replayed = clone_state(s)
+    multi = clone_state(jit_spmd_multi_step(cfg, mesh, GRAPH_STEPS)(local0))
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers)
+    single = run_steps(state0, cfg, GRAPH_STEPS)
+    torch.cuda.synchronize()
+    differ = {"eager sharded against single-device":
+              spmd_differences(eager, single, cfg),
+              "jit_spmd_step against eager sharded":
+              [f for f, g, w in zip(eager._fields, replayed, eager)
+               if not same_bits(g, w)],
+              f"jit_spmd_multi_step({GRAPH_STEPS}) against eager sharded":
+              [f for f, g, w in zip(eager._fields, multi, eager)
+               if not same_bits(g, w)]}
+    for what, fields in differ.items():
+        print(f"[{label}] {what}, {GRAPH_STEPS} steps: every field bitwise "
+              f"{not fields} {fields}", flush=True)
+        check(not fields, f"{label}: {what} differ in {fields}")
+    for cap in graph.captures[first:]:
+        print(f"[{label}] capture of {cap['n_steps']} step(s), program "
+              f"{cap['program']}: warm-up step {cap['warmup_s']!r} s, "
+              f"capture {cap['capture_s']!r} s, graph pool "
+              f"{cap['pool_bytes'] / 2 ** 20!r} MiB", flush=True)
+    print(f"[{label}] wrapper launches a step (eager): {per_step}, K6 C "
+          f"counter {k6_eager / GRAPH_STEPS!r}; in the eager steps, "
+          f"warm-up steps and captures: {launches}", flush=True)
+    check(all(v > 0 for v in launches.values()),
+          f"{label}: a kernel of the SPMD path never launched: {launches}")
+    if cfg.grid_fused:
+        check_k6_device(label, k6_eager, eager_launches)
+    del replayed, multi, eager, single, s
+    times = {}
+    for what, fn in (("eager sharded", eager_step),
+                     ("jit_spmd_step", one),
+                     (f"jit_spmd_multi_step({GRAPH_STEPS})",
+                      jit_spmd_multi_step(cfg, mesh, GRAPH_STEPS))):
+        t, _ = step_ms(fn, local0, GRAPH_TIMED)
+        times[what] = median(t) / (GRAPH_STEPS if "multi" in what else 1)
+    t, _ = step_ms(lambda x: jit_step(x, cfg), state0, GRAPH_TIMED)
+    times["jit_step (single-device)"] = median(t)
+    print(f"[{label}] ms a step, median of {GRAPH_TIMED} after a warm-up "
+          f"(CUDA events): " + ", ".join(f"{k} {v!r}" for k, v in
+                                         times.items()) + f" on {card}",
+          flush=True)
+    del state0, local0
+    graph.clear_graphs()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "per_step": per_step, "times": times}
+
+
+def phase_spmd_kernels(device, scenes, per_step) -> dict:
+    """Phase 13b: each halo and local form at its 1-rank shapes (the whole
+    grid as one slab, zero halos) against its plain version, bitwise,
+    timed beside its bound, with its launches a step from 13a."""
+    from tpu_fluid_torch import initial_state
+    results = {}
+    for scene, cfg in scenes:
+        names = {w.__name__ for w in spmd_wrappers(cfg)}
+        label = f"13b 1-rank {scene}"
+        for kernel, plain, args, kw, _ in halo_cases(device, cfg, 1, (0,)):
+            if kernel.__name__ not in names:
+                continue
+            r = run_case(label, kernel, plain, args, kw, 10)
+            r["launches_a_step"] = per_step[scene][kernel.__name__]
+            print(f"[{label}] {kernel.__name__}: {r['launches_a_step']!r} "
+                  f"wrapper launches a step", flush=True)
+            results[(scene, kernel.__name__)] = r
+        if cfg.particle_sharding == "domain":
+            from tpu_fluid_torch.kernels.particle_move import (
+                particle_move_local_cuda, particle_move_local_plain)
+            state0 = initial_state(cfg, device)
+            for _, args in local_move_cases(device, cfg, state0, 1, (0,)):
+                r = run_case(label, particle_move_local_cuda,
+                             particle_move_local_plain, args, {}, 10)
+                r["launches_a_step"] = \
+                    per_step[scene]["particle_move_local_cuda"]
+                results[(scene, "particle_move_local_cuda")] = r
+            del state0
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_spmd_bench(card: str) -> dict:
+    """Phase 13c: `TPU_FLUID_BENCH_SPMD=1 python -m tpu_fluid_torch.bench`
+    at 128^3 for SPMD_BENCH_STEPS steps in a subprocess; its JSON line."""
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, TPU_FLUID_BENCH_SPMD="1",
+               TPU_FLUID_BENCH_GRID="128",
+               TPU_FLUID_BENCH_STEPS=str(SPMD_BENCH_STEPS),
+               TPU_FLUID_BENCH_SYNC_EVERY="5")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "tpu_fluid_torch.bench"],
+                       cwd=root, env=env, capture_output=True, text=True,
+                       timeout=CLI_TIMEOUT)
+    check(r.returncode == 0, f"13c: the bench's SPMD route exited "
+                             f"{r.returncode}: {r.stderr[-2000:]}")
+    lines = r.stdout.strip().splitlines()
+    check(len(lines) == 1, f"13c: the bench printed {lines}")
+    line = json.loads(lines[0])
+    check(list(line) == ["metric", "value", "unit", "vs_baseline"]
+          and line["metric"].endswith(", SPMD program form forced")
+          and line["value"] > 0, f"13c: unexpected line {line}")
+    chunks = [s for s in r.stderr.splitlines() if "per-chunk" in s]
+    print(f"[13c spmd bench] TPU_FLUID_BENCH_SPMD=1 python -m "
+          f"tpu_fluid_torch.bench at 128^3, {SPMD_BENCH_STEPS} steps, in "
+          f"{time.perf_counter() - t0!r} s on {card}; {chunks}", flush=True)
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def spmd_multi_rank(rank, n, init_method, cfg, device, backend):
+    """One rank of phase 13d: GRAPH_STEPS `jit_spmd_step` replays and one
+    `jit_spmd_multi_step(GRAPH_STEPS)` of its shard from the state after 2
+    eager single-device steps, and GRAPH_STEPS eager sharded steps; the
+    gathered states, with rank 0's differences against GRAPH_STEPS
+    single-device steps; eager and graphed ms a step, each between two
+    barriers of every rank."""
+    from statistics import median
+
+    import torch.distributed as dist
+    from tpu_fluid_torch import initial_state
+    from tpu_fluid_torch.kernels import build
+    from tpu_fluid_torch.parallel.mesh import gather_state, make_mesh
+    from tpu_fluid_torch.parallel.particles_domain import layout_state
+    from tpu_fluid_torch.parallel.spmd_step import (jit_spmd_multi_step,
+                                                    jit_spmd_step, spmd_step)
+    if device == "cpu":
+        torch.set_num_threads(1)
+    mesh = make_mesh(n, rank, init_method, device=device, backend=backend)
+    on_card = mesh.device.type == "cuda"
+    if on_card:
+        build.library()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(mesh.device)
+        dist.barrier()
+
+    state0 = run_steps(initial_state(cfg, mesh.device), cfg, 2)
+    local0 = layout_state(state0, rank, n, cfg)
+    eager_step, one = spmd_step(cfg, mesh), jit_spmd_step(cfg, mesh)
+    multi_fn = jit_spmd_multi_step(cfg, mesh, GRAPH_STEPS)
+    eager, s = local0, local0
+    for _ in range(GRAPH_STEPS):
+        eager, s = eager_step(eager), one(s)
+    multi = multi_fn(local0)
+    sync()
+    full = {name: gather_state(x, mesh) for name, x in
+            (("eager sharded", eager), ("jit_spmd_step", s),
+             (f"jit_spmd_multi_step({GRAPH_STEPS})", multi))}
+    out = {}
+    if rank == 0:
+        single = run_steps(state0, cfg, GRAPH_STEPS)
+        out["differ"] = {name: spmd_differences(x, single, cfg)
+                         for name, x in full.items()}
+    del full, eager, s, multi
+    times = {}
+    for what, fn in (("eager sharded", eager_step), ("jit_spmd_step", one),
+                     (f"jit_spmd_multi_step({GRAPH_STEPS})", multi_fn)):
+        x = fn(local0)
+        each = []
+        for _ in range(GRAPH_TIMED):
+            sync()
+            t0 = time.perf_counter()
+            x = fn(x)
+            sync()
+            each.append((time.perf_counter() - t0) * 1e3)
+        times[what] = median(each) / (GRAPH_STEPS if "multi" in what
+                                      else 1)
+    out["times"] = times
+    return out
+
+
+def phase_spmd_multi_card(card: str, cfgs, device="cuda",
+                          backend="nccl") -> None:
+    """Phase 13d: with at least 2 visible cards, 2 ranks (and 4 where 4 are
+    visible) one a card on an nccl group, graphed, at each config of
+    `cfgs` against the single-device steps; else one line saying why it
+    did not run."""
+    from tpu_fluid_torch.parallel.launch import run_ranks
+    visible = torch.cuda.device_count() if backend == "nccl" else 4
+    if visible < 2:
+        print(f"[13d spmd multi-card] not run: {visible} card visible, and "
+              f"one card cannot hold two nccl ranks; `python3 "
+              f"chip_smoke.py --multi-card` runs it on a machine with "
+              f"several cards", flush=True)
+        return
+    for n in (2, 4) if visible >= 4 else (2,):
+        for scene, cfg in cfgs:
+            label = (f"13d spmd {scene}, {cfg.particle_sharding} sharding, "
+                     f"{n} ranks over {backend}")
+            t0 = time.perf_counter()
+            ranks = run_ranks(spmd_multi_rank, n, cfg, device, backend,
+                              timeout=SPMD_RANK_TIMEOUT)
+            for what, fields in ranks[0]["differ"].items():
+                print(f"[{label}] gathered {what} against {GRAPH_STEPS} "
+                      f"single-device steps: every field bitwise "
+                      f"{not fields} {fields}", flush=True)
+                check(not fields, f"{label}: {what} differ in {fields}")
+            times = {k: max(r["times"][k] for r in ranks)
+                     for k in ranks[0]["times"]}
+            print(f"[{label}] ms a step, the slowest rank's median of "
+                  f"{GRAPH_TIMED} between barriers (host clock): "
+                  + ", ".join(f"{k} {v!r}" for k, v in times.items())
+                  + f" on {card}; phase wall {time.perf_counter() - t0!r} "
+                  f"s, rank start-up included", flush=True)
+
+
+def phase_spmd(device, scenes, card: str) -> dict:
+    """Phase 13: 13a at each scene (`spmd_scene`), 13b (`phase_spmd_
+    kernels`), 13c (`phase_spmd_bench`) and 13d (`phase_spmd_multi_card`).
+    Returns the launches of 13a by wrapper name, and 13b's results."""
+    launches, per_step = {}, {}
+    for scene, cfg in scenes:
+        r = spmd_scene(device, scene, cfg, card)
+        per_step[scene] = r["per_step"]
+        for name, count in r["launches"].items():
+            launches[name] = launches.get(name, 0) + count
+    kernels = phase_spmd_kernels(device, scenes, per_step)
+    phase_spmd_bench(card)
+    phase_spmd_multi_card(card, multi_card_configs(scenes))
+    return {"launches": launches, "kernels": kernels}
+
+
+def multi_card_configs(scenes) -> tuple:
+    """13d's configs: the bench scene index-sharded and the large scene
+    domain-sharded, with force cells at the slab borders of 4 ranks
+    (`domain_scene`) so that particles migrate."""
+    cfgs = dict(scenes)
+    return (("bench", cfgs["bench"]),
+            ("large", domain_scene(cfgs["large"])))
+
+
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2258,6 +2596,11 @@ def main() -> int:
     print(smi, flush=True)
     device = torch.device("cuda", 0)
     card = f"{torch.cuda.get_device_name(0)} ({smi})"
+    if argv == ["--multi-card"]:
+        return multi_card_main(smi, card)
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
 
     from tpu_fluid_torch import FluidConfig, initial_state
     from tpu_fluid_torch.kernels import build
@@ -2442,6 +2785,20 @@ def main() -> int:
     for name, count in facade["launches"].items():
         launches[name] += count
 
+    # 13: the SPMD program form on a 1-rank mesh (jit_spmd_step,
+    # jit_spmd_multi_step), its kernels at their 1-rank shapes, the bench's
+    # SPMD route, and the nccl route where several cards are visible
+    spmd = phase_spmd(device, (
+        ("reference", ref_cfg), ("bench", bench_cfg),
+        ("large", large_cfg.replace(particle_sharding="domain"))), card)
+    for name, count in spmd["launches"].items():
+        if name in launches:
+            launches[name] += count
+        elif name == "particle_move_local_cuda":
+            domain_launches[name] += count
+        else:
+            sharded_launches[name] += count
+
     def entry(name, source, replaces, n, results, key):
         r = results[key]
         # no single PyTorch call computes any of these functions
@@ -2470,5 +2827,25 @@ def main() -> int:
     return 0
 
 
+def multi_card_main(smi: str, card: str) -> int:
+    """`python3 chip_smoke.py --multi-card`: the build and phase 13d alone,
+    on a machine with several cards."""
+    from tpu_fluid_torch import FluidConfig
+    from tpu_fluid_torch.kernels import build
+    t0 = time.perf_counter()
+    build.build()
+    build.library()
+    print(f"[2 build] {len(build.sources())} sources -> {build.LIBRARY.name} "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    phase_spmd_multi_card(card, multi_card_configs((
+        ("bench", FluidConfig.scaled_scene(128)),
+        ("large", FluidConfig.scaled_scene(256)))))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

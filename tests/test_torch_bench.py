@@ -1,6 +1,7 @@
 """The port's bench (`tpu_fluid_torch/bench.py`) against the JAX package's
 `bench.py`: the same override parser, the same JSON keys; it refuses to
-run without CUDA, and its timed loop runs on the CPU when asked to."""
+run without CUDA, and its timed loop runs on the CPU when asked to (the
+SPMD and multi-card routes: tests/test_torch_spmd_graph.py)."""
 
 import contextlib
 import dataclasses
@@ -93,6 +94,9 @@ def test_run_once_on_the_cpu():
 
 
 def test_sharded_route_is_not_ported(monkeypatch):
+    """No route raises "not ported": TPU_FLUID_BENCH_SPMD=1 runs the SPMD
+    program form on a 1-rank mesh (on the CPU, its eager steps)."""
     monkeypatch.setenv("TPU_FLUID_BENCH_SPMD", "1")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        bench._run_once(8, 300, steps=1, sync_every=1, device="cpu")
+    ndev, sps, chunks = bench._run_once(8, 300, steps=1, sync_every=1,
+                                        device="cpu")
+    assert ndev == 1 and sps > 0 and len(chunks) == 1

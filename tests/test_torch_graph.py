@@ -22,7 +22,6 @@ from tpu_fluid_torch import (SceneFields, initial_state, jit_multi_step,
 from tpu_fluid_torch.core.state import (FluidState, state_from_numpy,
                                         state_to_numpy)
 from tpu_fluid_torch.solver import graph
-from tpu_fluid_torch.solver.step import simulation_step
 
 torch.set_num_threads(2)
 
@@ -157,18 +156,20 @@ def reuse_dropped_lineage(cfg, device):
 
 
 class StandInGraph:
-    """What a captured graph does, as eager steps on the CPU: n steps from
-    its buffers and scene buffers, the result copied back into them."""
+    """What a captured graph does, as eager steps on the CPU: n steps of
+    its program from its buffers and scene buffers, the result copied back
+    into them."""
 
-    def __init__(self, cfg, n_steps, first, entry_buffers):
+    def __init__(self, cfg, n_steps, first, entry_buffers, program):
         self.cfg, self.n_steps, self.first = cfg, n_steps, first
         self.buffers, self.scene_buffers = entry_buffers
+        self.program = program
 
     def replay(self):
         out = self.buffers
         for k in range(self.n_steps):
-            out = simulation_step(out, self.cfg, self.scene_buffers,
-                                  volume_step=self.first + k)
+            out = self.program.step(out, self.cfg, self.scene_buffers,
+                                    self.first + k)
         graph._load(self.buffers, out)
 
 
@@ -176,14 +177,15 @@ class StandInGraph:
 def stand_in(monkeypatch):
     """jit_step on CPU states through the graph cache, each capture a
     StandInGraph; records whether a capture asked for the warm-up."""
-    def capture(state, cfg, n_steps, scene, first, phase, warm_up):
+    def capture(state, cfg, n_steps, scene, first, phase, warm_up,
+                program):
         buffers = FluidState(*(t.clone() for t in state))
         scene_buffers = None if scene is None else type(scene)(
             *(None if t is None else t.clone() for t in scene))
         graph.captures.append({"n_steps": n_steps, "phase": phase,
-                               "warm_up": warm_up})
+                               "warm_up": warm_up, "program": program.key})
         return graph._Entry(StandInGraph(cfg, n_steps, first,
-                                         (buffers, scene_buffers)),
+                                         (buffers, scene_buffers), program),
                             buffers, scene_buffers)
     monkeypatch.setattr(graph, "on_cuda", lambda t: True)
     monkeypatch.setattr(graph, "_capture", capture)

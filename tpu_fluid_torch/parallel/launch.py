@@ -11,12 +11,17 @@ A run leaves no process behind.  Each rank answers through a pipe of its
 own (no queue, so no semaphore for multiprocessing's resource tracker to
 watch), and once the ranks are joined the tracker, a helper process that
 spawning starts, is stopped and reaped: left alone it would outlive its
-parent by a moment.
+parent by a moment.  A rank that has answered leaves at once, without
+destroying its process group or the interpreter's teardown: on the card,
+an nccl group whose collectives a live CUDA graph had captured never
+finished its destruction, and the run then waited for its timeout.
 """
 
 from __future__ import annotations
 
 import multiprocessing as mp
+import os
+import sys
 import tempfile
 import time
 import traceback
@@ -31,11 +36,14 @@ def _rank_main(fn, rank, n_ranks, init_method, args, conn):
     except BaseException:
         conn.send((False, traceback.format_exc()))
         raise
-    finally:
-        import torch.distributed as dist
-        if dist.is_initialized():
-            dist.destroy_process_group()
     conn.send((True, out))
+    conn.close()
+    # leave at once, without destroy_process_group or the interpreter's
+    # teardown: on an nccl group whose collectives a live CUDA graph had
+    # captured, destroying the group never returned
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 def _stop(procs) -> None:

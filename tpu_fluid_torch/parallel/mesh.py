@@ -75,7 +75,9 @@ def make_mesh(n_shards: int, rank: int = 0, init_method: str | None = None,
     the caller passes "cpu": "cuda" means the current CUDA device for gloo
     (several ranks may share it; their transport is staged through the
     host) and `cuda:<rank>` for nccl, which needs one card per rank and
-    raises, as JAX's `make_mesh` does, when there are fewer."""
+    raises, as JAX's `make_mesh` does, when there are fewer.  An nccl
+    rank's card becomes its current CUDA device before the group is made,
+    so that its communicators live on that card."""
     if not 0 <= rank < n_shards:
         raise ValueError(f"rank {rank} outside a mesh of {n_shards}")
     if backend == "nccl":
@@ -91,13 +93,17 @@ def make_mesh(n_shards: int, rank: int = 0, init_method: str | None = None,
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", rank if backend == "nccl"
                               else torch.cuda.current_device())
+    if backend == "nccl" and device.type == "cuda":
+        torch.cuda.set_device(device)
     if n_shards == 1:
         return Mesh(0, 1, device)
     if init_method is None:
         raise ValueError("a mesh of several ranks needs an init_method")
     if not dist.is_initialized():
-        dist.init_process_group(backend, init_method=init_method, rank=rank,
-                                world_size=n_shards, timeout=timeout)
+        dist.init_process_group(
+            backend, init_method=init_method, rank=rank,
+            world_size=n_shards, timeout=timeout,
+            device_id=device if backend == "nccl" else None)
     mesh = Mesh(rank, n_shards, device, dist.group.WORLD)
     if rank == 0:
         print(f"mesh of {n_shards} shards on {device}: transport "

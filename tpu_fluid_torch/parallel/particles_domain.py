@@ -103,6 +103,16 @@ def domain_shard_state(state: FluidState, rank: int, n: int,
                                                 active=new_act)
 
 
+def layout_state(state: FluidState, rank: int, n: int,
+                 cfg: FluidConfig) -> FluidState:
+    """Shard `rank`'s part of a full state as `cfg.particle_sharding` lays
+    it out: `domain_shard_state`, or `mesh.shard_state` for index-sharded
+    particles."""
+    if cfg.particle_sharding == "domain":
+        return domain_shard_state(state, rank, n, cfg)
+    return shard_state(state, rank, n)
+
+
 # ----------------------------------------------------------------- sampling
 def edge_replicated_halo(a: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The slab with one neighbour plane a side, and at the domain ends its
@@ -185,7 +195,7 @@ def migrate(positions: torch.Tensor, active: torch.Tensor, x0: int, lx: int,
     buf = torch.cat([positions, positions.new_zeros((1, 3))])
     buf[tgt] = in_pos
     flags = torch.cat([keep, keep.new_zeros((1,))])
-    flags[tgt] = True
+    flags.index_fill_(0, tgt, True)   # no host scalar: capturable
     leavers = n_l + n_r
     placed = ok.sum()
     return buf[:cap], flags[:cap], (leavers - placed).to(torch.int32)
@@ -208,7 +218,7 @@ def detailed_occupancy_local(positions: torch.Tensor, active: torch.Tensor,
     n = lx_det * dy * dz
     flat = torch.where(inb, x * (dy * dz) + y * dz + z, n)
     occ = torch.zeros(n + 1, dtype=torch.uint8, device=positions.device)
-    occ[flat] = 1
+    occ.index_fill_(0, flat, 1)   # no host scalar: capturable
     return occ[:n].reshape(lx_det, dy, dz)
 
 

@@ -36,6 +36,13 @@ equal the single-device step's bitwise, and so do the particles: in slot
 order under index sharding, as a set under domain sharding
 (tests/test_torch_spmd.py, tests/test_torch_particles_domain.py).
 
+Entry points: `spmd_step` and `spmd_multi_step` step eagerly, reading
+`state.step` on the host for the volume cadence; `jit_spmd_step` and
+`jit_spmd_multi_step`, JAX's jitted `spmd_step` and `spmd_multi_step`
+with the state donated, replay this shard's step as a CUDA graph through
+`solver/graph.py` on a single shard or an nccl mesh, with the cadence
+unrolled (`_local_step`'s `volume_step`).
+
 Communication per step (n shards, grid (X, Y, Z), detailed (DX, DY, DZ)):
 one plane pair per radius-1 stage, k planes per Jacobi pass
 (ceil(iters / k) passes), steps + 1 detailed planes for K5; then, with
@@ -67,6 +74,7 @@ from tpu_fluid_torch.parallel.mesh import Mesh
 from tpu_fluid_torch.parallel.particles_domain import (
     cell_histogram_local, detailed_occupancy_local, migrate,
     migrate_capacity, move_particles_local)
+from tpu_fluid_torch.solver import graph
 from tpu_fluid_torch.stages import celltypes, particles, pressure
 from tpu_fluid_torch.stages import surface_fields
 from tpu_fluid_torch.stages import velocity as vstages
@@ -109,7 +117,9 @@ def _forces_spmd(types: torch.Tensor, vel: torch.Tensor, cfg: FluidConfig,
     def cell_mask(cell):
         at = torch.zeros(types.shape, dtype=torch.bool, device=vel.device)
         if x0 <= cell[0] < x0 + lx:
-            at[(cell[0] - x0,) + tuple(cell[1:])] = True
+            # fill_ on a view: an item assignment copies a host scalar,
+            # which a CUDA graph cannot capture
+            at[(cell[0] - x0,) + tuple(cell[1:])].fill_(True)
         return at
 
     force = force + torch.where(cell_mask(cfg.fountain) & wet_face,
@@ -239,10 +249,13 @@ def _volume_drift_spmd(state: FluidState, types: torch.Tensor,
 
 
 def _local_step(state: FluidState, cfg: FluidConfig, mesh: Mesh,
-                scene=None) -> FluidState:
+                scene=None, volume_step: int | None = None) -> FluidState:
     """One frame on this shard's slabs, in the single-device stage order
     (`solver/step.simulation_step`).  `scene` holds this shard's slabs of
-    the SceneFields, if any."""
+    the SceneFields, if any.  `volume_step` is the caller's value of
+    `state.step` for the volume cadence, as in `simulation_step` (the
+    CUDA graphs pass it); without it the step reads `state.step` on the
+    host."""
     device = state.velocity.device
     use_kernels = kernel_choice(cfg, device)
     gx = cfg.grid_size[0]
@@ -322,8 +335,11 @@ def _local_step(state: FluidState, cfg: FluidConfig, mesh: Mesh,
     # and run the same collectives.  The drift is added to the slab before
     # any gather.
     move_vel = vel
-    if cfg.volume_correction > 0.0 and volume_due(cfg, int(state.step)):
-        move_vel = vel + _volume_drift_spmd(state, types, cfg, x0, mesh)
+    if cfg.volume_correction > 0.0:
+        if volume_step is None and cfg.volume_correction_every > 1:
+            volume_step = int(state.step)
+        if volume_due(cfg, volume_step or 0):
+            move_vel = vel + _volume_drift_spmd(state, types, cfg, x0, mesh)
     if cfg.particle_sharding == "domain":
         # each shard moves the particles of its slab, hands the border
         # crossers to its neighbours and scatters onto its detailed slab
@@ -341,7 +357,9 @@ def _local_step(state: FluidState, cfg: FluidConfig, mesh: Mesh,
         # detailed grid (one K3+K4 launch on the card); the sum over shards
         # lands on the x-slabs
         active, dropped = state.active, state.dropped
-        vel_full = all_gather_x(move_vel, mesh, axis=1)
+        # K3+K4 takes a contiguous field, and one shard's gather returns
+        # the slab as it is: the unfused stages leave it a strided view
+        vel_full = all_gather_x(move_vel.contiguous(), mesh, axis=1)
         pos, occ_full = particles.move_and_scatter(vel_full, state.positions,
                                                    active, cfg)
         occ = (psum_scatter_x(occ_full, mesh) > 0).to(torch.uint8)
@@ -437,3 +455,46 @@ def spmd_multi_step(cfg: FluidConfig, mesh: Mesh, n_steps: int,
         return state
 
     return multi
+
+
+def spmd_program(cfg: FluidConfig, mesh: Mesh) -> graph.Program:
+    """This shard's step as a `solver/graph.Program`, keyed on the mesh's
+    rank, size, backend and device.  On an nccl group the capture is
+    thread-local: the group's watchdog thread queries events while a
+    graph is being captured."""
+    validate_spmd_config(cfg, mesh.size)
+    if mesh.host_staged:
+        raise ValueError(
+            "a CUDA graph cannot capture a copy through the host: the "
+            "graphed sharded step needs a single shard or an nccl mesh; a "
+            "gloo mesh on the card runs the eager spmd_step")
+
+    def local(state, cfg_, scene, volume_step):
+        return _local_step(state, cfg_, mesh, scene, volume_step)
+
+    return graph.Program(
+        local, ("spmd", mesh.rank, mesh.size, mesh.backend, mesh.device),
+        "thread_local" if mesh.backend == "nccl" else "global")
+
+
+def jit_spmd_multi_step(cfg: FluidConfig, mesh: Mesh, n_steps: int,
+                        scene=None):
+    """n_steps frames per call, JAX's jitted `spmd_multi_step` with the
+    state donated: a function local_state -> local_state that replays
+    this shard's CUDA graph of n_steps steps (`solver/graph.py`: a
+    returned state is consumed when passed back in).  On CPU states it
+    runs the eager `spmd_step` n_steps times.  Every shard of the mesh
+    calls its own in lockstep.  A gloo mesh on the card (host-staged)
+    raises: its eager `spmd_step` is the route there."""
+    program = spmd_program(cfg, mesh)
+
+    def multi(state: FluidState) -> FluidState:
+        return graph.replay(state, cfg, n_steps, scene, program)
+
+    return multi
+
+
+def jit_spmd_step(cfg: FluidConfig, mesh: Mesh, scene=None):
+    """One frame per call: `jit_spmd_multi_step(cfg, mesh, 1, scene)`,
+    JAX's jitted `spmd_step` with the state donated."""
+    return jit_spmd_multi_step(cfg, mesh, 1, scene)

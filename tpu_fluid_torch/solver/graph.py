@@ -45,10 +45,19 @@ unrolled into it: at most K keys a (config, n).  Each entry knows the step
 of its buffers (the step it loaded, plus n); the host reads the step of
 any other state once, before the replay.
 
+The step a graph records is its `Program`: the single-device
+`simulation_step`, or one shard's step of the x-slab layout bound to its
+mesh (`parallel/spmd_step.jit_spmd_step`, `jit_spmd_multi_step`, JAX's
+jitted `spmd_step` and `spmd_multi_step`).  The program's key (the
+mesh's rank, size, backend and device) is part of the graph key; every
+rule above holds for both.  On an nccl mesh the collectives are captured
+too: the warm-up step creates the communicators, and every rank captures
+the same sequence of collectives, since each takes the same branches.
+
 A failed capture or replay raises; nothing falls back to the eager step on
 the card.  The kernel wrappers' launch counters count the kernels they
 launch at the warm-up step and in the captures, not the replays.  On a CPU
-state (the caller's choice, as in the tests) both functions run the eager
+state (the caller's choice, as in the tests) the functions run the eager
 step n times.
 """
 
@@ -57,13 +66,29 @@ from __future__ import annotations
 import dataclasses
 import time
 import weakref
+from typing import Callable
 
 import torch
 
 from tpu_fluid_torch.core.config import FluidConfig
 from tpu_fluid_torch.core.state import FluidState
 from tpu_fluid_torch.kernels import on_cuda
-from tpu_fluid_torch.solver.step import simulation_step, step
+from tpu_fluid_torch.solver.step import simulation_step
+
+
+@dataclasses.dataclass(frozen=True)
+class Program:
+    """The step a graph records: `step(state, cfg, scene, volume_step)`
+    returns the next state, reading `state.step` on the host only where
+    `volume_step` is None; `key` tells its graphs apart from other
+    programs' (None for the single-device step); `capture_error_mode` is
+    passed to `torch.cuda.graph`."""
+    step: Callable
+    key: tuple | None = None
+    capture_error_mode: str = "global"
+
+
+SINGLE_DEVICE = Program(simulation_step)
 
 
 @dataclasses.dataclass(eq=False)
@@ -105,9 +130,9 @@ def _ptrs(state) -> tuple:
 
 
 def _key(state: FluidState, cfg: FluidConfig, n_steps: int, scene,
-         phase) -> tuple:
-    return (cfg, n_steps, state.velocity.device, _fields(state),
-            None if scene is None else _fields(scene), phase)
+         phase, program: Program) -> tuple:
+    return (program.key, cfg, n_steps, state.velocity.device,
+            _fields(state), None if scene is None else _fields(scene), phase)
 
 
 def _load(buffers, values) -> None:
@@ -136,7 +161,7 @@ def _owner(state: FluidState):
 
 
 def _capture(state: FluidState, cfg: FluidConfig, n_steps: int, scene,
-             first: int, phase, warm_up: bool) -> _Entry:
+             first: int, phase, warm_up: bool, program: Program) -> _Entry:
     device = state.velocity.device
     with torch.cuda.device(device):
         t0 = time.perf_counter()
@@ -145,7 +170,7 @@ def _capture(state: FluidState, cfg: FluidConfig, n_steps: int, scene,
             side = torch.cuda.Stream(device)
             side.wait_stream(current)
             with torch.cuda.stream(side):
-                simulation_step(state, cfg, scene, volume_step=first)
+                program.step(state, cfg, scene, first)
             current.wait_stream(side)
         buffers = FluidState(*(t.clone() for t in state))
         scene_buffers = None if scene is None else type(scene)(
@@ -153,18 +178,18 @@ def _capture(state: FluidState, cfg: FluidConfig, n_steps: int, scene,
         torch.cuda.synchronize(device)
         t1 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph,
+                              capture_error_mode=program.capture_error_mode):
             # read here: entering the capture empties PyTorch's cache
             reserved = torch.cuda.memory_reserved(device)
             out = buffers
             for k in range(n_steps):
                 # the step number unrolls the volume cadence; no host read
-                out = simulation_step(out, cfg, scene_buffers,
-                                      volume_step=first + k)
+                out = program.step(out, cfg, scene_buffers, first + k)
             _load(buffers, out)
         torch.cuda.synchronize(device)
     captures.append({"grid": tuple(cfg.grid_size), "n_steps": n_steps,
-                     "phase": phase,
+                     "phase": phase, "program": program.key,
                      "warmup_s": t1 - t0 if warm_up else 0.0,
                      "capture_s": time.perf_counter() - t1,
                      "pool_bytes": torch.cuda.memory_reserved(device)
@@ -173,19 +198,16 @@ def _capture(state: FluidState, cfg: FluidConfig, n_steps: int, scene,
 
 
 @torch.no_grad()
-def jit_multi_step(state: FluidState, cfg: FluidConfig, n_steps: int,
-                   scene=None) -> FluidState:
-    """n steps: on a CUDA state one replay of a CUDA graph of n steps,
-    which consumes `state` where it is a state this module returned
-    (module docstring); on a CPU state n eager steps.  `scene` is an
-    optional SceneFields."""
+def replay(state: FluidState, cfg: FluidConfig, n_steps: int, scene,
+           program: Program) -> FluidState:
+    """n steps of `program`: on a CUDA state one replay of a CUDA graph of
+    n steps, which consumes `state` where it is a state this module
+    returned (module docstring); on a CPU state n eager steps."""
     if n_steps < 1:
         raise ValueError(f"n_steps = {n_steps}, expected >= 1")
-    if scene is not None:
-        scene.validate(cfg)
     if not on_cuda(state.velocity):
         for _ in range(n_steps):
-            state = step(state, cfg, scene)
+            state = program.step(state, cfg, scene, None)
         return state
     owner = _owner(state)
     # the phase of the volume cadence keys the graph where there is one
@@ -195,7 +217,7 @@ def jit_multi_step(state: FluidState, cfg: FluidConfig, n_steps: int,
         known = owner.step if owner is not None else None
         first = int(state.step) if known is None else known
     phase = first % every if every > 1 else None
-    key = _key(state, cfg, n_steps, scene, phase)
+    key = _key(state, cfg, n_steps, scene, phase, program)
     entries = _GRAPHS.setdefault(key, [])
     if owner is not None and owner in entries:
         entry = owner
@@ -205,7 +227,7 @@ def jit_multi_step(state: FluidState, cfg: FluidConfig, n_steps: int,
         entry = next((e for e in entries if e.free()), None)
         if entry is None:
             entry = _capture(state, cfg, n_steps, scene, first or 0, phase,
-                             key not in _WARM)
+                             key not in _WARM, program)
             _WARM.add(key)
             entries.append(entry)
         _load(entry.buffers, state)
@@ -217,6 +239,17 @@ def jit_multi_step(state: FluidState, cfg: FluidConfig, n_steps: int,
     out = FluidState(*(_alias(t) for t in entry.buffers))
     entry.held = [weakref.ref(t) for t in out]
     return out
+
+
+def jit_multi_step(state: FluidState, cfg: FluidConfig, n_steps: int,
+                   scene=None) -> FluidState:
+    """n steps: on a CUDA state one replay of a CUDA graph of n steps,
+    which consumes `state` where it is a state this module returned
+    (module docstring); on a CPU state n eager steps.  `scene` is an
+    optional SceneFields."""
+    if scene is not None:
+        scene.validate(cfg)
+    return replay(state, cfg, n_steps, scene, SINGLE_DEVICE)
 
 
 def jit_step(state: FluidState, cfg: FluidConfig,
