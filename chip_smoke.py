@@ -21,7 +21,11 @@ Phases, one line each (more for the parity and scene phases):
               and 3); K1 and K3+K4 also on the velocity, types, positions
               and active flags of scaled_scene(256) after 2 steps: every
               output must match bitwise (tolerance 0; a NaN matches a NaN
-              in the same place); times by CUDA
+              in the same place), and each last writer's `out=` form
+              (K3+K4, K5, K6a, K6c and their halo forms, here and in
+              phases 8 and 13b) must write and return the sentinel-filled
+              tensors it is given, bitwise equal to the plain version;
+              times by CUDA
               events beside each call's bound (bytes over 3.35 TB/s or f32
               operations over 67 TFLOP/s); and the kernel launches each
               K2, K5 and K6 call makes, read from the C counters: one for
@@ -78,19 +82,24 @@ Phases, one line each (more for the parity and scene phases):
               beside the migration exchange.
  10 graph     the CUDA-graph step (tpu_fluid_torch/solver/graph.py) at the
               reference, bench and large scenes, from the state after 2
-              eager steps: 3 jit_step replays, one jit_multi_step of 3
-              steps, and an eager step from the graph's buffers against
+              eager steps: 4 jit_step replays and 2 replays of
+              jit_multi_step(3) (both of a lineage's buffer sets, in
+              turn), and an eager step from the graph's buffers against
               the eager steps, every field bitwise; every kernel of the
               scene's path captured (the wrappers' counts over the warm-up
-              steps and captures); each capture's seconds and graph pool;
-              eager, jit_step and jit_multi_step ms a step (medians of 7
-              after a warm-up, CUDA events); at the large scene the state
-              hand-over, the copy each replay ends with.  At the reference
+              steps and captures); each capture's seconds, graph pool and
+              residual hand-over (the fields a graph ends by copying into
+              the other set), which must be 0 bytes; the lineage's two
+              sets' bytes; eager, jit_step and jit_multi_step ms a step
+              (medians of 7 after two untimed calls, CUDA events); at the
+              large scene a whole-state copy, the hand-over each replay
+              made while a lineage had one set.  At the reference
               and bench scenes, two lineages of one graph key stepped in
-              turn (3 jit_steps, then a jit_multi_step of 3 each), with
-              and without the volume cadence every 2 (the lineages at
-              different phases): each bitwise against its own eager
-              steps.  Then tpu_fluid_torch.bench at 128^3 for 40 steps,
+              turn (4 jit_steps, then a jit_multi_step of 3 each), with
+              and without the volume cadence every 2 and every 4 (the
+              lineages at different phases): each bitwise against its own
+              eager steps, each in one entry a key, no residual.  Then
+              tpu_fluid_torch.bench at 128^3 for 40 steps,
               whose JSON line it prints.
  11 physics   the options beyond the reference at the bench scene's width
               (128^3, 1M particles): (a) volume_correction=1.0 every 4
@@ -108,7 +117,8 @@ Phases, one line each (more for the parity and scene phases):
               (the level set skips K5, the red-black solver K2); eager,
               jit_step and jit_multi_step ms a step (medians of 8, CUDA
               events; for (a) corrected and uncorrected steps apart) and
-              each capture's pool.  At (a) K2 on the volume solve's folded
+              each capture's pool and residual hand-over (fields,
+              bytes).  At (a) K2 on the volume solve's folded
               inputs and K3+K4 on vel + drift against their plain
               versions bitwise, and the correction's parts timed; at (b)
               the plain level set against K5's stage.  Then
@@ -148,7 +158,10 @@ Phases, one line each (more for the parity and scene phases):
               steps, every field bitwise (domain: the grid fields, and the
               active positions as sorted rows); every kernel of the path
               launched (its halo forms, K2's sharded pass, K3+K4 or its
-              local-slab form); each capture's seconds and pool; eager
+              local-slab form); each capture's seconds, pool and residual
+              hand-over, which must not hold the velocity, inertia or
+              float densities (domain sharding leaves the positions and
+              the detailed occupancy to it); eager
               sharded, jit_spmd_step, jit_spmd_multi_step and jit_step ms
               a step (medians of 7, CUDA events).  (b) each halo and local
               form at its 1-rank shapes (the whole grid as one slab, zero
@@ -192,9 +205,11 @@ LARGE_STEPS = 5
 LARGE_COMPARE_STEPS = 2
 SHARDS = 4
 SHARDED_STEPS = 2
-# phase 10: eager steps against graph replays, timed steps a median takes,
-# the bench's window
+# phase 10: eager steps against graph replays (jit_step replays: twice
+# each of a lineage's two buffer sets), timed steps a median takes, the
+# bench's window
 GRAPH_STEPS = 3
+GRAPH_REPLAYS = 4
 GRAPH_TIMED = 7
 BENCH_WINDOW = 40
 PARITY_SHARDS = (0, 1, 3)
@@ -210,6 +225,12 @@ STEP_TOLERANCES = {"velocity": (2e-4, 2e-5), "positions": (1e-4, 1e-5),
                    "float_dens_2": (1e-4, 1e-5)}
 
 
+# The wrappers with an `out=` form (the last writers of the state's
+# fields): phases 3, 8 and 13b hold it against the plain version too.
+OUT_FORMS = ("particle_move_cuda", "surface_fused_cuda",
+             "surface_fused_halo_cuda", "classify_extrap_cuda",
+             "classify_extrap_halo_cuda", "project_cuda",
+             "project_halo_cuda")
 # The halo forms of phase 8: source, and the TPU kernel each replaces.
 HALO_SOURCES = {
     "advect_all_halo_cuda": (
@@ -413,6 +434,31 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
         return torch.equal(a, b)
     nan = torch.isnan(a)
     return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+
+
+def sentinel(t: torch.Tensor) -> torch.Tensor:
+    """A tensor like `t` whose every element holds a value no kernel
+    writes here, so that an element an `out=` form leaves unwritten
+    shows."""
+    if t.dtype.is_floating_point:
+        return torch.full_like(t, -1.2345e30)
+    return torch.full_like(t, 0xAB if t.dtype == torch.uint8 else -7)
+
+
+def out_form(label: str, kernel, args, kw, want: tuple) -> None:
+    """A wrapper's `out=` form (OUT_FORMS), every output given as a
+    sentinel-filled tensor: the wrapper must write and return the given
+    tensors, bitwise equal to the plain version's `want`."""
+    given = tuple(sentinel(w) for w in want)
+    got = kernel(*args, out=given if len(given) > 1 else given[0], **kw)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    same = [g is o and same_bits(g, w) for g, o, w in zip(got, given, want)]
+    print(f"[{label}] {kernel.__name__} out= form: each given tensor "
+          f"written, returned and bitwise equal to the plain version "
+          f"{same} (tolerance 0)", flush=True)
+    check(all(same), f"{kernel.__name__} {label}: the out= form differs: "
+                     f"{same}")
 
 
 def random_types(rng, n) -> np.ndarray:
@@ -748,6 +794,8 @@ def run_case(label: str, kernel, plain, args, kw, reps: int) -> dict:
           f"({bound_by}) share={bound_ms / ms!r}{extra}", flush=True)
     check(bitwise, f"{name} {label} differs from its plain version (max "
                    f"abs err {err!r})")
+    if name in OUT_FORMS:
+        out_form(label, kernel, args, kw, want)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "max_abs_err": err, "launches": launched}
 
@@ -1456,8 +1504,10 @@ def clone_state(state):
 
 def step_ms(fn, state, reps: int) -> tuple:
     """(ms of each of `reps` calls state = fn(state), each between two CUDA
-    events and synchronized, after one untimed call; the last state)."""
-    state = fn(state)
+    events and synchronized, after two untimed calls, which capture a
+    graphed lineage's two graphs; the last state)."""
+    for _ in range(2):
+        state = fn(state)
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     times = []
@@ -1470,51 +1520,84 @@ def step_ms(fn, state, reps: int) -> tuple:
     return times, state
 
 
+def print_captures(label: str, captures) -> list:
+    """Print each capture's seconds, pool and residual hand-over (the
+    fields its graph ends by copying into the other set, and their
+    bytes); returns the captures whose hand-over is not empty."""
+    for cap in captures:
+        print(f"[{label}] capture of {cap['n_steps']} step(s), phase "
+              f"{cap['phase']}, from set {'AB'[cap['src']]}: warm-up step "
+              f"{cap['warmup_s']!r} s, capture {cap['capture_s']!r} s, "
+              f"graph pool {cap['pool_bytes'] / 2 ** 20!r} MiB, residual "
+              f"hand-over {cap['residual_bytes']} bytes {cap['residual']}",
+              flush=True)
+    return [cap for cap in captures if cap["residual_bytes"]]
+
+
+def sets_line(state) -> str:
+    """The two buffer sets of the entry whose set `state` is: each set's
+    bytes, and both's with the fields they share counted once."""
+    from tpu_fluid_torch.solver import graph
+    entry, _ = graph._owner(state)
+    sets = entry.sets
+    shared = [f for f, a, b in zip(sets[0]._fields, *sets) if a is b]
+    each = [sum(t.nbytes for t in st) for st in sets]
+    both = sum(t.nbytes for t in sets[0]) + sum(
+        t.nbytes for t, a in zip(sets[1], sets[0]) if t is not a)
+    return (f"buffer sets A {each[0] / 1e9!r} GB and B {each[1] / 1e9!r} "
+            f"GB, {both / 1e9!r} GB together (shared: {shared}); "
+            f"{len(entry.graphs)} graphs")
+
+
 def graph_scene(device, scene: str, cfg, wrappers, card: str) -> dict:
     """Phase 10 at one scene: from the state after 2 eager steps,
-    GRAPH_STEPS eager steps against GRAPH_STEPS `jit_step` replays and
-    against one `jit_multi_step(state, cfg, GRAPH_STEPS)`, then an eager
-    step from the graph's buffers, every field bitwise; the kernel
-    wrappers' counts over the captures; eager and graphed step times."""
+    GRAPH_REPLAYS `jit_step` replays and two `jit_multi_step(state, cfg,
+    GRAPH_STEPS)` replays (each lineage's two buffer sets, in turn)
+    against as many eager steps, then an eager step from the graph's
+    buffers, every field bitwise; the kernel wrappers' counts over the
+    captures; eager and graphed step times; each capture's residual
+    hand-over, which must be empty."""
     from statistics import median
 
     from tpu_fluid_torch import initial_state, jit_multi_step, jit_step, step
     from tpu_fluid_torch.solver import graph
+    label = f"10 graph {scene}"
     state0 = run_steps(initial_state(cfg, device), cfg, 2)
     torch.cuda.synchronize()
     first = len(graph.captures)
     reset_launches(wrappers)
     s = state0
-    for _ in range(GRAPH_STEPS):
+    for _ in range(GRAPH_REPLAYS):
         s = jit_step(s, cfg)
     replayed = clone_state(s)
-    multi = clone_state(jit_multi_step(state0, cfg, GRAPH_STEPS))
+    m = state0
+    for _ in range(2):
+        m = jit_multi_step(m, cfg, GRAPH_STEPS)
+    multi = clone_state(m)
     torch.cuda.synchronize()
     launches = read_launches(wrappers)
-    eager = run_steps(state0, cfg, GRAPH_STEPS)
+    print(f"[{label}] jit_step lineage: {sets_line(s)}; jit_multi_step "
+          f"lineage: {sets_line(m)}", flush=True)
+    del m
+    eager = run_steps(state0, cfg, GRAPH_REPLAYS)
     after, eager_after = step(s, cfg), step(eager, cfg)
     torch.cuda.synchronize()
-    for label, got, want in (("jit_step", replayed, eager),
-                             ("jit_multi_step", multi, eager),
-                             ("eager step after replays", after,
-                              eager_after)):
+    for what, got, want, n in (
+            ("jit_step", replayed, eager, GRAPH_REPLAYS),
+            (f"2 x jit_multi_step({GRAPH_STEPS})", multi,
+             run_steps(state0, cfg, 2 * GRAPH_STEPS), 2 * GRAPH_STEPS),
+            ("eager step after replays", after, eager_after,
+             GRAPH_REPLAYS + 1)):
         same = {f: same_bits(g, w) for f, g, w in zip(want._fields, got,
                                                       want)}
-        print(f"[10 graph {scene}] {label} against {GRAPH_STEPS} eager "
-              f"steps{' + 1' if 'after' in label else ''}: bitwise "
+        print(f"[{label}] {what} against {n} eager steps: bitwise "
               f"{all(same.values())} {same}", flush=True)
-        check(all(same.values()), f"10 graph {scene}: {label} differs "
-                                  f"from the eager step: {same}")
-    for cap in graph.captures[first:]:
-        print(f"[10 graph {scene}] capture of {cap['n_steps']} step(s): "
-              f"warm-up step {cap['warmup_s']!r} s, capture "
-              f"{cap['capture_s']!r} s, graph pool "
-              f"{cap['pool_bytes'] / 2 ** 20!r} MiB", flush=True)
-    print(f"[10 graph {scene}] wrapper launches in the warm-up steps and "
+        check(all(same.values()), f"{label}: {what} differs from the eager "
+                                  f"steps: {same}")
+    print(f"[{label}] wrapper launches in the warm-up steps and "
           f"captures: {launches}", flush=True)
     check(all(v > 0 for v in launches.values()),
-          f"10 graph {scene}: a kernel of the path was not captured: "
-          f"{launches}")
+          f"{label}: a kernel of the path was not captured: {launches}")
     del replayed, multi, after, eager_after, eager
     eager_times, _ = step_ms(lambda x: step(x, cfg), state0, GRAPH_TIMED)
     graph_times, _ = step_ms(lambda x: jit_step(x, cfg), state0,
@@ -1524,25 +1607,29 @@ def graph_scene(device, scene: str, cfg, wrappers, card: str) -> dict:
     result = {"launches": launches, "eager_ms": median(eager_times),
               "graph_ms": median(graph_times),
               "multi_ms": median(multi_times) / GRAPH_STEPS}
-    print(f"[10 graph {scene}] ms a step, median of {GRAPH_TIMED} after a "
-          f"warm-up (CUDA events): eager {result['eager_ms']!r} "
+    print(f"[{label}] ms a step, median of {GRAPH_TIMED} after two "
+          f"untimed calls (CUDA events): eager {result['eager_ms']!r} "
           f"({1000 / result['eager_ms']!r} steps/s), jit_step "
           f"{result['graph_ms']!r} ({1000 / result['graph_ms']!r} steps/s), "
           f"jit_multi_step({GRAPH_STEPS}) {result['multi_ms']!r} "
           f"({1000 / result['multi_ms']!r} steps/s); each eager "
           f"{eager_times!r}, each jit_step {graph_times!r} on {card}",
           flush=True)
+    residual = print_captures(label, graph.captures[first:])
+    check(not residual, f"{label}: a graph ends with a residual hand-over: "
+                        f"{[(c['n_steps'], c['residual']) for c in residual]}")
     if scene == "large":
-        # the hand-over: the copy of the whole state the graph ends with
+        # the cost the two sets removed: a copy of the whole state, which
+        # each replay ended with while a lineage had one set
         dst = clone_state(state0)
         size = sum(t.numel() * t.element_size() for t in state0)
         result["handover_ms"] = time_ms(lambda: graph._load(dst, state0),
                                         reps=GRAPH_TIMED)
-        print(f"[10 graph {scene}] state hand-over, a copy of "
-              f"{size / 1e9!r} GB read and written once a replay: "
-              f"{result['handover_ms']!r} ms (mean of {GRAPH_TIMED}, CUDA "
-              f"events), {2 * size / result['handover_ms'] / 1e6!r} GB/s",
-              flush=True)
+        print(f"[{label}] a whole-state copy (the hand-over each replay "
+              f"made with one buffer set), {size / 1e9!r} GB read and "
+              f"written: {result['handover_ms']!r} ms (mean of "
+              f"{GRAPH_TIMED}, CUDA events), "
+              f"{2 * size / result['handover_ms'] / 1e6!r} GB/s", flush=True)
         del dst
     del state0, s
     graph.clear_graphs()
@@ -1552,18 +1639,22 @@ def graph_scene(device, scene: str, cfg, wrappers, card: str) -> dict:
 
 def two_lineages(device, scene: str, cfg) -> None:
     """Phase 10's donation check at one scene, with and without the volume
-    cadence every 2: lineage A from the initial state and B after 2 eager
-    steps (3 with the cadence: the other phase), B's velocity offset by
-    0.5 so that no state of one equals a state of the other, both of one
-    graph key; 3 `jit_step`s each in turn, then one `jit_multi_step` of 3
-    each, every field of each result bitwise against its own eager steps,
-    read after the other lineage's call."""
+    cadence every 2 and every 4: lineage A from the initial state and B
+    after 2 eager steps (3 with the cadence: another phase), B's velocity
+    offset by 0.5 so that no state of one equals a state of the other,
+    both of one graph key; GRAPH_REPLAYS `jit_step`s each in turn, then
+    one `jit_multi_step` of GRAPH_STEPS each, every field of each result
+    bitwise against its own eager steps, read after the other lineage's
+    call; each lineage in one entry a key, whatever its phase, and no
+    residual hand-over."""
     from tpu_fluid_torch import initial_state, jit_multi_step, jit_step, step
     from tpu_fluid_torch.solver import graph
-    cadence = dict(VOLUME, volume_correction_every=2)
-    for label, c, b_steps in (("", cfg, 2),
-                              (", volume every 2", cfg.replace(**cadence),
-                               3)):
+    for label, c, b_steps in (
+            ("", cfg, 2),
+            (", volume every 2",
+             cfg.replace(**dict(VOLUME, volume_correction_every=2)), 3),
+            (", volume every 4",
+             cfg.replace(**dict(VOLUME, volume_correction_every=4)), 3)):
         graph.clear_graphs()
         first = len(graph.captures)
         a = initial_state(c, device)
@@ -1571,7 +1662,7 @@ def two_lineages(device, scene: str, cfg) -> None:
         b = b._replace(velocity=b.velocity + 0.5)
         want_a, want_b = a, b
         differ = []
-        for k in range(GRAPH_STEPS):
+        for k in range(GRAPH_REPLAYS):
             a, b = jit_step(a, c), jit_step(b, c)
             want_a, want_b = step(want_a, c), step(want_b, c)
             differ += [f"{name} jit_step {k}: {f}" for name, got, want in
@@ -1587,15 +1678,23 @@ def two_lineages(device, scene: str, cfg) -> None:
                    for f, g, w in zip(want._fields, got, want)
                    if not same_bits(g, w)]
         torch.cuda.synchronize()
-        phases = [cap["phase"] for cap in graph.captures[first:]]
+        made = graph.captures[first:]
+        entries = [len(e) for e in graph._GRAPHS.values()]
+        graphs = [sorted(entry.graphs) for e in graph._GRAPHS.values()
+                  for entry in e]
+        residual = [cap["residual"] for cap in made if cap["residual_bytes"]]
         print(f"[10 graph {scene}] two lineages of one key{label} (B "
-              f"after {b_steps} eager steps), {GRAPH_STEPS} jit_steps each "
-              f"in turn, then jit_multi_step({GRAPH_STEPS}) each, against "
-              f"their own eager steps: every field bitwise {not differ} "
-              f"{differ}; {len(phases)} captures (phases {phases})",
-              flush=True)
+              f"after {b_steps} eager steps), {GRAPH_REPLAYS} jit_steps "
+              f"each in turn, then jit_multi_step({GRAPH_STEPS}) each, "
+              f"against their own eager steps: every field bitwise "
+              f"{not differ} {differ}; {len(made)} captures, entries a key "
+              f"{entries}, each entry's graphs by (set, phase) {graphs}, "
+              f"residual hand-overs {residual}", flush=True)
         check(not differ, f"10 graph {scene}: a lineage differs from its "
                           f"own eager steps{label}: {differ}")
+        check(entries == [2, 2] and not residual,
+              f"10 graph {scene}{label}: entries a key {entries} (expected "
+              f"one a lineage), residual hand-overs {residual}")
         del a, b, want_a, want_b
     graph.clear_graphs()
 
@@ -1855,17 +1954,19 @@ def physics_case(device, name, cfg, with_scene, wrappers, card) -> dict:
     graph_launches = read_launches(wrappers)
     check(all((v == 0) == (k in skips) for k, v in graph_launches.items()),
           f"{label}: the kernels captured {graph_launches}")
-    for cap in graph.captures[first:]:
-        print(f"[{label}] capture of {cap['n_steps']} step(s), phase "
-              f"{cap['phase']}: warm-up step {cap['warmup_s']!r} s, capture "
-              f"{cap['capture_s']!r} s, graph pool "
-              f"{cap['pool_bytes'] / 2 ** 20!r} MiB", flush=True)
+    print_captures(label, graph.captures[first:])
     pools = [cap["pool_bytes"] for cap in graph.captures[first:]]
+    residual = sorted({f for cap in graph.captures[first:]
+                       for f in cap["residual"]})
+    print(f"[{label}] residual hand-over: fields {residual}, at most "
+          f"{max(c['residual_bytes'] for c in graph.captures[first:])} "
+          f"bytes a replay", flush=True)
 
     s0 = states[1]
     del states
-    # every graph of the cadence captured before the timed calls
-    warm = PHYSICS_EVERY if name == "volume" else 1
+    # every graph of the cadence, from both buffer sets, captured before
+    # the timed calls
+    warm = PHYSICS_EVERY if name == "volume" else 2
     eager_calls, _ = timed_calls(lambda x: step(x, cfg, scene), s0,
                                  PHYSICS_TIMED, 1)
     graph_calls, _ = timed_calls(lambda x: jit_step(x, cfg, scene), s0,
@@ -1875,6 +1976,7 @@ def physics_case(device, name, cfg, with_scene, wrappers, card) -> dict:
         PHYSICS_TIMED, GRAPH_STEPS, warm)
     result = {"launches": launches, "graph_launches": graph_launches,
               "k2_device": k2_device, "pool_bytes": pools,
+              "residual": residual,
               "eager_ms": median(ms for _, ms in eager_calls),
               "graph_ms": median(ms for _, ms in graph_calls),
               "multi_ms": median(ms for _, ms in multi_calls) / GRAPH_STEPS}
@@ -2369,11 +2471,18 @@ def spmd_scene(device, scene: str, cfg, card: str) -> dict:
         print(f"[{label}] {what}, {GRAPH_STEPS} steps: every field bitwise "
               f"{not fields} {fields}", flush=True)
         check(not fields, f"{label}: {what} differ in {fields}")
-    for cap in graph.captures[first:]:
-        print(f"[{label}] capture of {cap['n_steps']} step(s), program "
-              f"{cap['program']}: warm-up step {cap['warmup_s']!r} s, "
-              f"capture {cap['capture_s']!r} s, graph pool "
-              f"{cap['pool_bytes'] / 2 ** 20!r} MiB", flush=True)
+    print(f"[{label}] program {graph.captures[-1]['program']}; "
+          f"jit_spmd_step lineage: {sets_line(s)}", flush=True)
+    print_captures(label, graph.captures[first:])
+    residual = sorted({f for cap in graph.captures[first:]
+                       for f in cap["residual"]})
+    print(f"[{label}] residual hand-over: fields {residual}, at most "
+          f"{max(c['residual_bytes'] for c in graph.captures[first:])} "
+          f"bytes a replay", flush=True)
+    in_place = ("velocity", "inertia", "float_dens_1", "float_dens_2")
+    check(not set(in_place) & set(residual),
+          f"{label}: {in_place} must be written in place, residual "
+          f"{residual}")
     print(f"[{label}] wrapper launches a step (eager): {per_step}, K6 C "
           f"counter {k6_eager / GRAPH_STEPS!r}; in the eager steps, "
           f"warm-up steps and captures: {launches}", flush=True)
@@ -2391,8 +2500,8 @@ def spmd_scene(device, scene: str, cfg, card: str) -> dict:
         times[what] = median(t) / (GRAPH_STEPS if "multi" in what else 1)
     t, _ = step_ms(lambda x: jit_step(x, cfg), state0, GRAPH_TIMED)
     times["jit_step (single-device)"] = median(t)
-    print(f"[{label}] ms a step, median of {GRAPH_TIMED} after a warm-up "
-          f"(CUDA events): " + ", ".join(f"{k} {v!r}" for k, v in
+    print(f"[{label}] ms a step, median of {GRAPH_TIMED} after two untimed "
+          f"calls (CUDA events): " + ", ".join(f"{k} {v!r}" for k, v in
                                          times.items()) + f" on {card}",
           flush=True)
     del state0, local0

@@ -19,8 +19,7 @@ from tpu_fluid.solver.step import jit_multi_step as jax_jit_multi_step
 from tpu_fluid.solver.step import simulation_step as jax_step
 from tpu_fluid_torch import (SceneFields, initial_state, jit_multi_step,
                              jit_step, solid_sphere, step, vortex_force)
-from tpu_fluid_torch.core.state import (FluidState, state_from_numpy,
-                                        state_to_numpy)
+from tpu_fluid_torch.core.state import state_from_numpy, state_to_numpy
 from tpu_fluid_torch.solver import graph
 
 torch.set_num_threads(2)
@@ -156,37 +155,30 @@ def reuse_dropped_lineage(cfg, device):
 
 
 class StandInGraph:
-    """What a captured graph does, as eager steps on the CPU: n steps of
-    its program from its buffers and scene buffers, the result copied back
-    into them."""
+    """What a captured graph does, as eager steps on the CPU: its entry's
+    `graph._record` from its set (n steps of its program, the last written
+    into the other set, then the residual hand-over)."""
 
-    def __init__(self, cfg, n_steps, first, entry_buffers, program):
-        self.cfg, self.n_steps, self.first = cfg, n_steps, first
-        self.buffers, self.scene_buffers = entry_buffers
-        self.program = program
+    def __init__(self, *record_args):
+        self.record_args = record_args
 
     def replay(self):
-        out = self.buffers
-        for k in range(self.n_steps):
-            out = self.program.step(out, self.cfg, self.scene_buffers,
-                                    self.first + k)
-        graph._load(self.buffers, out)
+        graph._record(*self.record_args)
 
 
 @pytest.fixture
 def stand_in(monkeypatch):
     """jit_step on CPU states through the graph cache, each capture a
-    StandInGraph; records whether a capture asked for the warm-up."""
-    def capture(state, cfg, n_steps, scene, first, phase, warm_up,
-                program):
-        buffers = FluidState(*(t.clone() for t in state))
-        scene_buffers = None if scene is None else type(scene)(
-            *(None if t is None else t.clone() for t in scene))
-        graph.captures.append({"n_steps": n_steps, "phase": phase,
-                               "warm_up": warm_up, "program": program.key})
-        return graph._Entry(StandInGraph(cfg, n_steps, first,
-                                         (buffers, scene_buffers), program),
-                            buffers, scene_buffers)
+    StandInGraph; records whether a capture asked for the warm-up.  A
+    capture runs the step's code once, as `torch.cuda.graph` does, here
+    for real: it writes the set the graph writes, which holds nothing
+    live, and shares the passed-through fields at an entry's first
+    capture."""
+    def capture(entry, src, cfg, n_steps, first, warm_up, program):
+        args = (entry, src, cfg, n_steps, first, program)
+        residual = graph._record(*args)
+        return StandInGraph(*args), {"warm_up": warm_up,
+                                     "residual": residual}
     monkeypatch.setattr(graph, "on_cuda", lambda t: True)
     monkeypatch.setattr(graph, "_capture", capture)
     graph.clear_graphs()
@@ -204,11 +196,15 @@ def test_lineages_keep_their_entries_behind_a_stand_in(stand_in, name,
     n0 = len(graph.captures)
     step_two_lineages(cfg, stand_in, b_steps)
     made = graph.captures[n0:]
-    keys = [(c["n_steps"], c["phase"]) for c in made]
+    keys = [c["n_steps"] for c in made]
     assert [c["warm_up"] for c in made] == \
         [keys.index(k) == i for i, k in enumerate(keys)]
+    assert all(c["residual"] == [] for c in made)
     if name == "plain":
-        assert keys == [(1, None), (1, None), (3, None), (3, None)]
+        # each lineage's two sets: a graph from each, at n = 1; at n = 3
+        # one replay each, from set A
+        assert [(c["n_steps"], c["src"]) for c in made] == \
+            [(1, 0), (1, 0), (1, 1), (1, 1), (3, 0), (3, 0)]
 
 
 def test_dropped_lineage_entry_is_reused_behind_a_stand_in(stand_in):
@@ -226,9 +222,15 @@ def test_returned_state_is_consumed_only_when_passed_in(stand_in):
     other = jit_step(initial_state(CFG, stand_in), CFG)
     assert_states_equal(s1, keep1, "another lineage's call")
     s2 = jit_step(s1, CFG)
-    assert s2.velocity.data_ptr() == s1.velocity.data_ptr()
-    assert_states_equal(s2, step(keep1, CFG), "replay in place")
-    assert other.velocity.data_ptr() != s2.velocity.data_ptr()
+    assert s2.velocity.data_ptr() != s1.velocity.data_ptr()
+    assert_states_equal(s1, keep1, "s1 until s2 is passed in")
+    keep2 = cloned(s2)
+    assert_states_equal(s2, step(keep1, CFG), "s2, in the other set")
+    s3 = jit_step(s2, CFG)
+    assert s3.velocity.data_ptr() == s1.velocity.data_ptr()
+    assert_states_equal(s3, step(keep2, CFG), "s3, in s1's set")
+    assert other.velocity.data_ptr() not in (s2.velocity.data_ptr(),
+                                             s3.velocity.data_ptr())
 
 
 @pytest.mark.parametrize("call", [
@@ -277,17 +279,20 @@ def test_cuda_capture_is_cached_per_config(cuda_device):
     n0 = len(graph.captures)
     s = jit_step(initial_state(cfg, cuda_device), cfg)
     s = jit_step(s, cfg)
-    assert len(graph.captures) == n0 + 1
+    s = jit_step(s, cfg)
+    # one graph from each of the lineage's two sets
+    assert [c["src"] for c in graph.captures[n0:]] == [0, 1]
     other = cfg.replace(jacobi_iters=cfg.jacobi_iters + 1)
     jit_step(initial_state(other, cuda_device), other)
     jit_multi_step(s, cfg, 2)
-    assert len(graph.captures) == n0 + 3
+    assert len(graph.captures) == n0 + 4
     assert graph.captures[-1]["n_steps"] == 2
 
 
 @pytest.mark.cuda
 def test_cuda_state_passed_in_is_consumed(cuda_device):
-    """The returned state is the graph's buffers: the next call given it
+    """The returned state is one of its lineage's two buffer sets: the
+    call given it returns the other set, and the call after that
     overwrites it; a state that is not the graph's own is left as it
     was."""
     cfg = CARD_CFGS["16"]
@@ -297,9 +302,14 @@ def test_cuda_state_passed_in_is_consumed(cuda_device):
     assert_states_equal(s0, keep, "foreign state")
     s1_before = cloned(s1)
     s2 = jit_step(s1, cfg)
-    assert s2.velocity.data_ptr() == s1.velocity.data_ptr()
-    assert int(s1.step) == 2 and int(s1_before.step) == 1
+    assert s2.velocity.data_ptr() != s1.velocity.data_ptr()
+    assert int(s1.step) == 1
     assert_states_equal(s2, step(s1_before, cfg), "second replay")
+    s2_before = cloned(s2)
+    s3 = jit_step(s2, cfg)
+    assert s3.velocity.data_ptr() == s1.velocity.data_ptr()
+    assert int(s1.step) == 3 and int(s2_before.step) == 2
+    assert_states_equal(s3, step(s2_before, cfg), "third replay")
 
 
 @pytest.mark.cuda

@@ -217,11 +217,13 @@ def test_spmd_lineages_keep_their_entries_behind_a_stand_in(stand_in,  # noqa: F
     assert_states_equal(b, eager_spmd(want_b, cfg, 3), "B, multi")
     made = graph.captures[n0:]
     assert {c["program"] for c in made} == {spmd_program(cfg, mesh).key}
-    keys = [(c["n_steps"], c["phase"]) for c in made]
+    keys = [c["n_steps"] for c in made]
     assert [c["warm_up"] for c in made] == \
         [keys.index(k) == i for i, k in enumerate(keys)]
+    assert all(c["residual"] == [] for c in made)
     if not volume:
-        assert keys == [(1, None), (1, None), (3, None), (3, None)]
+        assert [(c["n_steps"], c["src"]) for c in made] == \
+            [(1, 0), (1, 0), (1, 1), (1, 1), (3, 0), (3, 0)]
 
 
 def test_spmd_dropped_lineage_entry_is_reused_behind_a_stand_in(stand_in):  # noqa: F811
@@ -251,9 +253,15 @@ def test_spmd_state_is_consumed_only_when_passed_in(stand_in):  # noqa: F811
     other = step(local_state(cfg))
     assert_states_equal(s1, keep1, "another lineage's call")
     s2 = step(s1)
-    assert s2.velocity.data_ptr() == s1.velocity.data_ptr()
-    assert_states_equal(s2, eager_spmd(keep1, cfg, 1), "replay in place")
-    assert other.velocity.data_ptr() != s2.velocity.data_ptr()
+    assert s2.velocity.data_ptr() != s1.velocity.data_ptr()
+    assert_states_equal(s1, keep1, "s1 until s2 is passed in")
+    keep2 = cloned(s2)
+    assert_states_equal(s2, eager_spmd(keep1, cfg, 1), "s2, in the other set")
+    s3 = step(s2)
+    assert s3.velocity.data_ptr() == s1.velocity.data_ptr()
+    assert_states_equal(s3, eager_spmd(keep2, cfg, 1), "s3, in s1's set")
+    assert other.velocity.data_ptr() not in (s2.velocity.data_ptr(),
+                                             s3.velocity.data_ptr())
 
 
 def test_mesh_is_part_of_the_graph_key(stand_in):  # noqa: F811
@@ -269,7 +277,11 @@ def test_mesh_is_part_of_the_graph_key(stand_in):  # noqa: F811
     assert [c["program"] for c in graph.captures[n0:]] == \
         [None, spmd_program(cfg, mesh).key]
     jit_spmd_step(cfg, cpu_mesh())(s)            # a new function, one key
-    assert len(graph.captures) == n0 + 2
+    # of that key's entry: the graph from the lineage's other set, with no
+    # warm-up
+    assert len(graph.captures) == n0 + 3
+    assert graph.captures[-1]["src"] == 1
+    assert not graph.captures[-1]["warm_up"]
     key = spmd_program(cfg, mesh).key
     assert key == ("spmd", 0, 1, None, torch.device("cpu"))
     assert len({key, ("spmd", 1, 2, "gloo", torch.device("cpu")),

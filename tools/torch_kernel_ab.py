@@ -3,7 +3,8 @@
 card, at the shapes `chip_smoke.py` checks them at, or split its
 scaled_scene(256) step by stage.
 
-    python3 tools/torch_kernel_ab.py [--tree DIR] [--label NAME] [--split]
+    python3 tools/torch_kernel_ab.py [--tree DIR] [--label NAME]
+                                     [--split | --steps | --sass]
 
 `--tree` names the directory that holds the `tpu_fluid_torch` package to
 time (default: this checkout), so that a parent commit unpacked with
@@ -41,6 +42,18 @@ does not have or call are absent from its lines).  One JSON line a stage: the
 median and the per-step ms; then the step itself and the part of it that
 no top-level stage covers.
 
+`--steps`: the step's entry points at the three scenes (reference_scene,
+scaled_scene(128) and (256)), each from the state after 2 eager steps: ms
+a step of the eager `step`, `jit_step`, `jit_multi_step(state, cfg, 3)`
+and, on a 1-rank mesh, `jit_spmd_step` (particles index-sharded below
+256^3 and domain-sharded there, as the bench chooses); then the first
+three at 128^3 under each option of `chip_smoke.physics_configs` (volume
+correction every 4 steps, the level set, the red-black solver, the dam
+break with scene fields).  Medians of `STEP_REPS` calls between CUDA
+events after `STEP_WARMUP` untimed calls, which capture every graph a
+lineage replays, the cadence's included (`chip_smoke.timed_calls`), with
+every capture's graph pool.  One JSON line a scene or option.
+
 `--sass`: compile each CUDA source of the tree with the build's flags and
 print, a JSON line a kernel, its registers and spills (`nvcc -Xptxas -v`)
 and its static SASS instruction count (`cuobjdump -sass`).
@@ -76,6 +89,8 @@ HALO_KERNELS = ("advect_all_halo_cuda", "jacobi_pass_cuda",
                 "surface_fused_halo_cuda", "classify_extrap_halo_cuda",
                 "forces_solids_div_halo_cuda", "project_halo_cuda")
 SPLIT_STEPS = 5
+STEP_REPS = 15
+STEP_WARMUP = 4
 # (module, function, label, top level): the stage calls of
 # solver/step.simulation_step on the fused path, and inside stages 07
 # and 12 the kernel and the plain passes around it
@@ -194,6 +209,54 @@ def split_step(label, device) -> None:
                               "ms": each}), flush=True)
 
 
+def time_steps(label, chip_smoke, device) -> None:
+    """Eager, graphed and 1-rank graphed SPMD ms a step at the three
+    scenes, and eager and graphed under each option at 128^3."""
+    import torch
+    from tpu_fluid_torch import (FluidConfig, initial_state, jit_multi_step,
+                                 jit_step, step)
+    from tpu_fluid_torch.parallel.mesh import make_mesh
+    from tpu_fluid_torch.parallel.particles_domain import layout_state
+    from tpu_fluid_torch.parallel.spmd_step import jit_spmd_step
+    from tpu_fluid_torch.solver import graph
+    mesh = make_mesh(1, device=device)
+    bench = FluidConfig.scaled_scene(128)
+    cases = [(scene, cfg, None, True) for scene, cfg in (
+        ("reference", FluidConfig.reference_scene()), ("bench", bench),
+        ("large", FluidConfig.scaled_scene(256)))]
+    cases += [(name, cfg, chip_smoke.physics_scene(cfg, device)
+               if with_scene else None, False)
+              for name, cfg, with_scene in chip_smoke.physics_configs(bench)]
+    for name, cfg, scene, spmd in cases:
+        state0 = chip_smoke.run_steps(initial_state(cfg, device), cfg, 2,
+                                      scene)
+        first = len(graph.captures)
+        row = {"tree": label, "scene": name}
+        entries = [("eager", lambda x: step(x, cfg, scene), state0, 1),
+                   ("jit_step", lambda x: jit_step(x, cfg, scene), state0,
+                    1),
+                   ("jit_multi_step(3)",
+                    lambda x: jit_multi_step(x, cfg, 3, scene), state0, 3)]
+        if spmd:
+            scfg = cfg.replace(particle_sharding="domain"
+                               if cfg.grid_size[0] >= 256 else "index")
+            entries.append(("jit_spmd_step", jit_spmd_step(scfg, mesh),
+                            layout_state(state0, 0, 1, scfg), 1))
+        for what, fn, start, n in entries:
+            calls, _ = chip_smoke.timed_calls(fn, start, STEP_REPS, n,
+                                              STEP_WARMUP)
+            each = [ms for _, ms in calls]
+            row[what] = statistics.median(each) / n
+            row[f"{what} each"] = each
+            graph.clear_graphs()
+            torch.cuda.empty_cache()
+        row["pool_mib"] = [c["pool_bytes"] / 2 ** 20
+                           for c in graph.captures[first:]]
+        print(json.dumps(row), flush=True)
+        del state0
+        torch.cuda.empty_cache()
+
+
 PTXAS_KERNEL = re.compile(
     r"Function properties for (\S+)\n\s+\d+ bytes stack frame, (\d+) "
     r"bytes spill stores, (\d+) bytes spill loads\n.*?Used (\d+) registers")
@@ -235,6 +298,8 @@ def main() -> int:
                     help="split the scaled_scene(256) step by stage")
     ap.add_argument("--sass", action="store_true",
                     help="registers and static SASS of each kernel")
+    ap.add_argument("--steps", action="store_true",
+                    help="eager and graphed ms a step at the three scenes")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     # the tree's package first, then this checkout's chip_smoke.py
@@ -258,6 +323,8 @@ def main() -> int:
         sass_counts(args.label)
     elif args.split:
         split_step(args.label, device)
+    elif args.steps:
+        time_steps(args.label, chip_smoke, device)
     else:
         time_kernels(args.label, chip_smoke, device)
     return 0

@@ -11,7 +11,10 @@ Quick start:
         state = jit_step(state, cfg)  # a CUDA-graph replay; `step` is eager
 
 `jit_step` and `jit_multi_step` (solver/graph.py) consume the state they
-are given, as JAX's donating `jit_step` does: keep a clone to hold one.
+are given, as JAX's donating `jit_step` does: each lineage steps between
+two buffer sets, so `s2 = jit_step(s1)` leaves `s1` as it was until `s2`
+is passed in, whose step writes `s1`'s buffers.  Keep a clone to hold a
+state.
 
 Beyond the reference, as in the JAX package: volume correction
 (`volume_correction`), the level-set surface (`surface_method="levelset"`),

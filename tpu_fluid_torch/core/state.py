@@ -43,6 +43,11 @@ class FluidState(NamedTuple):
     dropped: torch.Tensor
 
 
+# A state of None fields: a step's `into` when the caller gives none, so
+# that every field is allocated.
+NOWHERE = FluidState(*(None,) * len(FluidState._fields))
+
+
 def init_particles(cfg: FluidConfig, device=None):
     """Stage 00: spawn the initial particle blob(s)
     (`00_init_particles/init_particles.comp:27-49`).  Id i of a cube maps

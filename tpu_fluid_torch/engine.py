@@ -11,9 +11,10 @@ and particle-render toggles (R/F), checkpointing, and per-step
 diagnostics.
 
 The state lives on the card unless `Simulation(cfg, device="cpu")` (or a
-CPU state) is given.  On the card, `self.state` lives in the step graph's
-buffers for this simulation's lineage: the next `step()` consumes it, as
-JAX's donation does, so clone it to keep it across a `step()`.  No other
+CPU state) is given.  On the card, `self.state` lives in one of the two
+buffer sets the step graphs keep for this simulation's lineage: the next
+`step()` consumes it, as JAX's donation does (its second step writes the
+set it lies in), so clone it to keep it across a `step()`.  No other
 simulation's steps write it.
 Meshing and rendering run eagerly, outside the graph: their shapes depend
 on the data.

@@ -52,6 +52,29 @@ def require(t: torch.Tensor, name: str, dtype, shape=None,
         raise ValueError(f"{name}: not contiguous")
 
 
+def store(values, out):
+    """`values`, a tensor or a tuple of them, each copied into its tensor
+    of `out` where one is given (a None entry keeps its value): how a
+    plain version, or a stage whose last op has no `out=`, honours the
+    `out=` its caller gives.  Returns the tensors that hold the result."""
+    if out is None:
+        return values
+    if not isinstance(values, tuple):
+        return _store(values, out)
+    if len(out) != len(values):
+        raise ValueError(f"out: {len(out)} tensors for {len(values)} "
+                         f"results")
+    return tuple(v if o is None else _store(v, o)
+                 for v, o in zip(values, out))
+
+
+def _store(value: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    require(out, "out", value.dtype, value.shape, value.device)
+    if out is not value:
+        out.copy_(value)
+    return out
+
+
 def on_cuda(t: torch.Tensor) -> bool:
     """True for a CUDA tensor, False for a CPU one (the wrapper then runs
     the plain version); raises for any other device."""

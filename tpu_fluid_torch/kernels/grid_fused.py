@@ -51,7 +51,7 @@ import functools
 import torch
 
 from tpu_fluid_torch.core.types import CellType
-from tpu_fluid_torch.kernels import build, on_cuda, require, tiling
+from tpu_fluid_torch.kernels import build, on_cuda, require, store, tiling
 from tpu_fluid_torch.kernels.tiling import CLASSIFY_HALO, FORCES_HALO
 from tpu_fluid_torch.ops.stencil import MOVES, axis_nonzero, shifted
 from tpu_fluid_torch.stages.celltypes import update_air, update_water
@@ -180,25 +180,26 @@ def _classify_extrap(occ_sim, old_types, vel, cfg, xb, gx):
     return newt, torch.stack(comps)
 
 
-def classify_extrap_plain(occ, old_types, vel, cfg, *, pool=1):
+def classify_extrap_plain(occ, old_types, vel, cfg, *, pool=1, out=None):
     """(occ u8 at `pool` times the sim grid, old_types u8, vel f32
     (3,X,Y,Z)) -> (types u8, vel'): stage 01's max-pool, then stages
-    02-06.  The new types are integer codes, so the stage functions give
-    them exactly as the kernel body's indicator arithmetic does."""
+    02-06, copied into `out`'s (types, vel) where given.  The new types
+    are integer codes, so the stage functions give them exactly as the
+    kernel body's indicator arithmetic does."""
     occ_sim = pool_occupancy(occ, pool) if pool > 1 else occ
-    return _classify_extrap(occ_sim, old_types, vel, cfg, 0,
-                            occ_sim.shape[0])
+    return store(_classify_extrap(occ_sim, old_types, vel, cfg, 0,
+                                  occ_sim.shape[0]), out)
 
 
 def classify_extrap_halo_plain(occ_sim, old_types, vel, cfg, *, halos, x0,
-                               global_gx):
+                               global_gx, out=None):
     """The halo form: local slabs of global rows [x0, x0 + lx), `halos`
     the ((left, right), ...) 2-plane halos of (occ_sim, old_types, vel)."""
     h = CLASSIFY_HALO
     _check_global(occ_sim.shape, global_gx, x0)
     ext = _with_halos((occ_sim, old_types, vel), halos, h)
     newt, v = _classify_extrap(*ext, cfg, x0 - h, global_gx)
-    return newt[h:-h], v[:, h:-h]
+    return store((newt[h:-h], v[:, h:-h]), out)
 
 
 def _check_vel(vel):
@@ -206,6 +207,18 @@ def _check_vel(vel):
     if vel.ndim != 4 or vel.shape[0] != 3:
         raise ValueError(f"vel: shape {tuple(vel.shape)}, expected (3,X,Y,Z)")
     return tuple(vel.shape[1:])
+
+
+def _check_classify_out(out, vel):
+    """K6a's `out`: (types, vel) tensors or None entries."""
+    if out is None:
+        return (None, None)
+    types, v = out
+    if types is not None:
+        require(types, "out types", torch.uint8, vel.shape[1:], vel.device)
+    if v is not None:
+        require(v, "out vel", torch.float32, vel.shape, vel.device)
+    return out
 
 
 def _boxes_ptr(cfg, device):
@@ -225,15 +238,20 @@ def _grid_pass(shape, halo, slab_halo, device):
                                   sms=build.sm_count(device.index))
 
 
-def _classify_launch(occ, old_types, vel, cfg, xb, gx, h, pool):
+def _classify_launch(occ, old_types, vel, cfg, xb, gx, h, pool, to):
     """K6a on inputs of nx rows (h neighbour planes a side, row 0 at global
-    x xb of a domain gx rows wide); returns the interior rows."""
+    x xb of a domain gx rows wide); returns the interior rows, in `to`'s
+    (types, vel) where given."""
     nx, gy, gz = old_types.shape
     with torch.cuda.device(vel.device):
         p = _grid_pass(old_types.shape, CLASSIFY_HALO, h, vel.device)
         shape = (p.xe - p.xs, gy, gz)
-        types = torch.empty(shape, dtype=torch.uint8, device=vel.device)
-        out = torch.empty((3,) + shape, dtype=vel.dtype, device=vel.device)
+        types, out = to
+        if types is None:
+            types = torch.empty(shape, dtype=torch.uint8, device=vel.device)
+        if out is None:
+            out = torch.empty((3,) + shape, dtype=vel.dtype,
+                              device=vel.device)
         table, nbox = _boxes_ptr(cfg, vel.device)
         stream = torch.cuda.current_stream(vel.device).cuda_stream
         build.call("tf_classify_extrap", _CLASSIFY_ARGTYPES,
@@ -243,9 +261,10 @@ def _classify_launch(occ, old_types, vel, cfg, xb, gx, h, pool):
     return types, out
 
 
-def classify_extrap_cuda(occ, old_types, vel, cfg, *, pool=1):
-    """K6a wrapper (arguments as `classify_extrap_plain`): the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors."""
+def classify_extrap_cuda(occ, old_types, vel, cfg, *, pool=1, out=None):
+    """K6a wrapper (arguments as `classify_extrap_plain`; `out` the
+    (types, vel) tensors to write, None entries allocated): the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors."""
     shape = _check_vel(vel)
     if not isinstance(pool, int) or pool < 1:
         raise ValueError(f"pool = {pool!r}, expected an int >= 1")
@@ -255,33 +274,37 @@ def classify_extrap_cuda(occ, old_types, vel, cfg, *, pool=1):
         raise ValueError("occ: at pool 2 the kernel reads it as u16 pairs, "
                          "so it must start on a 2-byte boundary")
     require(old_types, "old_types", torch.uint8, shape, vel.device)
+    to = _check_classify_out(out, vel)
     if not on_cuda(vel):
-        return classify_extrap_plain(occ, old_types, vel, cfg, pool=pool)
-    out = _classify_launch(occ, old_types, vel, cfg, 0, shape[0], 0, pool)
+        return classify_extrap_plain(occ, old_types, vel, cfg, pool=pool,
+                                     out=out)
+    res = _classify_launch(occ, old_types, vel, cfg, 0, shape[0], 0, pool,
+                           to)
     classify_extrap_cuda.launches += 1
-    return out
+    return res
 
 
 classify_extrap_cuda.launches = 0
 
 
 def classify_extrap_halo_cuda(occ_sim, old_types, vel, cfg, *, halos, x0,
-                              global_gx):
+                              global_gx, out=None):
     """K6a halo-form wrapper (arguments as `classify_extrap_halo_plain`):
     the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
     shape = _check_vel(vel)
     require(occ_sim, "occ_sim", torch.uint8, shape, vel.device)
     require(old_types, "old_types", torch.uint8, shape, vel.device)
+    to = _check_classify_out(out, vel)
     if not on_cuda(vel):
         return classify_extrap_halo_plain(occ_sim, old_types, vel, cfg,
                                           halos=halos, x0=x0,
-                                          global_gx=global_gx)
+                                          global_gx=global_gx, out=out)
     _check_global(shape, global_gx, x0)
     h = CLASSIFY_HALO
     ext = _with_halos((occ_sim, old_types, vel), halos, h)
-    out = _classify_launch(*ext, cfg, x0 - h, global_gx, h, 1)
+    res = _classify_launch(*ext, cfg, x0 - h, global_gx, h, 1, to)
     classify_extrap_halo_cuda.launches += 1
-    return out
+    return res
 
 
 classify_extrap_halo_cuda.launches = 0
@@ -419,30 +442,32 @@ def _project(types, p, vel, cfg, xb):
     return torch.stack(comps)
 
 
-def project_plain(types, p, vel, cfg):
+def project_plain(types, p, vel, cfg, *, out=None):
     """(types u8, p f32, vel f32 (3,X,Y,Z)) -> vel - scale * (cond *
-    (p - p(i - e_c)))."""
-    return _project(types, p, vel, cfg, 0)
+    (p - p(i - e_c))), copied into `out` where given."""
+    return store(_project(types, p, vel, cfg, 0), out)
 
 
-def project_halo_plain(types, p, vel, cfg, *, halos, x0, global_gx):
+def project_halo_plain(types, p, vel, cfg, *, halos, x0, global_gx,
+                       out=None):
     """The halo form: local slabs of global rows [x0, x0 + lx), `halos`
     the ((left, right), ...) 1-plane halos of (types, p, vel)."""
     h = PROJECT_HALO
     _check_global(types.shape, global_gx, x0)
     ext = _with_halos((types, p, vel), halos, h)
-    return _project(*ext, cfg, x0 - h)[:, h:-h]
+    return store(_project(*ext, cfg, x0 - h)[:, h:-h], out)
 
 
-def _project_launch(types, p, vel, cfg, xb, gx, left=(None, None)):
+def _project_launch(types, p, vel, cfg, xb, gx, out, left=(None, None)):
     """K6c on slabs of nx rows whose row 0 lies at global x xb of a domain
-    gx rows wide; `left` holds the types and pressure of global row xb - 1
-    where xb > 0."""
+    gx rows wide, into `out` (else a new tensor); `left` holds the types
+    and pressure of global row xb - 1 where xb > 0."""
     nx, gy, gz = types.shape
     with torch.cuda.device(vel.device):
         plan = tiling.project_pass(types.shape,
                                    sms=build.sm_count(vel.device.index))
-        out = torch.empty_like(vel)
+        if out is None:
+            out = torch.empty_like(vel)
         stream = torch.cuda.current_stream(vel.device).cuda_stream
         build.call("tf_project", _PROJECT_ARGTYPES, types.data_ptr(),
                    p.data_ptr(), vel.data_ptr(),
@@ -452,40 +477,46 @@ def _project_launch(types, p, vel, cfg, xb, gx, left=(None, None)):
     return out
 
 
-def project_cuda(types, p, vel, cfg):
-    """K6c wrapper: the CUDA kernel for CUDA tensors, `project_plain` for
-    CPU tensors."""
+def _check_project(types, p, vel, out):
     shape = _check_vel(vel)
     require(types, "types", torch.uint8, shape, vel.device)
     require(p, "p", torch.float32, shape, vel.device)
+    if out is not None:
+        require(out, "out", torch.float32, vel.shape, vel.device)
+    return shape
+
+
+def project_cuda(types, p, vel, cfg, *, out=None):
+    """K6c wrapper (`out` the velocity tensor to write, else a new one):
+    the CUDA kernel for CUDA tensors, `project_plain` for CPU tensors."""
+    shape = _check_project(types, p, vel, out)
     if not on_cuda(vel):
-        return project_plain(types, p, vel, cfg)
-    out = _project_launch(types, p, vel, cfg, 0, shape[0])
+        return project_plain(types, p, vel, cfg, out=out)
+    res = _project_launch(types, p, vel, cfg, 0, shape[0], out)
     project_cuda.launches += 1
-    return out
+    return res
 
 
 project_cuda.launches = 0
 
 
-def project_halo_cuda(types, p, vel, cfg, *, halos, x0, global_gx):
+def project_halo_cuda(types, p, vel, cfg, *, halos, x0, global_gx,
+                      out=None):
     """K6c halo-form wrapper (arguments as `project_halo_plain`): the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors.  The
     kernel reads the slabs and the left halo planes of the types and
     pressure; the right planes and the velocity's are checked, not
     read."""
-    shape = _check_vel(vel)
-    require(types, "types", torch.uint8, shape, vel.device)
-    require(p, "p", torch.float32, shape, vel.device)
+    shape = _check_project(types, p, vel, out)
     if not on_cuda(vel):
         return project_halo_plain(types, p, vel, cfg, halos=halos, x0=x0,
-                                  global_gx=global_gx)
+                                  global_gx=global_gx, out=out)
     _check_global(shape, global_gx, x0)
     _check_halos((types, p, vel), halos, PROJECT_HALO)
     left = (halos[0][0], halos[1][0])
-    out = _project_launch(types, p, vel, cfg, x0, global_gx, left)
+    res = _project_launch(types, p, vel, cfg, x0, global_gx, out, left)
     project_halo_cuda.launches += 1
-    return out
+    return res
 
 
 project_halo_cuda.launches = 0

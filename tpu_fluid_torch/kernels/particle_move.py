@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import torch
 
-from tpu_fluid_torch.kernels import build, on_cuda, require
+from tpu_fluid_torch.kernels import build, on_cuda, require, store
 from tpu_fluid_torch.ops.indexing import float_to_index
 from tpu_fluid_torch.ops.packed_sampler import (_OTHER, _lane,
                                                 build_packed_table,
@@ -116,13 +116,14 @@ def scatter_occupancy(positions: torch.Tensor, active: torch.Tensor,
 
 def particle_move_occupancy_plain(vel: torch.Tensor, pos: torch.Tensor,
                                   active: torch.Tensor, dt: float,
-                                  res: int) -> tuple:
+                                  res: int, *, out=None) -> tuple:
     """Stages 14 and 15 in plain PyTorch: the moved positions, and the
     occupancy of the moved active ones on the detailed grid `res` times
-    the sim grid."""
+    the sim grid; copied into `out`'s (positions, occupancy) where
+    given."""
     moved = particle_move_plain(vel, pos, active, dt)
     dsize = tuple(res * n for n in vel.shape[1:])
-    return moved, scatter_occupancy(moved, active, res, dsize)
+    return store((moved, scatter_occupancy(moved, active, res, dsize)), out)
 
 
 def particle_move_local_plain(vel_e: torch.Tensor, pos: torch.Tensor,
@@ -153,11 +154,12 @@ def _check(vel: torch.Tensor, pos: torch.Tensor,
     require(active, "active", torch.bool, (pos.shape[0],), vel.device)
 
 
-def _launch(vel, pos, active, dt, xb, grid_size, occ=None,
-            res=0) -> torch.Tensor:
+def _launch(vel, pos, active, dt, xb, grid_size, occ=None, res=0,
+            out=None) -> torch.Tensor:
     """The kernel on memory rows [xb, xb + vel.shape[1]) of a grid of
-    global extent `grid_size`, scattering into `occ` where it is given."""
-    out = torch.empty_like(pos)
+    global extent `grid_size`, scattering into `occ` where it is given,
+    moving into `out` (else a new tensor)."""
+    out = torch.empty_like(pos) if out is None else out
     gx, gy, gz = grid_size
     with torch.cuda.device(vel.device):
         stream = torch.cuda.current_stream(vel.device).cuda_stream
@@ -169,23 +171,34 @@ def _launch(vel, pos, active, dt, xb, grid_size, occ=None,
 
 
 def particle_move_cuda(vel: torch.Tensor, pos: torch.Tensor,
-                       active: torch.Tensor, dt: float, res: int) -> tuple:
+                       active: torch.Tensor, dt: float, res: int, *,
+                       out=None) -> tuple:
     """K3+K4 wrapper: vel (3,X,Y,Z) f32, pos (P,3) f32, active (P,) bool
     and the detailed cells a sim cell `res` -> (the moved positions (P,3),
-    the (res X, res Y, res Z) u8 occupancy of the moved active ones); the
+    the (res X, res Y, res Z) u8 occupancy of the moved active ones),
+    written into `out`'s (positions, occupancy) tensors where given; the
     CUDA kernel for CUDA tensors, `particle_move_occupancy_plain` for CPU
     tensors."""
     _check(vel, pos, active)
     if not isinstance(res, int) or res < 1:
         raise ValueError(f"res = {res!r}, expected an int >= 1")
-    if not on_cuda(vel):
-        return particle_move_occupancy_plain(vel, pos, active, dt, res)
     grid = tuple(vel.shape[1:])
-    occ = torch.zeros(tuple(res * n for n in grid), dtype=torch.uint8,
-                      device=vel.device)
-    out = _launch(vel, pos, active, dt, 0, grid, occ, res)
+    dsize = tuple(res * n for n in grid)
+    moved, occ = (None, None) if out is None else out
+    if moved is not None:
+        require(moved, "out positions", torch.float32, pos.shape, vel.device)
+    if occ is not None:
+        require(occ, "out occupancy", torch.uint8, dsize, vel.device)
+    if not on_cuda(vel):
+        return particle_move_occupancy_plain(vel, pos, active, dt, res,
+                                             out=out)
+    if occ is None:
+        occ = torch.zeros(dsize, dtype=torch.uint8, device=vel.device)
+    else:
+        occ.zero_()
+    moved = _launch(vel, pos, active, dt, 0, grid, occ, res, moved)
     particle_move_cuda.launches += 1
-    return out, occ
+    return moved, occ
 
 
 def particle_move_local_cuda(vel_e: torch.Tensor, pos: torch.Tensor,

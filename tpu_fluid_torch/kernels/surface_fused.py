@@ -43,7 +43,7 @@ from __future__ import annotations
 
 import torch
 
-from tpu_fluid_torch.kernels import build, on_cuda, require, tiling
+from tpu_fluid_torch.kernels import build, on_cuda, require, store, tiling
 from tpu_fluid_torch.ops.stencil import AXIS_MOVES, div_scalar, neighbor_sum
 
 _ARGTYPES = ((build.POINTER,) * 8 + (build.INT,) * 10
@@ -100,11 +100,13 @@ def _blur(a, b, skip, in_dom, steps, k):
 
 def surface_fused_plain(occ, inertia, f2, skip, *, steps, k, inc_filled,
                         inc_neigh, required_hits, dec, max_inertia,
-                        div_coef):
-    return _surface(occ, inertia, f2, skip, None, steps=steps, k=k,
-                    inc_filled=inc_filled, inc_neigh=inc_neigh,
-                    required_hits=required_hits, dec=dec,
-                    max_inertia=max_inertia, div_coef=div_coef)
+                        div_coef, out=None):
+    """(inertia', f1', f2'), copied into `out`'s three tensors where
+    given."""
+    return store(_surface(occ, inertia, f2, skip, None, steps=steps, k=k,
+                          inc_filled=inc_filled, inc_neigh=inc_neigh,
+                          required_hits=required_hits, dec=dec,
+                          max_inertia=max_inertia, div_coef=div_coef), out)
 
 
 def _extend(fields, halos, h):
@@ -120,20 +122,21 @@ def _extend(fields, halos, h):
 
 
 def surface_fused_halo_plain(occ, inertia, f2, skip, *, halos, x0,
-                             global_gx, steps, **kw):
+                             global_gx, steps, out=None, **kw):
     """The halo form: the arrays are the local detailed slab of global rows
     [x0, x0 + lx), `halos` the ((left, right), ...) h = steps + 1 neighbour
     planes of (occ, inertia, f2, skip), zeros past the domain, and
-    `global_gx` the detailed domain's x extent."""
+    `global_gx` the detailed domain's x extent; the results are copied
+    into `out`'s three tensors where given."""
     h = steps + 1
     ext = _extend((occ, inertia, f2, skip), halos, h)
     rows = torch.arange(x0 - h, x0 + occ.shape[0] + h, device=occ.device)
     in_dom = ((rows >= 0) & (rows < global_gx)).reshape(-1, 1, 1)
-    out = _surface(*ext, in_dom, steps=steps, **kw)
-    return tuple(a[h:h + occ.shape[0]] for a in out)
+    res = _surface(*ext, in_dom, steps=steps, **kw)
+    return store(tuple(a[h:h + occ.shape[0]] for a in res), out)
 
 
-def _check(occ, inertia, f2, skip):
+def _check(occ, inertia, f2, skip, out):
     require(occ, "occ", torch.uint8)
     if occ.ndim != 3:
         raise ValueError(f"occ: shape {tuple(occ.shape)}, expected (X,Y,Z)")
@@ -141,6 +144,16 @@ def _check(occ, inertia, f2, skip):
             occ.device)
     require(f2, "f2", torch.float32, occ.shape, occ.device)
     require(skip, "skip", torch.uint8, occ.shape, occ.device)
+    if out is None:
+        return (None, None, None)
+    if len(out) != 3:
+        raise ValueError(f"out: {len(out)} tensors, expected (inertia, f1, "
+                         f"f2)")
+    for name, t, like in zip(("inertia", "f1", "f2"), out,
+                             (inertia, f2, f2)):
+        if t is not None:
+            require(t, f"out {name}", like.dtype, occ.shape, occ.device)
+    return out
 
 
 def device_launches() -> int:
@@ -148,28 +161,39 @@ def device_launches() -> int:
     return build.launches("tf_surface_launches")
 
 
-def _launch(occ, inertia, f2, skip, xb, gx, h, *, steps, k, inc_filled,
-            inc_neigh, required_hits, dec, max_inertia, div_coef):
+def _launch(occ, inertia, f2, skip, xb, gx, h, out, *, steps, k,
+            inc_filled, inc_neigh, required_hits, dec, max_inertia,
+            div_coef):
     """K5 on slabs of nx rows (h halo planes a side, row 0 at global x xb);
-    returns the outputs' interior rows.  The launches of
-    `tiling.surface_plan`: one for up to `tiling.MAX_LEVELS` blur passes;
-    the first writes the inertia, each one after it continues from the
-    (f1, f2) pair of the one before."""
+    returns the outputs' interior rows, in `out`'s (inertia, f1, f2)
+    tensors where given.  The launches of `tiling.surface_plan`: one for
+    up to `tiling.MAX_LEVELS` blur passes; the first writes the inertia,
+    each one after it continues from the (f1, f2) pair of the one before,
+    and the last writes f1 and f2.  An output of rows other than the
+    slab's (the halo form's first launch past 8 passes) is copied."""
     nx, gy, gz = occ.shape
     c0, c1 = _blur_constants(k)
+    inertia_to, f1_to, f2_to = out
+
+    def output(shape, dtype, given):
+        if given is not None and tuple(given.shape) == shape:
+            return given
+        return torch.empty(shape, dtype=dtype, device=occ.device)
+
     with torch.cuda.device(occ.device):
         plan = tiling.surface_plan(occ.shape, steps, halo=h,
                                    sms=build.sm_count(occ.device.index))
         stream = torch.cuda.current_stream(occ.device).cuda_stream
         first = plan[0]
-        inertia_out = torch.empty((first.xe - first.xs, gy, gz),
-                                  dtype=inertia.dtype, device=occ.device)
+        inertia_out = output((first.xe - first.xs, gy, gz), inertia.dtype,
+                             inertia_to)
         f1 = None
         x0 = 0  # the slab row that a launch's input row 0 is
         for p in plan:
             out_shape = (p.xe - p.xs, gy, gz)
-            f1_out = torch.empty(out_shape, dtype=f2.dtype, device=occ.device)
-            f2_out = torch.empty(out_shape, dtype=f2.dtype, device=occ.device)
+            last = p is plan[-1]
+            f1_out = output(out_shape, f2.dtype, f1_to if last else None)
+            f2_out = output(out_shape, f2.dtype, f2_to if last else None)
             build.call("tf_surface_fused", _ARGTYPES, occ.data_ptr(),
                        inertia.data_ptr(), inertia_out.data_ptr(),
                        f1.data_ptr() if f1 is not None else None,
@@ -184,45 +208,48 @@ def _launch(occ, inertia, f2, skip, xb, gx, h, *, steps, k, inc_filled,
     lo = h - first.xs
     if lo:  # the halo form's first launch wrote rows a later one needed
         inertia_out = inertia_out[lo:lo + nx - 2 * h]
-    return inertia_out, f1, f2
+    return store((inertia_out, f1, f2), out)
 
 
 def surface_fused_cuda(occ, inertia, f2, skip, *, steps, k, inc_filled,
                        inc_neigh, required_hits, dec, max_inertia,
-                       div_coef):
+                       div_coef, out=None):
     """K5 wrapper: occ u8, inertia u8 or int32, f2 f32 (the stale buffer)
-    and skip u8, all (D,D,D) -> (inertia', f1', f2'); the CUDA kernel (one
-    launch for up to 8 blur passes) for CUDA tensors,
-    `surface_fused_plain` for CPU tensors."""
-    _check(occ, inertia, f2, skip)
+    and skip u8, all (D,D,D) -> (inertia', f1', f2'), written into `out`'s
+    three tensors where given; the CUDA kernel (one launch for up to 8
+    blur passes) for CUDA tensors, `surface_fused_plain` for CPU
+    tensors."""
+    to = _check(occ, inertia, f2, skip, out)
     kw = dict(steps=steps, k=k, inc_filled=inc_filled, inc_neigh=inc_neigh,
               required_hits=required_hits, dec=dec, max_inertia=max_inertia,
               div_coef=div_coef)
     if not on_cuda(occ):
-        return surface_fused_plain(occ, inertia, f2, skip, **kw)
-    out = _launch(occ, inertia, f2, skip, 0, occ.shape[0], 0, **kw)
+        return surface_fused_plain(occ, inertia, f2, skip, out=out, **kw)
+    res = _launch(occ, inertia, f2, skip, 0, occ.shape[0], 0, to, **kw)
     surface_fused_cuda.launches += 1
-    return out
+    return res
 
 
 surface_fused_cuda.launches = 0
 
 
 def surface_fused_halo_cuda(occ, inertia, f2, skip, *, halos, x0, global_gx,
-                            steps, **kw):
+                            steps, out=None, **kw):
     """K5 halo-form wrapper (arguments as `surface_fused_halo_plain`): the
     CUDA kernel (one launch for up to 8 blur passes) for CUDA tensors, the
-    plain version for CPU tensors."""
-    _check(occ, inertia, f2, skip)
+    plain version for CPU tensors.  Past 8 blur passes the first launch
+    writes more rows than the slab's, and the inertia's are copied into
+    `out`'s."""
+    to = _check(occ, inertia, f2, skip, out)
     if not on_cuda(occ):
         return surface_fused_halo_plain(occ, inertia, f2, skip, halos=halos,
                                         x0=x0, global_gx=global_gx,
-                                        steps=steps, **kw)
+                                        steps=steps, out=out, **kw)
     h = steps + 1
     ext = _extend((occ, inertia, f2, skip), halos, h)
-    out = _launch(*ext, x0 - h, global_gx, h, steps=steps, **kw)
+    res = _launch(*ext, x0 - h, global_gx, h, to, steps=steps, **kw)
     surface_fused_halo_cuda.launches += 1
-    return out
+    return res
 
 
 surface_fused_halo_cuda.launches = 0

@@ -57,10 +57,10 @@ from __future__ import annotations
 import torch
 
 from tpu_fluid_torch.core.config import FluidConfig
-from tpu_fluid_torch.core.state import FluidState
+from tpu_fluid_torch.core.state import NOWHERE, FluidState
 from tpu_fluid_torch.core.types import CellType
 from tpu_fluid_torch.kernels import fuse_grid_choice, grid_fused
-from tpu_fluid_torch.kernels import kernel_choice
+from tpu_fluid_torch.kernels import kernel_choice, store
 from tpu_fluid_torch.kernels import surface_fused as k5
 from tpu_fluid_torch.kernels.advect import (advect_all_halo_cuda,
                                             advect_from_types_halo_plain)
@@ -84,22 +84,25 @@ from tpu_fluid_torch.surface.levelset import levelset_field
 
 # --------------------------------------------------------------- cell types
 def _update_air_spmd(types: torch.Tensor, cfg: FluidConfig, x0: int,
-                     mesh: Mesh, extra_solid=None) -> torch.Tensor:
+                     mesh: Mesh, extra_solid=None,
+                     out=None) -> torch.Tensor:
     """Stage 03 on a local slab: the water-neighbour test reads one halo
     plane; the SOLID rule (JAX's `_solid_mask_spmd`) is global, and a
-    scene's solid slab adds its cells."""
+    scene's solid slab adds its cells.  Written into `out` where
+    given."""
     water = types == CellType.WATER
     we = halo_extend(water, 1, mesh)
     around = torch.zeros_like(we)
     for mv in MOVES:
         around = around | shifted(we, mv, fill=False)
     air = (~water) & halo_inner(around)
-    out = torch.where(air, torch.full_like(types, CellType.AIR), types)
+    wet = torch.where(air, torch.full_like(types, CellType.AIR), types)
     solid = celltypes.solid_mask(types.shape, cfg, types.device, x0,
                                  cfg.grid_size[0])
     if extra_solid is not None:
         solid = solid | (extra_solid != 0)
-    return torch.where(solid, torch.full_like(types, CellType.SOLID), out)
+    return torch.where(solid, torch.full_like(types, CellType.SOLID), wet,
+                       out=out)
 
 
 # ------------------------------------------------------------------- forces
@@ -249,13 +252,18 @@ def _volume_drift_spmd(state: FluidState, types: torch.Tensor,
 
 
 def _local_step(state: FluidState, cfg: FluidConfig, mesh: Mesh,
-                scene=None, volume_step: int | None = None) -> FluidState:
+                scene=None, volume_step: int | None = None,
+                into: FluidState | None = None) -> FluidState:
     """One frame on this shard's slabs, in the single-device stage order
     (`solver/step.simulation_step`).  `scene` holds this shard's slabs of
     the SceneFields, if any.  `volume_step` is the caller's value of
-    `state.step` for the volume cadence, as in `simulation_step` (the
-    CUDA graphs pass it); without it the step reads `state.step` on the
-    host."""
+    `state.step` for the volume cadence, and `into` the tensors the new
+    fields are written into, as in `simulation_step` (the CUDA graphs
+    pass both); without `volume_step` the step reads `state.step` on the
+    host.  Domain-sharded particles leave the positions, the active flags
+    (past one shard) and the detailed occupancy out of `into`: `migrate`
+    and the local scatter return rows of buffers with a spare row."""
+    put = into if into is not None else NOWHERE
     device = state.velocity.device
     use_kernels = kernel_choice(cfg, device)
     gx = cfg.grid_size[0]
@@ -284,11 +292,13 @@ def _local_step(state: FluidState, cfg: FluidConfig, mesh: Mesh,
         halos = tuple(halo_planes(a, grid_fused.CLASSIFY_HALO, mesh)
                       for a in (occ_sim, old_types, vel))
         types, vel = classify_extrap(occ_sim, old_types, vel, cfg,
-                                     halos=halos, x0=x0, global_gx=gx)
+                                     halos=halos, x0=x0, global_gx=gx,
+                                     out=(put.cell_types, None))
     else:
         new_types = celltypes.update_water(occ_sim)
         new_types = _update_air_spmd(new_types, cfg, x0, mesh,
-                                     extra_solid=scene_solid)
+                                     extra_solid=scene_solid,
+                                     out=put.cell_types)
         # 04-05 on 1-plane halo blocks, interior kept
         ot_e = halo_extend(old_types, 1, mesh)
         nt_e = halo_extend(new_types, 1, mesh)
@@ -324,11 +334,12 @@ def _local_step(state: FluidState, cfg: FluidConfig, mesh: Mesh,
     if fuse_grid:
         halos = (halo_planes(types, 1, mesh), halo_planes(p, 1, mesh),
                  halo_planes(vel, 1, mesh))
-        vel = project(types, p, vel, cfg, halos=halos, x0=x0, global_gx=gx)
+        vel = project(types, p, vel, cfg, halos=halos, x0=x0, global_gx=gx,
+                      out=put.velocity)
     else:
-        vel = halo_inner(pressure.pressure_project(
+        vel = torch.stack([halo_inner(c) for c in pressure.project_components(
             halo_extend(types, 1, mesh), halo_extend(p, 1, mesh),
-            halo_extend(vel, 1, mesh), cfg))
+            halo_extend(vel, 1, mesh), cfg)], out=put.velocity)
 
     # 14-15, moving through vel plus the volume drift on a corrected
     # step.  Every shard holds the same step, so all take the same branch
@@ -348,7 +359,8 @@ def _local_step(state: FluidState, cfg: FluidConfig, mesh: Mesh,
         pos, active, ndrop = migrate(pos, state.active, x0, lx,
                                      migrate_capacity(pos.shape[0], cfg),
                                      mesh)
-        dropped = state.dropped + psum(ndrop, mesh)
+        dropped = torch.add(state.dropped, psum(ndrop, mesh),
+                            out=put.dropped)
         r = cfg.surface_render_resolution
         occ = detailed_occupancy_local(pos, active, cfg, x0 * r, lx * r)
     else:
@@ -360,14 +372,17 @@ def _local_step(state: FluidState, cfg: FluidConfig, mesh: Mesh,
         # K3+K4 takes a contiguous field, and one shard's gather returns
         # the slab as it is: the unfused stages leave it a strided view
         vel_full = all_gather_x(move_vel.contiguous(), mesh, axis=1)
-        pos, occ_full = particles.move_and_scatter(vel_full, state.positions,
-                                                   active, cfg)
-        occ = (psum_scatter_x(occ_full, mesh) > 0).to(torch.uint8)
+        pos, occ_full = particles.move_and_scatter(
+            vel_full, state.positions, active, cfg, out=(put.positions, None))
+        occ = psum_scatter_x(occ_full, mesh) > 0
+        occ = (occ.to(torch.uint8) if put.detailed_occ is None
+               else put.detailed_occ.copy_(occ))
 
     # 16-18
     if cfg.surface_enabled and cfg.surface_method == "levelset":
         inertia = state.inertia
-        f1 = f2 = _levelset_spmd(types, occ, cfg, x0, mesh)
+        f = _levelset_spmd(types, occ, cfg, x0, mesh)
+        f1, f2 = store(f, put.float_dens_1), store(f, put.float_dens_2)
     elif cfg.surface_enabled:
         steps = cfg.float_density_diffuse_steps
         h = steps + 1
@@ -380,12 +395,14 @@ def _local_step(state: FluidState, cfg: FluidConfig, mesh: Mesh,
             halos = tuple(halo_planes(a, h, mesh) for a in (
                 occ, state.inertia, state.float_dens_2, skip))
             kw = _surface_kw(cfg)
-            inertia, f1, f2 = fused(occ, state.inertia, state.float_dens_2,
-                                    skip, halos=halos, x0=x0 * r,
-                                    global_gx=gx * r, **kw)
+            inertia, f1, f2 = fused(
+                occ, state.inertia, state.float_dens_2, skip, halos=halos,
+                x0=x0 * r, global_gx=gx * r,
+                out=(put.inertia, put.float_dens_1, put.float_dens_2), **kw)
         else:
-            inertia, f1, f2 = _surface_per_pass(
-                occ, state.inertia, state.float_dens_2, skip, cfg, mesh)
+            inertia, f1, f2 = store(_surface_per_pass(
+                occ, state.inertia, state.float_dens_2, skip, cfg, mesh),
+                (put.inertia, put.float_dens_1, put.float_dens_2))
     else:
         inertia, f1, f2 = (state.inertia, state.float_dens_1,
                            state.float_dens_2)
@@ -399,7 +416,7 @@ def _local_step(state: FluidState, cfg: FluidConfig, mesh: Mesh,
         positions=pos,
         active=active,
         detailed_occ=occ,
-        step=state.step + 1,
+        step=torch.add(state.step, 1, out=put.step),
         dropped=dropped,
     )
 
@@ -469,8 +486,8 @@ def spmd_program(cfg: FluidConfig, mesh: Mesh) -> graph.Program:
             "graphed sharded step needs a single shard or an nccl mesh; a "
             "gloo mesh on the card runs the eager spmd_step")
 
-    def local(state, cfg_, scene, volume_step):
-        return _local_step(state, cfg_, mesh, scene, volume_step)
+    def local(state, cfg_, scene, volume_step, into=None):
+        return _local_step(state, cfg_, mesh, scene, volume_step, into)
 
     return graph.Program(
         local, ("spmd", mesh.rank, mesh.size, mesh.backend, mesh.device),

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from tpu_fluid_torch.core.config import FluidConfig
-from tpu_fluid_torch.core.state import FluidState
+from tpu_fluid_torch.core.state import NOWHERE, FluidState
 from tpu_fluid_torch.kernels import fuse_grid_choice, kernel_choice
 from tpu_fluid_torch.kernels import grid_fused
 from tpu_fluid_torch.stages import celltypes, particles, pressure
@@ -22,7 +22,8 @@ from tpu_fluid_torch.stages import velocity as vstages
 
 
 def simulation_step(state: FluidState, cfg: FluidConfig, scene=None,
-                    volume_step: int | None = None) -> FluidState:
+                    volume_step: int | None = None,
+                    into: FluidState | None = None) -> FluidState:
     """One frame, stage order exactly as the reference's step section list:
 
       01 histogram -> 02 water -> 03 air/solid -> 04/05 extrapolate ->
@@ -35,7 +36,13 @@ def simulation_step(state: FluidState, cfg: FluidConfig, scene=None,
     JAX's `lax.cond` does, one branch: `volume_step` is the caller's
     value of `state.step` (the CUDA graphs pass it), else the step reads
     it from the state.
+
+    `into` (the CUDA graphs pass it) holds tensors that the new state's
+    fields are written into, each by the field's last writer (a None
+    field is allocated, as every field is without `into`).  The step
+    never reads them, and they must share no memory with `state`.
     """
+    put = into if into is not None else NOWHERE
     device = state.velocity.device
     fuse_grid = fuse_grid_choice(cfg, device, scene)
     scene_solid = scene.solid if scene is not None else None
@@ -56,14 +63,16 @@ def simulation_step(state: FluidState, cfg: FluidConfig, scene=None,
         # 01-06 in one pass (K6a), from the detailed occupancy of the
         # current positions, scattered at the end of the previous step
         types, vel = classify_extrap(state.detailed_occ, old_types, vel, cfg,
-                                     pool=cfg.surface_render_resolution)
+                                     pool=cfg.surface_render_resolution,
+                                     out=(put.cell_types, None))
     else:
         # 01: sim-grid occupancy of the current positions
         occ_sim = particles.occupancy_to_sim_grid(state.detailed_occ, cfg)
         # 02-03: classify cells
         new_types = celltypes.update_water(occ_sim)
         new_types = celltypes.update_air(new_types, cfg,
-                                         extra_solid=scene_solid)
+                                         extra_solid=scene_solid,
+                                         out=put.cell_types)
         # 04-05: velocity extrapolation into newly active faces
         extrapolated = vstages.compute_extrapolated_velocities(old_types,
                                                                vel)
@@ -90,9 +99,10 @@ def simulation_step(state: FluidState, cfg: FluidConfig, scene=None,
     # 12-13: pressure solve and projection (13 as K6c when fused)
     p = pressure.jacobi_solve(types, div, cfg)
     if fuse_grid:
-        vel = project(types, p, vel, cfg)
+        vel = project(types, p, vel, cfg, out=put.velocity)
     else:
-        vel = pressure.pressure_project(types, p, vel, cfg)
+        vel = pressure.pressure_project(types, p, vel, cfg,
+                                        out=put.velocity)
 
     # 14-15: move particles through the projected field, plus the volume
     # drift on a corrected step, and scatter their occupancy (also the
@@ -104,13 +114,15 @@ def simulation_step(state: FluidState, cfg: FluidConfig, scene=None,
         if volume_due(cfg, volume_step or 0):
             move_vel = corrected_move_velocity(vel, state.positions,
                                                state.active, types, cfg)
-    pos, occ = particles.move_and_scatter(move_vel, state.positions,
-                                          state.active, cfg)
+    pos, occ = particles.move_and_scatter(
+        move_vel, state.positions, state.active, cfg,
+        out=(put.positions, put.detailed_occ))
 
     # 16-18: the surface fields
     if cfg.surface_enabled:
         inertia, f1, f2 = surface_fields.update_surface_fields(
-            types, occ, state.inertia, state.float_dens_2, cfg)
+            types, occ, state.inertia, state.float_dens_2, cfg,
+            out=(put.inertia, put.float_dens_1, put.float_dens_2))
     else:
         inertia, f1, f2 = (state.inertia, state.float_dens_1,
                            state.float_dens_2)
@@ -124,7 +136,7 @@ def simulation_step(state: FluidState, cfg: FluidConfig, scene=None,
         positions=pos,
         active=state.active,
         detailed_occ=occ,
-        step=state.step + 1,
+        step=torch.add(state.step, 1, out=put.step),
         dropped=state.dropped,
     )
 

@@ -36,13 +36,15 @@ def solid_mask(shape, cfg=None, device=None, x0: int = 0,
 
 def update_air(types: torch.Tensor, cfg=None, x0: int = 0,
                global_gx: int | None = None,
-               extra_solid: torch.Tensor | None = None) -> torch.Tensor:
+               extra_solid: torch.Tensor | None = None,
+               out: torch.Tensor | None = None) -> torch.Tensor:
     """Stage 03: static solid cells become SOLID; non-water cells with at
     least one WATER neighbour become AIR (neighbours read from the stage-02
     output, which resolves the reference's in-place race
     deterministically).  `x0` and `global_gx` place an x-slab in the
     domain, as for `solid_mask`.  `extra_solid` (a scene's solid mask, of
-    the same shape as `types`) makes its nonzero cells SOLID too."""
+    the same shape as `types`) makes its nonzero cells SOLID too.  The
+    result is written into `out` where given."""
     solid = solid_mask(types.shape, cfg, types.device, x0, global_gx)
     if extra_solid is not None:
         solid = solid | (extra_solid != 0)
@@ -51,8 +53,9 @@ def update_air(types: torch.Tensor, cfg=None, x0: int = 0,
     for mv in MOVES:
         water_around = water_around | shifted(water, mv, fill=False)
     air = (~water) & water_around
-    out = torch.where(air, torch.full_like(types, CellType.AIR), types)
-    return torch.where(solid, torch.full_like(types, CellType.SOLID), out)
+    wet = torch.where(air, torch.full_like(types, CellType.AIR), types)
+    return torch.where(solid, torch.full_like(types, CellType.SOLID), wet,
+                       out=out)
 
 
 def commit_cell_types(new_types: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,7 @@ from __future__ import annotations
 import torch
 
 from tpu_fluid_torch.core.config import FluidConfig
-from tpu_fluid_torch.kernels import kernel_choice
+from tpu_fluid_torch.kernels import kernel_choice, store
 from tpu_fluid_torch.kernels.particle_move import (particle_move_cuda,
                                                    particle_move_plain,
                                                    scatter_occupancy)
@@ -71,13 +71,15 @@ def move_particles(vel: torch.Tensor, positions: torch.Tensor,
 
 
 def move_and_scatter(vel: torch.Tensor, positions: torch.Tensor,
-                     active: torch.Tensor, cfg: FluidConfig) -> tuple:
+                     active: torch.Tensor, cfg: FluidConfig,
+                     out=None) -> tuple:
     """Stages 14 and 15: (the moved positions, the detailed occupancy of
-    the moved active ones).  With the "packed" sampler, where
-    `kernel_choice` picks the kernels, one K3+K4 launch does both;
-    otherwise `move_particles`, then `detailed_occupancy`."""
+    the moved active ones), written into `out`'s two tensors where given.
+    With the "packed" sampler, where `kernel_choice` picks the kernels,
+    one K3+K4 launch does both; otherwise `move_particles`, then
+    `detailed_occupancy`."""
     if cfg.particle_sampler == "packed" and kernel_choice(cfg, vel.device):
         return particle_move_cuda(vel, positions, active, cfg.dt,
-                                  cfg.surface_render_resolution)
+                                  cfg.surface_render_resolution, out=out)
     pos = move_particles(vel, positions, active, cfg)
-    return pos, detailed_occupancy(pos, active, cfg)
+    return store((pos, detailed_occupancy(pos, active, cfg)), out)

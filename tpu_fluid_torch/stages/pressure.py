@@ -168,10 +168,19 @@ def redblack_solve(types: torch.Tensor, rhs: torch.Tensor, cfg: FluidConfig,
 
 
 def pressure_project(types: torch.Tensor, pressure: torch.Tensor,
-                     vel: torch.Tensor, cfg: FluidConfig) -> torch.Tensor:
+                     vel: torch.Tensor, cfg: FluidConfig,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
     """Stage 13: component c of cell i changes by -dt/(rho*dx) *
     (p(i) - p(i - e_c)) iff i_c != 0, one of the two cells is WATER and
-    neither is SOLID."""
+    neither is SOLID.  The result is written into `out` where given."""
+    return torch.stack(project_components(types, pressure, vel, cfg),
+                       out=out)
+
+
+def project_components(types: torch.Tensor, pressure: torch.Tensor,
+                       vel: torch.Tensor, cfg: FluidConfig) -> list:
+    """`pressure_project`'s three components, before they are stacked
+    (the sharded step stacks their interior rows)."""
     water = types == CellType.WATER
     solid = types == CellType.SOLID
     scale = cfg.dt / (cfg.fluid_density * cfg.cell_width)
@@ -185,4 +194,4 @@ def pressure_project(types: torch.Tensor, pressure: torch.Tensor,
         grad = pressure - shifted(pressure, mv)
         dv = torch.where(cond, grad, 0.0).to(vel.dtype)
         out.append(vel[c] - scale * dv)
-    return torch.stack(out)
+    return out

@@ -7,7 +7,7 @@ import torch
 
 from tpu_fluid_torch.core.config import FluidConfig
 from tpu_fluid_torch.core.types import CellType
-from tpu_fluid_torch.kernels import kernel_choice
+from tpu_fluid_torch.kernels import kernel_choice, store
 from tpu_fluid_torch.kernels.surface_fused import (surface_fused_cuda,
                                                    surface_fused_plain)
 from tpu_fluid_torch.ops.stencil import MOVES, div_scalar, shifted
@@ -76,24 +76,26 @@ def blur_float_densities(types: torch.Tensor, f1: torch.Tensor,
 
 def update_surface_fields(types: torch.Tensor, occ: torch.Tensor,
                           inertia: torch.Tensor, f2: torch.Tensor,
-                          cfg: FluidConfig):
+                          cfg: FluidConfig, out=None):
     """Stages 16-18: (types, occupancy, inertia, stale f2) -> (inertia',
     f1', f2') through the K5 route: the CUDA kernels where `kernel_choice`
-    picks them, else their plain version.  With `surface_method =
-    "levelset"` the field is the rebuilt level set instead
-    (`surface/levelset.py`), the same tensor for f1 and f2, and the
-    inertia is carried through."""
+    picks them, else their plain version; written into `out`'s three
+    tensors where given.  With `surface_method = "levelset"` the field is
+    the rebuilt level set instead (`surface/levelset.py`), the same tensor
+    for f1 and f2 (with `out`, written into f1's and copied into f2's),
+    and the inertia is carried through."""
     if cfg.surface_method == "levelset":
         from tpu_fluid_torch.surface.levelset import levelset_field
-        f = levelset_field(types, occ, cfg)
-        return inertia, f, f
+        _, f1_to, f2_to = (None, None, None) if out is None else out
+        f = levelset_field(types, occ, cfg, out=f1_to)
+        return inertia, f, store(f, f2_to)
     if cfg.surface_method != "inertia":
         raise ValueError(f"unknown surface_method {cfg.surface_method!r}")
     skip = solid_parent_mask(types, cfg).to(torch.uint8)
     fused = (surface_fused_cuda if kernel_choice(cfg, occ.device)
              else surface_fused_plain)
     return fused(
-        occ, inertia, f2, skip,
+        occ, inertia, f2, skip, out=out,
         steps=cfg.float_density_diffuse_steps,
         k=cfg.float_density_diffuse_coefficient,
         inc_filled=cfg.inertia_increase_filled,

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from tpu_fluid_torch.core.config import FluidConfig
+from tpu_fluid_torch.kernels import store
 from tpu_fluid_torch.ops.stencil import MOVES, div_const, shifted
 from tpu_fluid_torch.stages.surface_fields import solid_parent_mask
 
@@ -61,18 +62,23 @@ def chamfer_distance(occ: torch.Tensor, sweeps: int,
 
 
 def levelset_field(types: torch.Tensor, occ: torch.Tensor,
-                   cfg: FluidConfig) -> torch.Tensor:
+                   cfg: FluidConfig, out: torch.Tensor | None = None
+                   ) -> torch.Tensor:
     """(sim types, detailed occupancy) -> the signed field on the detailed
     grid: positive inside, its 0-isosurface `levelset_iso` cells outside
-    the particles."""
+    the particles; written into `out` where given (by the last smoothing
+    pass, where there is one)."""
     sweeps = cfg.levelset_sweeps_value
     phi = chamfer_distance(occ, sweeps)
     f = cfg.levelset_iso_value - torch.clamp(phi, max=sweeps + 1.0)
-    if cfg.levelset_smooth:
-        skip = solid_parent_mask(types, cfg)
-        for _ in range(cfg.levelset_smooth):
-            nsum = torch.zeros_like(f)
-            for mv in MOVES:
-                nsum.add_(shifted(f, mv, fill=0.0))
-            f = torch.where(skip, f, div_const(f + nsum, 7.0))
+    if not cfg.levelset_smooth:
+        return store(f, out)
+    skip = solid_parent_mask(types, cfg)
+    for k in range(cfg.levelset_smooth):
+        nsum = torch.zeros_like(f)
+        for mv in MOVES:
+            nsum.add_(shifted(f, mv, fill=0.0))
+        last = k == cfg.levelset_smooth - 1
+        f = torch.where(skip, f, div_const(f + nsum, 7.0),
+                        out=out if last else None)
     return f
