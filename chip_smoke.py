@@ -159,9 +159,8 @@ Phases, one line each (more for the parity and scene phases):
               active positions as sorted rows); every kernel of the path
               launched (its halo forms, K2's sharded pass, K3+K4 or its
               local-slab form); each capture's seconds, pool and residual
-              hand-over, which must not hold the velocity, inertia or
-              float densities (domain sharding leaves the positions and
-              the detailed occupancy to it); eager
+              hand-over, which must be 0 bytes under either sharding (the
+              domain path's slots printed); eager
               sharded, jit_spmd_step, jit_spmd_multi_step and jit_step ms
               a step (medians of 7, CUDA events).  (b) each halo and local
               form at its 1-rank shapes (the whole grid as one slab, zero
@@ -226,11 +225,11 @@ STEP_TOLERANCES = {"velocity": (2e-4, 2e-5), "positions": (1e-4, 1e-5),
 
 
 # The wrappers with an `out=` form (the last writers of the state's
-# fields): phases 3, 8 and 13b hold it against the plain version too.
-OUT_FORMS = ("particle_move_cuda", "surface_fused_cuda",
-             "surface_fused_halo_cuda", "classify_extrap_cuda",
-             "classify_extrap_halo_cuda", "project_cuda",
-             "project_halo_cuda")
+# fields): phases 3, 8, 9 and 13b hold it against the plain version too.
+OUT_FORMS = ("particle_move_cuda", "particle_move_local_cuda",
+             "surface_fused_cuda", "surface_fused_halo_cuda",
+             "classify_extrap_cuda", "classify_extrap_halo_cuda",
+             "project_cuda", "project_halo_cuda")
 # The halo forms of phase 8: source, and the TPU kernel each replaces.
 HALO_SOURCES = {
     "advect_all_halo_cuda": (
@@ -1395,10 +1394,10 @@ def domain_rank(rank, n, init_method, cfg, device):
     crossers = []
     migrate = spmd_module.migrate
 
-    def counted_migrate(pos, active, x0, lx, m, mesh):
+    def counted_migrate(pos, active, x0, lx, m, mesh, out=None):
         cx = torch.floor(pos[:, 0])
         crossers.append(int((active & ((cx < x0) | (cx >= x0 + lx))).sum()))
-        return migrate(pos, active, x0, lx, m, mesh)
+        return migrate(pos, active, x0, lx, m, mesh, out=out)
 
     spmd_module.migrate = counted_migrate
     # the halo forms of phase 8, and the local-slab form in place of the
@@ -2478,11 +2477,10 @@ def spmd_scene(device, scene: str, cfg, card: str) -> dict:
                        for f in cap["residual"]})
     print(f"[{label}] residual hand-over: fields {residual}, at most "
           f"{max(c['residual_bytes'] for c in graph.captures[first:])} "
-          f"bytes a replay", flush=True)
-    in_place = ("velocity", "inertia", "float_dens_1", "float_dens_2")
-    check(not set(in_place) & set(residual),
-          f"{label}: {in_place} must be written in place, residual "
-          f"{residual}")
+          f"bytes a replay; {local0.positions.shape[0]} particle slots",
+          flush=True)
+    check(not residual, f"{label}: a graph ends with a residual hand-over "
+                        f"of {residual}")
     print(f"[{label}] wrapper launches a step (eager): {per_step}, K6 C "
           f"counter {k6_eager / GRAPH_STEPS!r}; in the eager steps, "
           f"warm-up steps and captures: {launches}", flush=True)
@@ -2576,8 +2574,8 @@ def spmd_multi_rank(rank, n, init_method, cfg, device, backend):
     `jit_spmd_multi_step(GRAPH_STEPS)` of its shard from the state after 2
     eager single-device steps, and GRAPH_STEPS eager sharded steps; the
     gathered states, with rank 0's differences against GRAPH_STEPS
-    single-device steps; eager and graphed ms a step, each between two
-    barriers of every rank."""
+    single-device steps; each of its captures' residual hand-over; eager
+    and graphed ms a step, each between two barriers of every rank."""
     from statistics import median
 
     import torch.distributed as dist
@@ -2587,6 +2585,7 @@ def spmd_multi_rank(rank, n, init_method, cfg, device, backend):
     from tpu_fluid_torch.parallel.particles_domain import layout_state
     from tpu_fluid_torch.parallel.spmd_step import (jit_spmd_multi_step,
                                                     jit_spmd_step, spmd_step)
+    from tpu_fluid_torch.solver import graph
     if device == "cpu":
         torch.set_num_threads(1)
     mesh = make_mesh(n, rank, init_method, device=device, backend=backend)
@@ -2608,10 +2607,11 @@ def spmd_multi_rank(rank, n, init_method, cfg, device, backend):
         eager, s = eager_step(eager), one(s)
     multi = multi_fn(local0)
     sync()
+    out = {"residual": [(c["n_steps"], c["src"], c["residual"],
+                         c["residual_bytes"]) for c in graph.captures]}
     full = {name: gather_state(x, mesh) for name, x in
             (("eager sharded", eager), ("jit_spmd_step", s),
              (f"jit_spmd_multi_step({GRAPH_STEPS})", multi))}
-    out = {}
     if rank == 0:
         single = run_steps(state0, cfg, GRAPH_STEPS)
         out["differ"] = {name: spmd_differences(x, single, cfg)
@@ -2660,6 +2660,11 @@ def phase_spmd_multi_card(card: str, cfgs, device="cuda",
                       f"single-device steps: every field bitwise "
                       f"{not fields} {fields}", flush=True)
                 check(not fields, f"{label}: {what} differ in {fields}")
+            residual = [r["residual"] for r in ranks]
+            print(f"[{label}] each rank's captures (n, set read, residual "
+                  f"hand-over fields, bytes): {residual}", flush=True)
+            check(all(not c[3] for r in residual for c in r),
+                  f"{label}: a graph ends with a residual hand-over")
             times = {k: max(r["times"][k] for r in ranks)
                      for k in ranks[0]["times"]}
             print(f"[{label}] ms a step, the slowest rank's median of "

@@ -5,13 +5,14 @@ two buffer sets.
 
 On the CPU: `simulation_step(state, cfg, into=dst)` and one shard's
 `_local_step(..., into=dst)` (a 1-rank mesh in this process, 2 gloo ranks
-spawned) put every field they write at `dst`'s pointers, leave the input
-as it was, and equal the step without `into` bitwise, in each variant of
-the options; every kernel wrapper's `out=` form equals its return without
-it; behind the stand-in capture of tests/test_torch_graph.py, two
-interleaved lineages alternate between their sets and equal their eager
-steps bitwise, and a lineage under the volume cadence stays in its
-entry."""
+spawned) put every field they write at `dst`'s pointers under either
+particle sharding, leave the input as it was, and equal the step without
+`into` bitwise, in each variant of the options; the domain-sharded
+program's graph body (`graph._record`) ends with no residual hand-over;
+every kernel wrapper's `out=` form equals its return without it; behind
+the stand-in capture of tests/test_torch_graph.py, two interleaved
+lineages alternate between their sets and equal their eager steps
+bitwise, and a lineage under the volume cadence stays in its entry."""
 
 import numpy as np
 import pytest
@@ -24,13 +25,15 @@ from test_torch_step import CFG
 from tpu_fluid_torch import initial_state, jit_step, simulation_step
 from tpu_fluid_torch.core.state import FluidState
 from tpu_fluid_torch.kernels import grid_fused as k6
-from tpu_fluid_torch.kernels.particle_move import particle_move_cuda
+from tpu_fluid_torch.kernels.particle_move import (particle_move_cuda,
+                                                   particle_move_local_cuda)
 from tpu_fluid_torch.kernels.surface_fused import (surface_fused_cuda,
                                                    surface_fused_halo_cuda)
 from tpu_fluid_torch.parallel.launch import run_ranks
 from tpu_fluid_torch.parallel.mesh import make_mesh, shard_scene
 from tpu_fluid_torch.parallel.particles_domain import layout_state
-from tpu_fluid_torch.parallel.spmd_step import _local_step, _surface_kw
+from tpu_fluid_torch.parallel.spmd_step import (_local_step, _surface_kw,
+                                                spmd_program)
 from tpu_fluid_torch.solver import graph
 
 torch.set_num_threads(2)
@@ -49,10 +52,6 @@ STEP_VARIANTS = {
 PASSED = {"surface_off": ("inertia", "float_dens_1", "float_dens_2"),
           "levelset": ("inertia",)}
 SHARDED = ("fused", "obstacles", "physics")
-# the fields domain-sharded particles leave out of `into`: `migrate`'s
-# rows (one shard passes the active flags through) and the local scatter's
-DOMAIN_ELSEWHERE = {1: ("positions", "detailed_occ"),
-                    2: ("positions", "active", "detailed_occ")}
 
 
 def sentinel(t: torch.Tensor) -> torch.Tensor:
@@ -69,18 +68,16 @@ def sentinel_like(state) -> FluidState:
     return FluidState(*(sentinel(t) for t in state))
 
 
-def into_problems(got, state, dst, before, want, passed, elsewhere=()):
+def into_problems(got, state, dst, before, want, passed):
     """What breaks the `into` contract: a field passed through that should
-    not be or the other way round, a written field not at `dst`'s pointer
-    (other than those of `elsewhere`), the input changed, or the result
-    not `want` bitwise."""
+    not be or the other way round, a written field not at `dst`'s pointer,
+    the input changed, or the result not `want` bitwise."""
     problems = []
     for name, g, s, d, b, w in zip(FluidState._fields, got, state, dst,
                                    before, want):
         if (g is s) != (name in passed):
             problems.append(f"{name}: passed through {g is s}")
-        elif g is not s and name not in elsewhere and \
-                g.data_ptr() != d.data_ptr():
+        elif g is not s and g.data_ptr() != d.data_ptr():
             problems.append(f"{name}: not written into the set")
         if not torch.equal(s, b):
             problems.append(f"{name}: the input changed")
@@ -120,9 +117,7 @@ def local_into_problems(cfg, mesh, scene) -> list:
         dst = sentinel_like(state)
         got = _local_step(state, cfg, mesh, scene, into=dst)
         problems += [f"step {k + 1}: {p}" for p in into_problems(
-            got, state, dst, before, want, passed_fields(cfg, mesh),
-            DOMAIN_ELSEWHERE[mesh.size]
-            if cfg.particle_sharding == "domain" else ())]
+            got, state, dst, before, want, passed_fields(cfg, mesh))]
         state = want
     return problems
 
@@ -149,6 +144,23 @@ def test_local_step_into_on_one_rank(name, sharding):
                                scene_of(name, cfg)) == []
 
 
+def record_residuals(cfg, mesh, scene) -> dict:
+    """The residual fields `graph._record` finds for this shard's program
+    of 1 and of 2 steps, from each set of a new entry in turn, as its
+    graphs are captured."""
+    program = spmd_program(cfg, mesh)
+    state = layout_state(initial_state(cfg, device="cpu"), mesh.rank,
+                         mesh.size, cfg)
+    out = {}
+    for n_steps in (1, 2):
+        entry = graph._Entry.of(state, scene)
+        for src in (0, 1):
+            out[(n_steps, src)] = graph._record(entry, src, cfg, n_steps, 0,
+                                                program)
+            entry.graphs[(src, None)] = "recorded"
+    return out
+
+
 def _into_rank(rank, n, init_method):
     torch.set_num_threads(1)
     mesh = make_mesh(n, rank, init_method, device="cpu")
@@ -160,14 +172,38 @@ def _into_rank(rank, n, init_method):
             if scene is not None:
                 scene = shard_scene(scene, rank, n)
             out[(name, sharding)] = local_into_problems(cfg, mesh, scene)
+            if sharding == "domain":
+                out[(name, "record")] = record_residuals(cfg, mesh, scene)
     return out
 
 
-def test_local_step_into_on_two_gloo_ranks(tmp_path):
-    ranks = run_ranks(_into_rank, 2, timeout=SPAWN_TIMEOUT,
-                      workdir=tmp_path)
-    for rank, problems in enumerate(ranks):
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    """`_into_rank`'s results on 2 gloo ranks, one spawn for the file."""
+    return run_ranks(_into_rank, 2, timeout=SPAWN_TIMEOUT,
+                     workdir=tmp_path_factory.mktemp("rendezvous"))
+
+
+def test_local_step_into_on_two_gloo_ranks(two_ranks):
+    for rank, out in enumerate(two_ranks):
+        problems = {k: v for k, v in out.items() if k[1] != "record"}
         assert all(p == [] for p in problems.values()), (rank, problems)
+
+
+@pytest.mark.parametrize("name", SHARDED)
+def test_domain_program_records_no_residual_on_one_rank(name):
+    cfg = sharded_config(name, "domain")
+    residual = record_residuals(cfg, make_mesh(1, device="cpu"),
+                                scene_of(name, cfg))
+    assert all(r == [] for r in residual.values()), residual
+
+
+@pytest.mark.parametrize("name", SHARDED)
+def test_domain_program_records_no_residual_on_two_gloo_ranks(two_ranks,
+                                                              name):
+    for rank, out in enumerate(two_ranks):
+        residual = out[(name, "record")]
+        assert all(r == [] for r in residual.values()), (rank, residual)
 
 
 # ------------------------------------------------------ the wrappers' out=
@@ -219,9 +255,12 @@ def wrapper_cases():
     t1, t1_h = _halos(rng, s6, 1, "types")
     p1, p1_h = _halos(rng, s6, 1, "f32")
     v1, v1_h = _halos(rng, (3,) + s6, 1, "f32")
+    vel_e = _rng_tensor(rng, (3, lx + 2, n, n), "f32")
     return [
         ("K3+K4", particle_move_cuda,
          (vel, pos, active, cfg.dt, 2), {}, 2),
+        ("K3+K4 local", particle_move_local_cuda,
+         (vel_e, pos, active, cfg.dt, 4, grid), {}, None),
         ("K5", surface_fused_cuda, tuple(surf), kw5, 3),
         ("K5 halo", surface_fused_halo_cuda, tuple(a for a, _ in surf_h),
          dict(kw5, halos=tuple(h for _, h in surf_h), x0=2 * h5,

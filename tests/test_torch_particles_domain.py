@@ -21,6 +21,7 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec as P
 
+from test_torch_donation import sentinel
 from tpu_fluid.core.config import FluidConfig as JaxConfig
 from tpu_fluid.core.state import initial_state as jax_initial_state
 from tpu_fluid.parallel import particles_domain as jpd
@@ -158,10 +159,10 @@ def _rank(rank, n, init_method):
     crossers = []
     real_migrate = spmd_module.migrate
 
-    def counting_migrate(pos, active, x0, lx, m, mesh):
+    def counting_migrate(pos, active, x0, lx, m, mesh, out=None):
         cx = torch.floor(pos[:, 0])
         crossers.append(int((active & ((cx < x0) | (cx >= x0 + lx))).sum()))
-        return real_migrate(pos, active, x0, lx, m, mesh)
+        return real_migrate(pos, active, x0, lx, m, mesh, out=out)
 
     spmd_module.migrate = counting_migrate
     out = {}
@@ -187,7 +188,30 @@ def _rank(rank, n, init_method):
                          all_gather_x(a, mesh, axis=0).numpy(),
                          int(psum(nd, mesh))))
         out[f"migrate_{name}"] = runs
+        out[f"migrate_out_{name}"] = {
+            form: migrate_out_runs(form, pos[seg], act[seg], rank * lx, lx,
+                                   m, hops, mesh)
+            for form in ("in_place", "given")}
     return out
+
+
+def migrate_out_runs(form, pos, act, x0, lx, m, hops, mesh) -> list:
+    """`migrate`'s out= form, `hops` times: into the rows it is given
+    ("in_place", as the step passes the moved rows) with sentinel flags,
+    or into sentinel-filled positions and flags ("given"); each hop's
+    gathered rows, flags and drop count, and whether the given tensors
+    were returned."""
+    p, a = torch.from_numpy(pos), torch.from_numpy(act)
+    runs = []
+    for _ in range(hops):
+        given = ((p.clone() if form == "in_place" else sentinel(p)),
+                 sentinel(a))
+        src = given[0] if form == "in_place" else p
+        p, a, nd = pd.migrate(src, a, x0, lx, m, mesh, out=given)
+        runs.append((all_gather_x(p, mesh, axis=0).numpy(),
+                     all_gather_x(a, mesh, axis=0).numpy(),
+                     int(psum(nd, mesh)), p is given[0] and a is given[1]))
+    return runs
 
 
 @pytest.fixture(scope="module", params=[2, 4], ids=["n2", "n4"])
@@ -333,6 +357,29 @@ def test_migrate_equals_jax_bitwise(sharded, name):
         # the drop count is exactly the particles lost
         assert ga.sum() == act.sum() - gd
         act = ga
+
+
+@pytest.mark.parametrize("name", MIGRATE_CASES)
+def test_migrate_out_form_equals_its_return_and_jax(sharded, name):
+    """`migrate` writing into the tensors it is given, in place over the
+    moved rows and over sentinels (so that a row or flag left unwritten
+    shows): every slot's row, the flags and the drop count after each hop,
+    bitwise against its returning form and JAX's migrate.  The cases hold
+    a full send buffer, full slots, a multi-slab crosser, fewer holes
+    than 2m, fewer slots than 2m and non-finite positions."""
+    n, ranks = sharded
+    pos, act, lx, m, hops = migrate_case(name, n)
+    want = jax_migrate(n, pos, act, lx, m, hops)
+    ret = ranks[0][f"migrate_{name}"]
+    for form, runs in ranks[0][f"migrate_out_{name}"].items():
+        assert len(runs) == hops, form
+        for (gp, ga, gd, same), (rp, ra, rd), (wp, wa, wd) in zip(
+                runs, ret, want):
+            assert same, form
+            for g, r, w in ((gp, rp, wp), (ga, ra, wa)):
+                np.testing.assert_array_equal(g, r, err_msg=form)
+                np.testing.assert_array_equal(g, w, err_msg=form)
+            assert gd == rd == wd, form
 
 
 def _migrated(sharded, name):
@@ -521,6 +568,32 @@ def test_domain_shard_state_non_finite_equals_jax():
         got = torch.cat([getattr(p, field) for p in parts]).numpy()
         np.testing.assert_array_equal(got, np.asarray(getattr(want, field)),
                                       err_msg=field)
+
+
+@pytest.mark.parametrize("case", ["finite", "non_finite", "outside"])
+@pytest.mark.parametrize("shard", [0, 1, 3])
+def test_detailed_occupancy_local_out_form_equals_jax(shard, case):
+    """The scatter into a given slab of exactly its cells, prefilled with
+    a sentinel: the particles outside the slab, NaN, infinite and huge
+    ones among them, take no spare cell and clear no cell, and with none
+    inside it the slab stays empty; bitwise against the returning form
+    and JAX's."""
+    cfg, jcfg = cfg_of("off"), cfg_of("off", JaxConfig)
+    pos, act = (non_finite_scatter_case(20 + shard) if case == "non_finite"
+                else scatter_case(shard))
+    res, lx = cfg.surface_render_resolution, 8
+    if case == "outside":
+        pos[:, 0] = shard * lx + lx + 1.5
+    args = (torch.from_numpy(pos), torch.from_numpy(act), cfg,
+            shard * lx * res, lx * res)
+    ret = pd.detailed_occupancy_local(*args)
+    given = sentinel(ret)
+    got = pd.detailed_occupancy_local(*args, out=given)
+    want = jpd.detailed_occupancy_local(jnp.asarray(pos), jnp.asarray(act),
+                                        jcfg, shard * lx * res, lx * res)
+    assert got is given and bool(got.any()) == (case != "outside")
+    assert torch.equal(got, ret)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("shard", [0, 1, 3])

@@ -128,19 +128,20 @@ def particle_move_occupancy_plain(vel: torch.Tensor, pos: torch.Tensor,
 
 def particle_move_local_plain(vel_e: torch.Tensor, pos: torch.Tensor,
                               active: torch.Tensor, dt: float, x0: int,
-                              grid_size) -> torch.Tensor:
+                              grid_size, *, out=None) -> torch.Tensor:
     """The TPU formulation on a local slab: the 64-lane table of the
     extended slab `vel_e` (3, lx + 2, Y, Z) whose row 1 is global x0, one
     row per particle (its global cell, clipped to the grid, then its x row
     clipped to the extended slab, `particles_domain.py:139-142`), and the
-    lane sums with global weights."""
+    lane sums with global weights; copied into `out` where given."""
     lx = vel_e.shape[1] - 2
     _, gy, gz = grid_size
     j = cell_index(pos, grid_size)
     jx = torch.clamp(j[:, 0] - x0 + 1, 0, lx + 1)
     rows = build_packed_table(vel_e).index_select(
         0, jx * (gy * gz) + j[:, 1] * gz + j[:, 2])
-    return sample_and_move_rows(rows, pos, active, dt, tuple(grid_size))
+    return store(sample_and_move_rows(rows, pos, active, dt,
+                                      tuple(grid_size)), out)
 
 
 def _check(vel: torch.Tensor, pos: torch.Tensor,
@@ -203,12 +204,12 @@ def particle_move_cuda(vel: torch.Tensor, pos: torch.Tensor,
 
 def particle_move_local_cuda(vel_e: torch.Tensor, pos: torch.Tensor,
                              active: torch.Tensor, dt: float, x0: int,
-                             grid_size) -> torch.Tensor:
+                             grid_size, *, out=None) -> torch.Tensor:
     """K3+K4's local-slab form: vel_e (3, lx+2, Y, Z) f32, the shard's slab
     with one edge-replicated plane a side, whose row 1 is global x0;
     global positions pos (P,3) f32 and active (P,) bool -> moved positions
-    (P,3), no occupancy.  The CUDA kernel for CUDA tensors,
-    `particle_move_local_plain` for CPU tensors."""
+    (P,3), no occupancy, written into `out` where given.  The CUDA kernel
+    for CUDA tensors, `particle_move_local_plain` for CPU tensors."""
     _check(vel_e, pos, active)
     gx, gy, gz = grid_size
     lx = vel_e.shape[1] - 2
@@ -216,10 +217,13 @@ def particle_move_local_cuda(vel_e: torch.Tensor, pos: torch.Tensor,
             0 <= x0 and x0 + lx <= gx):
         raise ValueError(f"vel_e: shape {tuple(vel_e.shape)} is no extended "
                          f"slab at x0={x0} of grid {tuple(grid_size)}")
+    if out is not None:
+        require(out, "out positions", torch.float32, pos.shape, vel_e.device)
     if not on_cuda(vel_e):
         return particle_move_local_plain(vel_e, pos, active, dt, x0,
-                                         grid_size)
-    out = _launch(vel_e, pos, active, dt, x0 - 1, tuple(grid_size))
+                                         grid_size, out=out)
+    out = _launch(vel_e, pos, active, dt, x0 - 1, tuple(grid_size),
+                  out=out)
     particle_move_local_cuda.launches += 1
     return out
 

@@ -29,9 +29,12 @@ Parity: each particle's move equals the single-device step's bitwise; the
 particle set is preserved, its slot order is not the single-device one,
 and `migrate` keeps JAX's slot order bitwise (the same stable category
 sort and the same placement).  JAX's out-of-bounds modes are explicit
-here: torch indexing raises (CPU) or asserts (CUDA) where JAX's fills, so
-every gather is in bounds by construction and each drop-mode scatter
-writes into one spare row that is then cut off.  Coordinates convert to
+here: torch indexing raises (CPU) or asserts (CUDA) where JAX's fills or
+drops, so every gather and scatter is in bounds by construction: the
+migration writes each hole once, with an arrival or its own row, and the
+occupancy scatter sends a dropped particle to a cell that is written 1
+anyway.  So all three write into the tensors they are given (`out=`), as
+the graphed step passes its donated set.  Coordinates convert to
 cells as XLA converts them (`ops/indexing.float_to_index`), so a NaN or
 infinite position goes where JAX sends it; `domain_shard_state` takes
 its census with JAX's numpy code on the host.
@@ -44,7 +47,7 @@ import torch
 
 from tpu_fluid_torch.core.config import FluidConfig
 from tpu_fluid_torch.core.state import FluidState
-from tpu_fluid_torch.kernels import kernel_choice
+from tpu_fluid_torch.kernels import kernel_choice, require, store
 from tpu_fluid_torch.kernels.particle_move import (particle_move_local_cuda,
                                                    particle_move_local_plain)
 from tpu_fluid_torch.ops.indexing import float_to_index
@@ -129,29 +132,37 @@ def edge_replicated_halo(a: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 def move_particles_local(vel_local: torch.Tensor, positions: torch.Tensor,
                          active: torch.Tensor, cfg: FluidConfig, x0: int,
-                         mesh: Mesh) -> torch.Tensor:
+                         mesh: Mesh, out=None) -> torch.Tensor:
     """Stage 14 on a local x-slab: K3+K4's local-slab form (the CUDA kernel
     where `kernel_choice` picks it, else its plain version) on the
-    edge-replicated slab, with global positions and weights."""
+    edge-replicated slab, with global positions and weights; the moved
+    positions written into `out` where given."""
     vel_e = edge_replicated_halo(vel_local, mesh)
     move = (particle_move_local_cuda if kernel_choice(cfg, vel_e.device)
             else particle_move_local_plain)
-    return move(vel_e, positions, active, cfg.dt, x0, cfg.grid_size)
+    return move(vel_e, positions, active, cfg.dt, x0, cfg.grid_size,
+                out=out)
 
 
 # ---------------------------------------------------------------- migration
 def migrate(positions: torch.Tensor, active: torch.Tensor, x0: int, lx: int,
-            m: int, mesh: Mesh):
+            m: int, mesh: Mesh, out=None):
     """One-hop exchange after the move: the active particles whose cell x
     left [x0, x0 + lx) go, at most m a direction, to the x-neighbour and
     fill this shard's free slots in turn.  Returns (positions, active,
     n_dropped), where n_dropped is this shard's leavers less its arrivals
     placed: its sum over the shards is the particles lost to a full buffer,
     to full slots, or past a domain end.  One shard exchanges nothing and
-    keeps every particle, as the single-device step does."""
+    keeps every particle, as the single-device step does.
+
+    `out` = (positions, active) are the tensors the result is written
+    into; for a None entry, or no `out`, one shard returns that input
+    itself and more shards a new tensor.  `out`'s positions may be
+    `positions`: the senders are packed before any row is written."""
+    out_pos, out_act = (None, None) if out is None else out
     if mesh.size == 1:
-        return positions, active, torch.zeros((), dtype=torch.int32,
-                                              device=positions.device)
+        return (*store((positions, active), (out_pos, out_act)),
+                torch.zeros((), dtype=torch.int32, device=positions.device))
     cap = positions.shape[0]
     dev = positions.device
     cx = float_to_index(torch.floor(positions[:, 0]), torch.int32)
@@ -183,31 +194,37 @@ def migrate(positions: torch.Tensor, active: torch.Tensor, x0: int, lx: int,
     in_pos = torch.cat([in_l_pos, in_r_pos])
     in_val = torch.cat([in_l_val, in_r_val])
 
-    # the k-th valid arrival takes the k-th hole: the leading entries of
-    # the sort (leavers, then inactive slots), at most 2m of them
+    # the k-th valid arrival takes the k-th hole (the leading entries of
+    # the sort: leavers, then inactive slots) while k < n_holes and
+    # k < 2m: `placed` of them
     holes = order[:2 * m]
     n_holes = (~keep).sum()
+    valid = in_val > 0
     rank = torch.cumsum(in_val, 0) - 1
-    ok = (in_val > 0) & (rank < n_holes) & (rank < 2 * m)
-    # in bounds by construction; entries that are not ok are discarded
-    hole = holes.index_select(0, torch.clamp(rank, 0, len(holes) - 1))
-    tgt = torch.where(ok, hole, cap)
-    buf = torch.cat([positions, positions.new_zeros((1, 3))])
-    buf[tgt] = in_pos
-    flags = torch.cat([keep, keep.new_zeros((1,))])
-    flags.index_fill_(0, tgt, True)   # no host scalar: capturable
+    placed = (valid & (rank < n_holes) & (rank < 2 * m)).sum()
+    # each hole written once: the k-th valid lane's row for k < placed,
+    # else its own row and flag; no host sync, so capturable
+    fill = torch.arange(len(holes), device=dev) < placed
+    lane = torch.argsort(~valid, stable=True)[:len(holes)]
+    pos = positions.clone() if out_pos is None else store(positions,
+                                                          out_pos)
+    pos.index_copy_(0, holes, torch.where(
+        fill[:, None], in_pos.index_select(0, lane),
+        pos.index_select(0, holes)))
+    flags = keep if out_act is None else out_act.copy_(keep)
+    flags.index_copy_(0, holes, fill | flags.index_select(0, holes))
     leavers = n_l + n_r
-    placed = ok.sum()
-    return buf[:cap], flags[:cap], (leavers - placed).to(torch.int32)
+    return pos, flags, (leavers - placed).to(torch.int32)
 
 
 # ----------------------------------------------------------------- scatters
 def detailed_occupancy_local(positions: torch.Tensor, active: torch.Tensor,
-                             cfg: FluidConfig, x0_det: int,
-                             lx_det: int) -> torch.Tensor:
+                             cfg: FluidConfig, x0_det: int, lx_det: int,
+                             out=None) -> torch.Tensor:
     """`stages/particles.detailed_occupancy` onto this shard's detailed
     x-slab [x0_det, x0_det + lx_det): every owned particle's detailed cell
-    is local, and particles outside the slab are not scattered."""
+    is local, and particles outside the slab are not scattered.  Written
+    into `out` where given."""
     dy, dz = cfg.detailed_size[1], cfg.detailed_size[2]
     idx = float_to_index(torch.trunc(
         positions * float(cfg.surface_render_resolution)))
@@ -215,11 +232,24 @@ def detailed_occupancy_local(positions: torch.Tensor, active: torch.Tensor,
     y, z = idx[:, 1], idx[:, 2]
     inb = ((x >= 0) & (x < lx_det) & (y >= 0) & (y < dy) & (z >= 0)
            & (z < dz) & active)
-    n = lx_det * dy * dz
-    flat = torch.where(inb, x * (dy * dz) + y * dz + z, n)
-    occ = torch.zeros(n + 1, dtype=torch.uint8, device=positions.device)
-    occ.index_fill_(0, flat, 1)   # no host scalar: capturable
-    return occ[:n].reshape(lx_det, dy, dz)
+    shape = (lx_det, dy, dz)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.uint8, device=positions.device)
+    require(out, "out occupancy", torch.uint8, shape, positions.device)
+    # no spare cell: a particle outside the slab writes the cell of one
+    # inside it (the anchor), which is written 1 anyway; with none inside,
+    # every particle writes a 0 at cell 0.  All writes then store one
+    # value, so their order cannot matter, and no index or value comes
+    # from the host, so a graph captures it.  (A uint8 max-reducing
+    # scatter does the same with atomics, and is slower on the card.)
+    flat = x * (dy * dz) + y * dz + z
+    first = torch.argmax(inb.to(torch.uint8)).view(1)
+    some = inb.index_select(0, first)
+    anchor = torch.where(some, flat.index_select(0, first), 0)
+    out.view(-1).zero_().index_put_(
+        (torch.where(inb, flat, anchor),),
+        some.to(torch.uint8).expand(inb.shape[0]))
+    return out
 
 
 def cell_histogram_local(positions: torch.Tensor, active: torch.Tensor,

@@ -260,9 +260,7 @@ def _local_step(state: FluidState, cfg: FluidConfig, mesh: Mesh,
     `state.step` for the volume cadence, and `into` the tensors the new
     fields are written into, as in `simulation_step` (the CUDA graphs
     pass both); without `volume_step` the step reads `state.step` on the
-    host.  Domain-sharded particles leave the positions, the active flags
-    (past one shard) and the detailed occupancy out of `into`: `migrate`
-    and the local scatter return rows of buffers with a spare row."""
+    host."""
     put = into if into is not None else NOWHERE
     device = state.velocity.device
     use_kernels = kernel_choice(cfg, device)
@@ -353,16 +351,18 @@ def _local_step(state: FluidState, cfg: FluidConfig, mesh: Mesh,
             move_vel = vel + _volume_drift_spmd(state, types, cfg, x0, mesh)
     if cfg.particle_sharding == "domain":
         # each shard moves the particles of its slab, hands the border
-        # crossers to its neighbours and scatters onto its detailed slab
+        # crossers to its neighbours in the moved rows and scatters onto
+        # its detailed slab; one shard passes the active flags through
         pos = move_particles_local(move_vel, state.positions, state.active,
-                                   cfg, x0, mesh)
-        pos, active, ndrop = migrate(pos, state.active, x0, lx,
-                                     migrate_capacity(pos.shape[0], cfg),
-                                     mesh)
+                                   cfg, x0, mesh, out=put.positions)
+        pos, active, ndrop = migrate(
+            pos, state.active, x0, lx, migrate_capacity(pos.shape[0], cfg),
+            mesh, out=(pos, put.active if mesh.size > 1 else None))
         dropped = torch.add(state.dropped, psum(ndrop, mesh),
                             out=put.dropped)
         r = cfg.surface_render_resolution
-        occ = detailed_occupancy_local(pos, active, cfg, x0 * r, lx * r)
+        occ = detailed_occupancy_local(pos, active, cfg, x0 * r, lx * r,
+                                       out=put.detailed_occ)
     else:
         # particles split by index: every shard gathers the velocity field,
         # moves its particles, scatters their occupancy over the whole
@@ -374,9 +374,12 @@ def _local_step(state: FluidState, cfg: FluidConfig, mesh: Mesh,
         vel_full = all_gather_x(move_vel.contiguous(), mesh, axis=1)
         pos, occ_full = particles.move_and_scatter(
             vel_full, state.positions, active, cfg, out=(put.positions, None))
-        occ = psum_scatter_x(occ_full, mesh) > 0
-        occ = (occ.to(torch.uint8) if put.detailed_occ is None
-               else put.detailed_occ.copy_(occ))
+        summed = psum_scatter_x(occ_full, mesh)
+        if put.detailed_occ is None:
+            occ = (summed > 0).to(torch.uint8)
+        else:
+            occ = put.detailed_occ
+            torch.gt(summed, 0, out=occ.view(torch.bool))
 
     # 16-18
     if cfg.surface_enabled and cfg.surface_method == "levelset":

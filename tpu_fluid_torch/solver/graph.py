@@ -28,12 +28,13 @@ given the other set as `into`, so that each field's last writer (K6c or
 the stage-13 stack, K6a or stage 03, K3+K4, K5, the step counter) writes
 it there.  The graph ends by copying any field that did not land there
 (`_load`: the residual hand-over, which `captures` records by field and
-bytes; none on the single-device step's path).  A field the program passes
-through unchanged (`active`, `dropped`, the surface fields with the
-surface off, the inertia under the level set) is one tensor of both sets,
-found at the entry's first capture.  The graphs of an entry share one
-private memory pool: they never run at once, and no tensor of the pool is
-read after a replay, since the state then lives in a set.
+bytes; none on the single-device or the sharded step's path).  A field
+the program passes through unchanged (`active`, `dropped`, the surface
+fields with the surface off, the inertia under the level set) is one
+tensor of both sets, found at the entry's first capture.  The graphs of
+an entry share one private memory pool: they never run at once, and no
+tensor of the pool is read after a replay, since the state then lives in
+a set.
 
 Donation, as `donate_argnums=0` in JAX: a state passed to a call is
 consumed, and a call given any other state never writes it.  The returned
