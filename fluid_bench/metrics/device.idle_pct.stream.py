@@ -1,0 +1,6 @@
+"""100 x (1 - the union of the device's kernels, copies and fills over the
+traced stretch of back-to-back steps / the stretch)."""
+
+
+def read(run):
+    return run.window.trace.idle_pct() if run.window.trace else None

@@ -1,0 +1,76 @@
+"""The initial state a run starts from, made from `--seed` on the device.
+
+Every particle of the configuration's cubes starts at its lattice point of
+the cube, `offset + index / resolution * size`, moved by a uniform offset
+drawn from the seed inside its own lattice spacing; ids past the cubes stay
+inactive at the origin.  The velocity, the pressure-free grid fields and
+the counters start at zero, the cell types INACTIVE, and the detailed
+occupancy is that of the initial positions.  The same state is handed to
+the program and to the reference.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fluid_bench.reference.step import INACTIVE, Scene, occupancy
+
+
+def generator(seed: int, device) -> torch.Generator:
+    g = torch.Generator(device=device)
+    g.manual_seed(seed % 2 ** 63)
+    return g
+
+
+def particles(fields: dict, seed: int, device):
+    """(positions (P, 3) f32, active (P,) bool)."""
+    p = fields["particle_count"]
+    cubes = [(fields["particle_init_cube_resolution"],
+              fields["particle_init_cube_offset"],
+              fields["particle_init_cube_size"])]
+    cubes += [tuple(c) for c in fields["extra_particle_cubes"]]
+    jitter = torch.rand((p, 3), generator=generator(seed, device),
+                        device=device, dtype=torch.float32)
+    ids = torch.arange(p, dtype=torch.int64, device=device)
+    pos = torch.zeros((p, 3), dtype=torch.float32, device=device)
+    active = torch.zeros((p,), dtype=torch.bool, device=device)
+    start = 0
+    for (rx, ry, rz), offset, size in cubes:
+        rel = ids - start
+        idx = torch.stack([rel % rx, (rel // rx) % ry, (rel // (rx * ry)) % rz],
+                          dim=-1).to(torch.float32)
+        res = torch.tensor([rx, ry, rz], dtype=torch.float32, device=device)
+        off = torch.tensor(offset, dtype=torch.float32, device=device)
+        size = torch.tensor(size, dtype=torch.float32, device=device)
+        inside = (ids >= start) & (ids < start + rx * ry * rz)
+        pos = torch.where(inside[:, None], off + (idx + jitter) / res * size,
+                          pos)
+        active = active | inside
+        start += rx * ry * rz
+    return pos, active
+
+
+def initial(fields: dict, seed: int, device) -> dict:
+    """The whole initial state, field name -> tensor on `device`."""
+    scene = Scene(fields)
+    gx, gy, gz = fields["grid_size"]
+    dsize = scene.detailed_size
+    pos, active = particles(fields, seed, device)
+    return {
+        "velocity": torch.zeros((3, gx, gy, gz), dtype=torch.float32,
+                                device=device),
+        "cell_types": torch.full((gx, gy, gz), INACTIVE, dtype=torch.uint8,
+                                 device=device),
+        "inertia": torch.zeros(dsize, dtype=scene.inertia_dtype,
+                               device=device),
+        "float_dens_1": torch.zeros(dsize, dtype=torch.float32,
+                                    device=device),
+        "float_dens_2": torch.zeros(dsize, dtype=torch.float32,
+                                    device=device),
+        "positions": pos,
+        "active": active,
+        "detailed_occ": occupancy(pos, active,
+                                  fields["surface_render_resolution"], dsize),
+        "step": torch.zeros((), dtype=torch.int32, device=device),
+        "dropped": torch.zeros((), dtype=torch.int32, device=device),
+    }
