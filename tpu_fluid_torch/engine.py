@@ -36,6 +36,7 @@ from tpu_fluid_torch.render.export import to_host
 from tpu_fluid_torch.solver.graph import jit_step
 from tpu_fluid_torch.stages.surface_fields import surface_field
 from tpu_fluid_torch.surface.marching_cubes import extract_surface
+from tpu_fluid_torch.utils import profiling
 from tpu_fluid_torch.utils.diagnostics import diagnostics, format_diagnostics
 
 
@@ -90,19 +91,20 @@ class Simulation:
         steps as simulated when a pause landed between its check and
         ours.  run() advances by this return value instead."""
         done = 0
-        while done < n and not self.paused:
-            k = min(self.dispatch_chunk, n - done)
-            for _ in range(k):
-                self.state = jit_step(self.state, self.cfg, self.scene)
-            done += k
-            # every chunk, the final one included, records an event: the
-            # next step() call queues at once, and the bound must hold
-            # across calls too
-            if on_cuda(self.state.step):
-                event = torch.cuda.Event()
-                event.record()
-                self._pending.append(event)
-            self._drain(self.max_pending)
+        with profiling.span("step"):
+            while done < n and not self.paused:
+                k = min(self.dispatch_chunk, n - done)
+                for _ in range(k):
+                    self.state = jit_step(self.state, self.cfg, self.scene)
+                done += k
+                # every chunk, the final one included, records an event:
+                # the next step() call queues at once, and the bound must
+                # hold across calls too
+                if on_cuda(self.state.step):
+                    event = torch.cuda.Event()
+                    event.record()
+                    self._pending.append(event)
+                self._drain(self.max_pending)
         return done
 
     def _drain(self, limit: int = 0) -> None:
@@ -129,10 +131,11 @@ class Simulation:
     def surface_mesh(self):
         """The marching-cubes mesh of the current surface field, on the
         state's device."""
-        return extract_surface(
-            surface_field(self.state.float_dens_1, self.state.float_dens_2,
-                          self.cfg),
-            self.cfg, max_cells=self.max_surface_cells)
+        with profiling.span("surface_mesh"):
+            return extract_surface(
+                surface_field(self.state.float_dens_1,
+                              self.state.float_dens_2, self.cfg),
+                self.cfg, max_cells=self.max_surface_cells)
 
     @torch.no_grad()
     def render_frame(self, width: int = 1024, height: int = 1024,
@@ -145,6 +148,10 @@ class Simulation:
         raster), a numpy array; it copies positions and the mesh to the
         host first, and raises if the library does not build.
         """
+        with profiling.span("render_frame"):
+            return self._render_frame(width, height, method)
+
+    def _render_frame(self, width: int, height: int, method: str):
         mesh = self.surface_mesh() if self.render_surface else None
         active = (self.state.active if self.render_particles
                   else self.state.active & False)

@@ -15,11 +15,14 @@ import zlib
 
 import numpy as np
 
+from tpu_fluid_torch.utils import profiling
+
 
 def to_host(array) -> np.ndarray:
     """A numpy array of a numpy array, a tensor on any device, or a list."""
     if hasattr(array, "detach"):
-        return array.detach().cpu().numpy()
+        with profiling.span("to_host"):
+            return array.detach().cpu().numpy()
     return np.asarray(array)
 
 

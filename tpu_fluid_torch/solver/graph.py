@@ -71,6 +71,12 @@ rule above holds for both.  On an nccl mesh the collectives are captured
 too: the warm-up step creates the communicators, and every rank captures
 the same sequence of collectives, since each takes the same branches.
 
+With tracing on (`utils/profiling`), a call takes graphs of its own: the
+tracing flag is part of the key, so an untraced graph holds no span.  A
+traced capture collects the step's stage spans, timed event-record nodes
+of the graph, and each replay reads the times of the same graph's
+previous replay first; `clear_graphs` reads the last.
+
 A failed capture or replay raises; nothing falls back to the eager step on
 the card.  The kernel wrappers' launch counters count the kernels they
 launch at the warm-up step and in the captures, not the replays.  On a CPU
@@ -91,6 +97,7 @@ from tpu_fluid_torch.core.config import FluidConfig
 from tpu_fluid_torch.core.state import FluidState
 from tpu_fluid_torch.kernels import on_cuda
 from tpu_fluid_torch.solver.step import simulation_step
+from tpu_fluid_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,6 +124,8 @@ class _Entry:
     scene_buffers: object = None
     # (source set, phase of the cadence at the first step) -> graph
     graphs: dict = dataclasses.field(default_factory=dict)
+    # the same key -> the spans a traced graph captured (profiling.Marks)
+    marks: dict = dataclasses.field(default_factory=dict)
     pool: object = None           # the private memory pool its graphs share
     step: int | None = None       # the step the lineage's set holds
     held: list = dataclasses.field(default_factory=list)
@@ -177,7 +186,8 @@ def _ptrs(state) -> tuple:
 def _key(state: FluidState, cfg: FluidConfig, n_steps: int, scene,
          program: Program) -> tuple:
     return (program.key, cfg, n_steps, state.velocity.device,
-            _fields(state), None if scene is None else _fields(scene))
+            _fields(state), None if scene is None else _fields(scene),
+            profiling.enabled())
 
 
 def _load(buffers, values) -> None:
@@ -295,12 +305,16 @@ def replay(state: FluidState, cfg: FluidConfig, n_steps: int, scene,
         owner, src = entry, 0
     if scene is not None:
         _load(owner.scene_buffers, scene)
+    traced = key[-1]                   # the key's tracing flag
     graph = owner.graphs.get((src, phase))
     if graph is None:
-        graph, facts = _capture(owner, src, cfg, n_steps, first or 0,
-                                key not in _WARM, program)
+        with profiling.capture() as marks:
+            graph, facts = _capture(owner, src, cfg, n_steps, first or 0,
+                                    key not in _WARM, program)
         _WARM.add(key)
         owner.graphs[(src, phase)] = graph
+        if traced:
+            owner.marks[(src, phase)] = marks
         sets = owner.sets
         captures.append({"grid": tuple(cfg.grid_size), "n_steps": n_steps,
                          "phase": phase, "program": program.key,
@@ -308,7 +322,10 @@ def replay(state: FluidState, cfg: FluidConfig, n_steps: int, scene,
                          "residual_bytes": sum(
                              getattr(sets[1 - src], f).nbytes
                              for f in facts["residual"])})
-    graph.replay()
+    if traced:
+        owner.marks[(src, phase)].replay(graph)
+    else:
+        graph.replay()
     if every > 1:
         owner.step = first + n_steps
     out = FluidState(*(_alias(t) for t in owner.sets[1 - src]))
@@ -335,6 +352,8 @@ def jit_step(state: FluidState, cfg: FluidConfig,
 
 def clear_graphs() -> None:
     """Drop every captured graph and its buffer sets (their device memory
-    returns to PyTorch's allocator once no returned state holds it)."""
+    returns to PyTorch's allocator once no returned state holds it),
+    having read the times of their last traced replays."""
+    profiling.flush()
     _GRAPHS.clear()
     _WARM.clear()

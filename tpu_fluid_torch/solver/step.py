@@ -19,6 +19,7 @@ from tpu_fluid_torch.stages import surface_fields
 from tpu_fluid_torch.stages.volume import (corrected_move_velocity,
                                            volume_due)
 from tpu_fluid_torch.stages import velocity as vstages
+from tpu_fluid_torch.utils import profiling
 
 
 def simulation_step(state: FluidState, cfg: FluidConfig, scene=None,
@@ -41,6 +42,9 @@ def simulation_step(state: FluidState, cfg: FluidConfig, scene=None,
     fields are written into, each by the field's last writer (a None
     field is allocated, as every field is without `into`).  The step
     never reads them, and they must share no memory with `state`.
+
+    With tracing on (`utils/profiling`), the stage groups that
+    `profiling.stage_breakdown` names tile the step, each a span.
     """
     put = into if into is not None else NOWHERE
     device = state.velocity.device
@@ -58,14 +62,17 @@ def simulation_step(state: FluidState, cfg: FluidConfig, scene=None,
 
     old_types = state.cell_types
     vel = state.velocity
+    stage = profiling.stages()
 
     if fuse_grid:
+        stage("01-06 classify and extrapolate (K6a)")
         # 01-06 in one pass (K6a), from the detailed occupancy of the
         # current positions, scattered at the end of the previous step
         types, vel = classify_extrap(state.detailed_occ, old_types, vel, cfg,
                                      pool=cfg.surface_render_resolution,
                                      out=(put.cell_types, None))
     else:
+        stage("01-03 pool and cell typing")
         # 01: sim-grid occupancy of the current positions
         occ_sim = particles.occupancy_to_sim_grid(state.detailed_occ, cfg)
         # 02-03: classify cells
@@ -73,6 +80,7 @@ def simulation_step(state: FluidState, cfg: FluidConfig, scene=None,
         new_types = celltypes.update_air(new_types, cfg,
                                          extra_solid=scene_solid,
                                          out=put.cell_types)
+        stage("04+05 extrapolate")
         # 04-05: velocity extrapolation into newly active faces
         extrapolated = vstages.compute_extrapolated_velocities(old_types,
                                                                vel)
@@ -81,32 +89,37 @@ def simulation_step(state: FluidState, cfg: FluidConfig, scene=None,
         # 06: the new classification becomes current
         types = celltypes.commit_cell_types(new_types)
 
-    # 07
+    stage("07 advect")
     vel = vstages.advect(types, vel, cfg)
 
     if fuse_grid:
+        stage("08-11 forces, solids, divergence (K6b)")
         # 08-11 in one pass (K6b; 09 is the reference's no-op)
         vel, div = forces_solids_div(types, vel, cfg)
     else:
+        stage("08-10 forces/solids")
         # 08-10: force, diffuse, solid clamp
         vel = vstages.apply_forces(types, vel, cfg,
                                    force_field=scene_force)
         vel = vstages.diffuse(types, vel, cfg)
         vel = vstages.apply_solids(types, vel, cfg)
-        # 11
+        stage("11 divergence")
         div = pressure.compute_divergence(vel)
 
-    # 12-13: pressure solve and projection (13 as K6c when fused)
+    stage(f"12 jacobi x{cfg.jacobi_iters}")
     p = pressure.jacobi_solve(types, div, cfg)
     if fuse_grid:
+        stage("13 project (K6c)")
         vel = project(types, p, vel, cfg, out=put.velocity)
     else:
+        stage("13 project")
         vel = pressure.pressure_project(types, p, vel, cfg,
                                         out=put.velocity)
 
     # 14-15: move particles through the projected field, plus the volume
     # drift on a corrected step, and scatter their occupancy (also the
     # next frame's stage 01), one K3+K4 launch on the card
+    stage("14+15 move and scatter")
     move_vel = vel
     if cfg.volume_correction > 0.0:
         if volume_step is None and cfg.volume_correction_every > 1:
@@ -118,7 +131,7 @@ def simulation_step(state: FluidState, cfg: FluidConfig, scene=None,
         move_vel, state.positions, state.active, cfg,
         out=(put.positions, put.detailed_occ))
 
-    # 16-18: the surface fields
+    stage("16-18 surface fields")
     if cfg.surface_enabled:
         inertia, f1, f2 = surface_fields.update_surface_fields(
             types, occ, state.inertia, state.float_dens_2, cfg,
@@ -126,6 +139,8 @@ def simulation_step(state: FluidState, cfg: FluidConfig, scene=None,
     else:
         inertia, f1, f2 = (state.inertia, state.float_dens_1,
                            state.float_dens_2)
+    counter = torch.add(state.step, 1, out=put.step)
+    stage()
 
     return FluidState(
         velocity=vel,
@@ -136,7 +151,7 @@ def simulation_step(state: FluidState, cfg: FluidConfig, scene=None,
         positions=pos,
         active=state.active,
         detailed_occ=occ,
-        step=torch.add(state.step, 1, out=put.step),
+        step=counter,
         dropped=state.dropped,
     )
 
