@@ -173,17 +173,34 @@ Phases, one line each (more for the parity and scene phases):
               large one (domain, with chip_smoke.domain_scene's border
               forces) against the single-device steps; with one card, a
               line saying it did not run.
+ 14 splat    the facade's splat kernel pair (tpu_fluid_torch/kernels/splat.py,
+              csrc/splat.cu) against its plain version on the card,
+              bitwise (tolerance 0), at reference_scene() after 5 engine
+              steps (1M particles, the mesh's three lattices): the view's
+              1400x1400 frame, a 333x517 frame, a fixed sprite radius of 2,
+              and NaN, infinite, huge and behind-camera particles with
+              exact depth ties; also through its counting instantiation;
+              each case's launches (one wrapper call, 4 kernels by the C
+              counter), kernel and plain ms (means of CUDA events) beside
+              the bound (the frame's own bytes: inputs read once, the
+              image written), and the share of tested samples that
+              reached an atomic in each kernel; then
+              Simulation.render_frame at 1400x1400 against the plain route
+              (pallas_mode="off") bitwise, through the kernel (its one
+              frame's launches, counted from 0: 1 wrapper call, 4
+              kernels), both timed.
 The line before the last is a JSON object with the kernels' numbers (times
 and bounds at the large scene, the halo forms' and the local-slab form's at
-shard 1 of phases 8 and 9, the launches of phases 4-13; library_ms is
-null: no single PyTorch call computes any of these functions); the last
-line is
+shard 1 of phases 8 and 9, the splat's at the view's frame, the launches of
+phases 4-13, the splat's of its main-path frame; library_ms is null: no single PyTorch call computes any of
+these functions); the last line is
 {"ok": true, "device": {...}}.  Any
 failed check raises, so the script then exits nonzero without that line;
 without CUDA it exits 2.
 
 `python3 chip_smoke.py --multi-card`, on a machine with several cards,
-runs the build and phase 13d alone.
+runs the build and phase 13d alone; `python3 chip_smoke.py --splat` the
+build and phase 14.
 """
 
 from __future__ import annotations
@@ -2699,6 +2716,199 @@ def multi_card_configs(scenes) -> tuple:
             ("large", domain_scene(cfgs["large"])))
 
 
+# ------------------------------------------------------ 14: the splat kernel
+# The splat kernel's source, and what it replaces.
+SPLAT_SOURCE = (
+    "tpu_fluid_torch/csrc/splat.cu",
+    "none: the JAX package's frame is XLA scatters "
+    "(tpu_fluid/render/splat.py:215-223); replaces the port's plain "
+    "per-pass scatter_reduce splat (render/splat.py: sprite_passes, "
+    "draw_passes)")
+# engine steps of reference_scene() before the frames; the view's frame,
+# an odd one, a fixed sprite radius; timed calls a mean takes
+SPLAT_STEPS = 5
+SPLAT_VIEW = (1400, 1400)
+SPLAT_ODD = (333, 517)
+SPLAT_RADIUS = 2
+SPLAT_TIMED = 20
+SPLAT_PLAIN_TIMED = 3
+
+
+def splat_bytes(n_particles: int, n_lattice: int, w: int, h: int) -> int:
+    """The frame's own bytes: positions and active flags (13 bytes a
+    particle) and the lattice samples (25 bytes) read once, the (h, w, 3)
+    image written.  The kernel pair moves about twice that (both kernels
+    read the inputs; two w*h int32 buffers), which the bound leaves out."""
+    return 13 * n_particles + 25 * n_lattice + 3 * w * h
+
+
+def splat_scene_inputs(sim, device, w: int, h: int) -> tuple:
+    """(positions, active, mvp, lattice) of `sim`'s frame at w x h: the
+    kernel's inputs, the lattice passes from the plain lattice code."""
+    from tpu_fluid_torch.render.splat import surface_passes
+    mesh = sim.surface_mesh()
+    mvp = torch.as_tensor(np.asarray(sim.camera.mvp(), np.float32),
+                          device=device)
+    lattice = surface_passes(mesh.vertices, mesh.normals, mesh.valid, mvp,
+                             sim.cfg, w, h)
+    return sim.state.positions, sim.state.active, mvp, lattice
+
+
+def extreme_particles(sim, positions, active) -> tuple:
+    """`positions` with NaN, infinite and huge coordinates, particles
+    behind the camera, and copies of others (exact depth ties), all
+    active."""
+    pos = positions.clone()
+    act = active.clone()
+    eye = torch.as_tensor(np.asarray(sim.camera.position, np.float32)
+                          - 2.0 * np.asarray(sim.camera.direction,
+                                             np.float32), device=pos.device)
+    rows = []
+    for v in (float("nan"), float("inf"), -float("inf"), 1e30, -1e30,
+              3e9):
+        for axis in range(3):
+            row = pos[1000 + len(rows)].clone()
+            row[axis] = v
+            rows.append(row)
+    n = len(rows)
+    pos[1000:1000 + n] = torch.stack(rows)
+    pos[2000:2100] = eye                         # behind the camera
+    pos[3000:4000] = pos[5000:6000]              # exact depth ties
+    act[1000:1000 + n] = True
+    act[2000:2100] = True
+    return pos, act
+
+
+def splat_case(label: str, inputs, cfg, w: int, h: int, radius,
+               card: str) -> dict:
+    """The kernel pair against its plain version on the card at w x h,
+    bitwise, also through the counting instantiation; its launches (the
+    wrapper's and the C counter's), ms and the plain version's ms beside
+    the bound, and the share of tested samples that reached an atomic."""
+    from tpu_fluid_torch.kernels import build
+    from tpu_fluid_torch.kernels.splat import (COUNTS, splat_frame_cuda,
+                                               splat_frame_plain)
+    pos, act, mvp, lattice = inputs
+
+    def kernel(counts=None):
+        return splat_frame_cuda(pos, act, mvp, lattice, cfg, w, h,
+                                particle_radius=radius, counts=counts)
+
+    def plain():
+        return splat_frame_plain(pos, act, mvp, lattice, cfg, w, h,
+                                 particle_radius=radius)
+
+    calls = splat_frame_cuda.launches
+    device_calls = build.launches("tf_splat_launches")
+    got = kernel()
+    torch.cuda.synchronize()
+    launched = (splat_frame_cuda.launches - calls,
+                build.launches("tf_splat_launches") - device_calls)
+    want = plain()
+    counts = torch.zeros(len(COUNTS), dtype=torch.int64, device=pos.device)
+    counted = kernel(counts)
+    torch.cuda.synchronize()
+    differ = int((got != want).any(-1).sum())
+    same = torch.equal(got, want) and torch.equal(counted, want)
+    c = dict(zip(COUNTS, counts.tolist()))
+    shares = {
+        "depth_atomic_share": c["depth_atomics"] / max(c["depth_tested"], 1),
+        "color_won_share": c["color_won"] / max(c["color_tested"], 1),
+        "color_atomic_share": c["color_atomics"] / max(c["color_tested"], 1)}
+    ms = time_ms(kernel, SPLAT_TIMED)
+    plain_ms = time_ms(plain, SPLAT_PLAIN_TIMED, warmup=1)
+    n_lattice = sum(int(p[0].shape[0]) for p in lattice)
+    bound_ms = splat_bytes(pos.shape[0], n_lattice, w, h) / \
+        HBM_BYTES_PER_S * 1e3
+    hit = float((want != torch.as_tensor(
+        (np.asarray(cfg.background_color) * 255).astype(np.uint8),
+        device=want.device)).any(-1).double().mean())
+    print(f"[14 splat {label}] {w}x{h}, {pos.shape[0]} particles "
+          f"({int(act.sum())} active), {n_lattice} lattice samples, sprite "
+          f"radius {radius}: kernel frame bitwise equal to the plain frame "
+          f"{same} ({differ} pixels differ; tolerance 0), counted frame "
+          f"too; launches {launched[0]} wrapper, {launched[1]} kernels (C "
+          f"counter); kernel {ms!r} ms, plain {plain_ms!r} ms, bound "
+          f"{bound_ms!r} ms (bytes), {100 * bound_ms / ms!r}% of it; "
+          f"{100 * hit!r}% of the pixels drawn; counts {c}; shares of "
+          f"tested samples: depth atomics {shares['depth_atomic_share']!r}, "
+          f"colour winners {shares['color_won_share']!r}, colour atomics "
+          f"{shares['color_atomic_share']!r} on {card}", flush=True)
+    check(same, f"14 splat {label}: {differ} pixels differ")
+    check(launched == (1, 4), f"14 splat {label}: launches {launched}, "
+                              f"expected 1 wrapper call and 4 kernels")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "max_abs_err": 0.0, "counts": c, **shares}
+
+
+def splat_render(sim, cfg, w: int, h: int, card: str) -> dict:
+    """`Simulation.render_frame` (the kernel route) against
+    `render_particles_and_surface` with pallas_mode="off" (the plain route,
+    on the card), bitwise; the main path's launches, its counters set to 0
+    just before its frame: one wrapper call and 4 kernels; both timed."""
+    from tpu_fluid_torch.kernels import build
+    from tpu_fluid_torch.kernels.splat import splat_frame_cuda
+    from tpu_fluid_torch.render.splat import render_particles_and_surface
+    mesh = sim.surface_mesh()
+    off = cfg.replace(pallas_mode="off")
+
+    def plain():
+        return render_particles_and_surface(
+            sim.state.positions, sim.state.active, mesh.vertices,
+            mesh.normals, mesh.valid, sim.camera.mvp(), off, w, h)
+
+    splat_frame_cuda.launches = 0
+    device_calls = build.launches("tf_splat_launches")
+    got = sim.render_frame(w, h)
+    torch.cuda.synchronize()
+    launched = (splat_frame_cuda.launches,
+                build.launches("tf_splat_launches") - device_calls)
+    want = plain()
+    torch.cuda.synchronize()
+    check(launched == (1, 4),
+          f"14 splat: render_frame launched {launched} (wrapper, C "
+          f"counter), expected 1 wrapper call and 4 kernels")
+    same = torch.equal(got, want)
+    ms, _ = median_ms(lambda: sim.render_frame(w, h), SPLAT_TIMED, True)
+    plain_ms, _ = median_ms(plain, SPLAT_PLAIN_TIMED, True)
+    print(f"[14 splat render_frame] {w}x{h}: Simulation.render_frame "
+          f"bitwise equal to the plain route's frame {same} (tolerance 0); "
+          f"its one frame from counters at 0: launches {launched[0]} "
+          f"wrapper, {launched[1]} kernels (C counter); {ms!r} ms (mesh, "
+          f"lattices and kernels), plain route {plain_ms!r} ms (median, "
+          f"CUDA events) on {card}", flush=True)
+    check(same, "14 splat: render_frame differs from the plain route")
+    return {"render_ms": ms, "plain_render_ms": plain_ms,
+            "launches": launched[0], "device_launches": launched[1]}
+
+
+def phase_splat(device, ref_cfg, card: str) -> dict:
+    """Phase 14: the splat kernel pair at the view's frame, an odd frame, a
+    fixed sprite radius and non-finite and behind-camera particles."""
+    from tpu_fluid_torch import Simulation
+    from tpu_fluid_torch.solver import graph
+    sim = Simulation(ref_cfg).step(SPLAT_STEPS).sync()
+    cfg = sim.cfg
+    w, h = SPLAT_VIEW
+    view = splat_scene_inputs(sim, device, w, h)
+    results = {"view": splat_case("view", view, cfg, w, h, None, card)}
+    results["render"] = splat_render(sim, cfg, w, h, card)
+    ow, oh = SPLAT_ODD
+    results["odd"] = splat_case("odd", splat_scene_inputs(sim, device, ow,
+                                                          oh),
+                                cfg, ow, oh, None, card)
+    results["radius"] = splat_case("radius", view, cfg, w, h, SPLAT_RADIUS,
+                                   card)
+    pos, act = extreme_particles(sim, view[0], view[1])
+    results["extreme"] = splat_case("extreme", (pos, act) + view[2:], cfg,
+                                    w, h, None, card)
+    del sim, view, pos, act
+    graph.clear_graphs()
+    torch.cuda.empty_cache()
+    return results
+
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2712,6 +2922,8 @@ def main(argv) -> int:
     card = f"{torch.cuda.get_device_name(0)} ({smi})"
     if argv == ["--multi-card"]:
         return multi_card_main(smi, card)
+    if argv == ["--splat"]:
+        return splat_main(smi, card, device)
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -2913,6 +3125,9 @@ def main(argv) -> int:
         else:
             sharded_launches[name] += count
 
+    # 14: the splat kernel pair of the facade's frame
+    splat = phase_splat(device, ref_cfg, card)
+
     def entry(name, source, replaces, n, results, key):
         r = results[key]
         # no single PyTorch call computes any of these functions
@@ -2933,8 +3148,31 @@ def main(argv) -> int:
     kernels.append(entry("particle_move_local_cuda", *LOCAL_SOURCE,
                          domain_launches["particle_move_local_cuda"],
                          local_parity, 1))
+    # the launches of the main path's frame (`splat_render`), from 0
+    kernels.append({**entry("splat_frame_cuda", *SPLAT_SOURCE,
+                            splat["render"]["launches"],
+                            {"max_abs_err": 0.0, **splat}, "view"),
+                    "device_launches": splat["render"]["device_launches"]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def splat_main(smi: str, card: str, device) -> int:
+    """`python3 chip_smoke.py --splat`: the build and phase 14 alone."""
+    from tpu_fluid_torch import FluidConfig
+    from tpu_fluid_torch.kernels import build
+    t0 = time.perf_counter()
+    build.build()
+    build.library()
+    print(f"[2 build] {len(build.sources())} sources -> {build.LIBRARY.name} "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    splat = phase_splat(device, FluidConfig.reference_scene(), card)
+    print(smi)
+    print(json.dumps({"splat": splat}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

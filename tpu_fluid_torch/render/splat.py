@@ -17,6 +17,11 @@ produce an RGB image on the card:
 Depth resolution uses two scatter passes: a scatter-min builds the depth
 buffer, then a scatter-max of packed colors writes every sample that won
 its pixel.  The packed color (hit bit at bit 30, RGB below) fits int32.
+On CUDA tensors (`kernels.kernel_choice`) the sprites and the scatters
+are the CUDA kernel pair of `kernels/splat.py`, which draws the same
+pixels; the plain passes below (`sprite_passes`, `draw_passes`), composed
+by `kernels.splat.splat_frame_plain`, are its plain version and serve CPU
+tensors.
 
 The arithmetic is that of the JAX package's jitted frame on XLA:CPU, so
 the two packages draw the same pixels: the projection's product with the
@@ -34,12 +39,15 @@ import numpy as np
 import torch
 
 from tpu_fluid_torch.core.config import FluidConfig
+from tpu_fluid_torch.kernels import kernel_choice
 from tpu_fluid_torch.ops.indexing import float_to_index
 from tpu_fluid_torch.ops.rounding import fma
 from tpu_fluid_torch.utils import profiling
 
 INF_DEPTH = 3.4e38
 HIT = 1 << 30
+# a sample wins its pixel within this relative distance of the nearest
+DEPTH_TOL = 1e-6
 
 
 def _f32(values, device) -> torch.Tensor:
@@ -80,7 +88,7 @@ def splat_depth(depth_buf, px, py, depth, valid, width, height):
 
 
 def splat_color(color_buf, depth_buf, px, py, depth, color, valid,
-                width, height, tol=1e-6):
+                width, height, tol=DEPTH_TOL):
     """Write color where this sample's depth equals the depth-buffer
     winner."""
     idx, ok = _flat(px, py, width, height, valid)
@@ -155,117 +163,160 @@ def render_particles_and_surface(positions, active, tris, tri_normals,
         w, h = width, height
         device = positions.device
         mvp = _f32(mvp, device)
-        depth = torch.full((w * h,), INF_DEPTH, dtype=torch.float32,
-                           device=device)
-        color = torch.zeros((w * h,), dtype=torch.int32, device=device)
-
         passes = []  # (px, py, depth, valid, color_rgb)
-
-        # --- surface samples ----------------------------------------------
         if tris is not None:
             part("splat.surface_lattice")
-            light = np.asarray(cfg.render_light_direction, dtype=np.float32)
-            light = _f32(light / np.linalg.norm(light), device)
-            # tri_normals @ light by fused multiply-adds, as XLA:CPU's dot
-            dot = tri_normals[:, 0] * light[0]
-            for k in (1, 2):
-                dot = fma(tri_normals[:, k], light[k], dot)
-            lam = torch.clamp(-dot, min=0.0)
-            amb = _f32(cfg.render_surface_ambient_color, device)
-            dif = _f32(cfg.render_surface_diffuse_color, device)
-            # a colour a triangle, (T, 3)
-            tri_color = fma(lam[:, None], dif[None, :], amb[None, :])
+            passes = surface_passes(tris, tri_normals, tri_valid, mvp, cfg,
+                                    w, h, surface_subdiv, fine_tri_budget)
 
-            # per-triangle projected extent (px): max abs vertex-pair delta
-            # over the FRONT vertices only, so partially-clipped
-            # near-camera triangles still refine
-            vx, vy, _, vfront = project(mvp, tris.reshape(-1, 3), w, h)
-            vx = vx.reshape(-1, 3)
-            vy = vy.reshape(-1, 3)
-            vfront = vfront.reshape(-1, 3)
-            big = 1e9
-            ext = torch.maximum(
-                torch.where(vfront, vx, -big).amax(1)
-                - torch.where(vfront, vx, big).amin(1),
-                torch.where(vfront, vy, -big).amax(1)
-                - torch.where(vfront, vy, big).amin(1))
-            ext = torch.where(tri_valid & vfront.any(1), ext, 0.0)
-
-            def lattice_pass(sel_tris, sel_colors, sel_valid, subdiv):
-                # only the valid triangles are sampled: an invalid sample
-                # scatters INF_DEPTH and 0 onto pixel 0, which changes
-                # nothing, so the frame is the one JAX's fixed shapes give
-                keep = torch.nonzero(sel_valid).reshape(-1)
-                bary = _f32(_bary_lattice(subdiv), device)
-                pts = _lattice_points(bary, sel_tris[keep])
-                px, py, d, front = project(mvp, pts.reshape(-1, 3), w, h)
-                col = torch.repeat_interleave(sel_colors[keep],
-                                              bary.shape[0], dim=0)
-                passes.append((px, py, d, front, col))
-
-            # base lattice: hole-free for triangles up to ~subdiv px
-            lattice_pass(tris, tri_color, tri_valid, surface_subdiv)
-
-            # adaptive refinement: the triangles that project larger,
-            # largest first, re-sampled through finer lattices
-            for threshold, budget, subdiv in (
-                    (float(surface_subdiv), fine_tri_budget, 10),
-                    (10.0, max(1, fine_tri_budget // 4), 24)):
-                ext_masked = torch.where(tri_valid & (ext > threshold), ext,
-                                         -1.0)
-                vals, ids = top_extents(ext_masked,
-                                        min(budget, ext_masked.shape[0]))
-                lattice_pass(tris[ids], tri_color[ids], vals > 0.0, subdiv)
-
-        # --- particles ----------------------------------------------------
-        part("splat.sprites")
-        px, py, d, front = project(mvp, positions, w, h)
-        pcol = _f32(cfg.particle_render_color, device).expand(
-            positions.shape[0], 3)
-        if particle_radius is None:
-            # reference point size: min(base/w, max) px on a 1400px
-            # viewport, interpreted as the sprite diameter (frag discards
-            # outside the radius-0.5 point coord circle,
-            # render.frag:20-26)
-            size_px = torch.clamp(
-                torch.full_like(d, cfg.particle_render_size)
-                / torch.clamp(d, min=1e-6),
-                max=cfg.particle_render_max_size)
-            r_px = torch.clamp(
-                0.5 * size_px * (min(w, h) / REFERENCE_VIEWPORT), 0.0,
-                float(max_sprite_radius))
-            rmax = max_sprite_radius
+        from tpu_fluid_torch.kernels.splat import (splat_frame_cuda,
+                                                   splat_frame_plain)
+        if kernel_choice(cfg, device):
+            part("splat.scatter")
+            img = splat_frame_cuda(
+                positions, active, mvp.contiguous(), passes, cfg, w, h,
+                particle_radius=particle_radius,
+                max_sprite_radius=max_sprite_radius)
+            part()
         else:
-            r_px = torch.full_like(d, float(particle_radius))
-            rmax = particle_radius
-        r = torch.clamp(r_px, min=0.5)      # center pixel always lit
-        r2 = r * r
-        for dx in range(-rmax, rmax + 1):
-            for dy in range(-rmax, rmax + 1):
-                if dx * dx + dy * dy > rmax * rmax:
-                    continue  # never inside any sprite's circle
-                if dx == 0 and dy == 0:
-                    passes.append((px, py, d, active & front, pcol))
-                    continue
-                lit = (dx * dx + dy * dy) <= r2
-                passes.append((px + dx, py + dy, d, active & front & lit,
-                               pcol))
-
-        part("splat.scatter")
-        for (ppx, ppy, pd, pv, _) in passes:
-            depth = splat_depth(depth, ppx, ppy, pd, pv, w, h)
-        for (ppx, ppy, pd, pv, pc) in passes:
-            color = splat_color(color, depth, ppx, ppy, pd, pc, pv, w, h)
-
-        bg = torch.as_tensor(
-            (np.asarray(cfg.background_color) * 255).astype(np.uint8),
-            device=device)
-        rgb = torch.stack([(color >> 16) & 0xFF, (color >> 8) & 0xFF,
-                           color & 0xFF], dim=-1).to(torch.uint8)
-        hit = ((color >> 30) & 1) == 1
-        img = torch.where(hit[:, None], rgb, bg[None, :]).reshape(h, w, 3)
-        part()
+            # its own spans: splat.sprites, splat.scatter
+            part()
+            img = splat_frame_plain(
+                positions, active, mvp, passes, cfg, w, h,
+                particle_radius=particle_radius,
+                max_sprite_radius=max_sprite_radius)
         return img
+
+
+def surface_passes(tris, tri_normals, tri_valid, mvp, cfg: FluidConfig,
+                   width: int, height: int, surface_subdiv: int = 4,
+                   fine_tri_budget: int = 65536) -> list:
+    """The surface's sample passes (px, py, depth, front, color): the
+    base lattice of every valid triangle, then the two finer lattices of
+    the largest (`render_particles_and_surface`)."""
+    w, h = width, height
+    device = mvp.device
+    passes = []
+    light = np.asarray(cfg.render_light_direction, dtype=np.float32)
+    light = _f32(light / np.linalg.norm(light), device)
+    # tri_normals @ light by fused multiply-adds, as XLA:CPU's dot
+    dot = tri_normals[:, 0] * light[0]
+    for k in (1, 2):
+        dot = fma(tri_normals[:, k], light[k], dot)
+    lam = torch.clamp(-dot, min=0.0)
+    amb = _f32(cfg.render_surface_ambient_color, device)
+    dif = _f32(cfg.render_surface_diffuse_color, device)
+    # a colour a triangle, (T, 3)
+    tri_color = fma(lam[:, None], dif[None, :], amb[None, :])
+
+    # per-triangle projected extent (px): max abs vertex-pair delta
+    # over the FRONT vertices only, so partially-clipped
+    # near-camera triangles still refine
+    vx, vy, _, vfront = project(mvp, tris.reshape(-1, 3), w, h)
+    vx = vx.reshape(-1, 3)
+    vy = vy.reshape(-1, 3)
+    vfront = vfront.reshape(-1, 3)
+    big = 1e9
+    ext = torch.maximum(
+        torch.where(vfront, vx, -big).amax(1)
+        - torch.where(vfront, vx, big).amin(1),
+        torch.where(vfront, vy, -big).amax(1)
+        - torch.where(vfront, vy, big).amin(1))
+    ext = torch.where(tri_valid & vfront.any(1), ext, 0.0)
+
+    def lattice_pass(sel_tris, sel_colors, sel_valid, subdiv):
+        # only the valid triangles are sampled: an invalid sample
+        # scatters INF_DEPTH and 0 onto pixel 0, which changes
+        # nothing, so the frame is the one JAX's fixed shapes give
+        keep = torch.nonzero(sel_valid).reshape(-1)
+        bary = _f32(_bary_lattice(subdiv), device)
+        pts = _lattice_points(bary, sel_tris[keep])
+        px, py, d, front = project(mvp, pts.reshape(-1, 3), w, h)
+        col = torch.repeat_interleave(sel_colors[keep],
+                                      bary.shape[0], dim=0)
+        passes.append((px, py, d, front, col))
+
+    # base lattice: hole-free for triangles up to ~subdiv px
+    lattice_pass(tris, tri_color, tri_valid, surface_subdiv)
+
+    # adaptive refinement: the triangles that project larger,
+    # largest first, re-sampled through finer lattices
+    for threshold, budget, subdiv in (
+            (float(surface_subdiv), fine_tri_budget, 10),
+            (10.0, max(1, fine_tri_budget // 4), 24)):
+        ext_masked = torch.where(tri_valid & (ext > threshold), ext,
+                                 -1.0)
+        vals, ids = top_extents(ext_masked,
+                                min(budget, ext_masked.shape[0]))
+        lattice_pass(tris[ids], tri_color[ids], vals > 0.0, subdiv)
+    return passes
+
+
+def sprite_passes(positions, active, mvp, cfg: FluidConfig, width: int,
+                  height: int, particle_radius: int | None = None,
+                  max_sprite_radius: int = 3) -> list:
+    """The particles' sample passes (px, py, depth, valid, color), one a
+    sprite offset: `render_particles_and_surface`'s sprites."""
+    w, h = width, height
+    px, py, d, front = project(mvp, positions, w, h)
+    pcol = _f32(cfg.particle_render_color, positions.device).expand(
+        positions.shape[0], 3)
+    if particle_radius is None:
+        # reference point size: min(base/w, max) px on a 1400px
+        # viewport, interpreted as the sprite diameter (frag discards
+        # outside the radius-0.5 point coord circle,
+        # render.frag:20-26)
+        size_px = torch.clamp(
+            torch.full_like(d, cfg.particle_render_size)
+            / torch.clamp(d, min=1e-6),
+            max=cfg.particle_render_max_size)
+        r_px = torch.clamp(
+            0.5 * size_px * (min(w, h) / REFERENCE_VIEWPORT), 0.0,
+            float(max_sprite_radius))
+        rmax = max_sprite_radius
+    else:
+        r_px = torch.full_like(d, float(particle_radius))
+        rmax = particle_radius
+    r = torch.clamp(r_px, min=0.5)      # center pixel always lit
+    r2 = r * r
+    passes = []
+    for dx in range(-rmax, rmax + 1):
+        for dy in range(-rmax, rmax + 1):
+            if dx * dx + dy * dy > rmax * rmax:
+                continue  # never inside any sprite's circle
+            if dx == 0 and dy == 0:
+                passes.append((px, py, d, active & front, pcol))
+                continue
+            lit = (dx * dx + dy * dy) <= r2
+            passes.append((px + dx, py + dy, d, active & front & lit,
+                           pcol))
+    return passes
+
+
+def background(cfg: FluidConfig) -> np.ndarray:
+    """The background colour, (3,) uint8."""
+    return (np.asarray(cfg.background_color) * 255).astype(np.uint8)
+
+
+def draw_passes(passes, width: int, height: int, cfg: FluidConfig,
+                device) -> torch.Tensor:
+    """The (H, W, 3) uint8 image on `device` of sample passes (px, py,
+    depth, valid, color): a scatter-min of depth and a scatter-max of
+    packed colour a pass, then the hit pixels' colour over the
+    background."""
+    w, h = width, height
+    depth = torch.full((w * h,), INF_DEPTH, dtype=torch.float32,
+                       device=device)
+    color = torch.zeros((w * h,), dtype=torch.int32, device=device)
+    for (ppx, ppy, pd, pv, _) in passes:
+        depth = splat_depth(depth, ppx, ppy, pd, pv, w, h)
+    for (ppx, ppy, pd, pv, pc) in passes:
+        color = splat_color(color, depth, ppx, ppy, pd, pc, pv, w, h)
+    bg = torch.as_tensor(background(cfg), device=device)
+    rgb = torch.stack([(color >> 16) & 0xFF, (color >> 8) & 0xFF,
+                       color & 0xFF], dim=-1).to(torch.uint8)
+    hit = ((color >> 30) & 1) == 1
+    return torch.where(hit[:, None], rgb, bg[None, :]).reshape(h, w, 3)
 
 
 # The JAX package's public entry point is the jitted whole-frame render; the
