@@ -29,6 +29,18 @@ The numbers:
 
 LIMITS holds each number's limit; `PERF.md` gives the readings each was
 set from.
+
+The reference is the configuration's (`manifest.Cell.reference`, the module
+`fluid_bench/reference/<name>.py`; `step` where the configuration names
+none), handed to `judge` and `control`.  A new reference is a new file
+there and a `"reference"` key in the configuration file.  One that sets
+`SHARDED = True` is called on every rank of a multi-card cell with the
+rank's process group (`group=`) and only that rank's part of each sample:
+the seeded state's part is `part(initial(..., x_range=<the rank's
+slab>), scene, group)`, and `window_mismatch` then holds the step
+counter, the dropped counter and the number of active particles summed
+over the ranks (particles may change ranks).  Any other reference judges
+a multi-card cell's samples gathered whole on rank 0 (`fluid_bench/ranks.py`).
 """
 
 from __future__ import annotations
@@ -38,7 +50,7 @@ import torch
 
 from fluid_bench.reference import frame as ref_frame
 from fluid_bench.reference import step as ref_step
-from fluid_bench.state import initial
+from fluid_bench.state import initial, slab
 
 LIMITS = {
     "state_gap": 1e-5,
@@ -53,16 +65,16 @@ def _to(state: dict, device) -> dict:
     return {k: v.to(device) for k, v in state.items()}
 
 
-def state_numbers(out: dict, ref: dict) -> tuple:
+def state_numbers(out: dict, ref: dict, reference=ref_step) -> tuple:
     """(state_gap, state_mismatch) of a program state against the
     reference's."""
     gap, mismatch = 0.0, 0
-    for k in ref_step.FIELDS:
+    for k in reference.FIELDS:
         a, b = out[k], ref[k]
         if a.shape != b.shape:
             mismatch += max(a.numel(), b.numel())
             continue
-        if k in ref_step.FLOAT_FIELDS:
+        if k in reference.FLOAT_FIELDS:
             a, b = a.float(), b.float()
             fa, fb = torch.isfinite(a), torch.isfinite(b)
             both_nan = torch.isnan(a) & torch.isnan(b)
@@ -99,37 +111,79 @@ def mesh_numbers(mesh, ref_mesh) -> int:
     return int((valid != rvalid).sum()) + int((both & differ).sum())
 
 
+def sharded_window_numbers(out: dict, steps: int, seeded: dict,
+                           group) -> int:
+    """window_mismatch of one rank's part of a sample's output state: the
+    step counter, the dropped counter, and the active particles of every
+    rank against the seeded state's."""
+    import torch.distributed as dist
+    active = out["active"].sum(dtype=torch.int64).reshape(1)
+    dist.all_reduce(active, group=group)
+    return (abs(int(out["step"]) - steps)
+            + abs(int(active) - seeded["count"])
+            + int((out["dropped"] != seeded["dropped"]).sum()))
+
+
+def _seeded(fields: dict, seed: int, device, reference, scene, group):
+    """The seeded state both sides were given, whole, or this rank's part
+    of it where the reference is sharded; and what `window_mismatch`
+    compares with."""
+    if group is None:
+        inp = initial(fields, seed, device)
+        return inp, {k: inp[k] for k in ("active", "dropped")}
+    import torch.distributed as dist
+    x_range = slab(fields, dist.get_rank(group), dist.get_world_size(group))
+    whole = initial(fields, seed, device, x_range=x_range)
+    seeded = {"count": int(whole["active"].sum()),
+              "dropped": whole["dropped"]}
+    return reference.part(whole, scene, group), seeded
+
+
 def judge(samples: list, fields: dict, traffic: dict, device,
-          substitute=None) -> dict:
+          substitute=None, reference=ref_step, group=None) -> dict:
     """The numbers over every sample.  `substitute(input state)`, where
     given, stands in the program's place (the control): its state, and the
-    reference's frame of its state, are judged instead of the program's."""
-    scene = ref_step.Scene(fields)
+    reference's frame of its state, are judged instead of the program's.
+    `group`, for a `SHARDED` reference only, is this rank's process
+    group: the samples are then this rank's parts.  `bad` flags each
+    failed sample in order."""
+    sharded = getattr(reference, "SHARDED", False)
+    if sharded != (group is not None):
+        raise ValueError("a SHARDED reference judges with its group, any "
+                         "other without one")
+    scene = reference.Scene(fields)
     view = traffic["loop"] == "view"
     numbers = {"state_gap": 0.0, "state_mismatch": 0}
     if view:
         numbers.update(frame_pixels=0, mesh_mismatch=0)
     numbers["window_mismatch"] = 0
-    failed = 0
+    bad = []
     seeded = None
     for sample in samples:
         if sample["input"] is None:
             # the start: the seeded state both sides were given
-            inp = initial(fields, sample["seed"], device)
-            seeded = {k: inp[k] for k in ("active", "dropped")}
+            inp, seeded = _seeded(fields, sample["seed"], device,
+                                  reference, scene, group)
         else:
             inp = _to(sample["input"], device)
-        ref = ref_step.step(inp, scene)
+        if sharded:
+            ref = reference.step(inp, scene, group=group)
+        else:
+            ref = reference.step(inp, scene)
         if substitute is None:
             out = _to(sample["output"], device)
         else:
-            out = {k: (v.float() if k in ref_step.FLOAT_FIELDS else v)
+            out = {k: (v.float() if k in reference.FLOAT_FIELDS else v)
                    for k, v in substitute(inp).items()}
-        gap, mismatch = state_numbers(out, ref)
-        drift = window_numbers(out, sample["steps"], seeded)
-        bad = (gap > LIMITS["state_gap"]
-               or mismatch > LIMITS["state_mismatch"]
-               or drift > LIMITS["window_mismatch"])
+        gap, mismatch = state_numbers(out, ref, reference)
+        if sharded:
+            drift = sharded_window_numbers(out, sample["steps"], seeded,
+                                           group)
+        else:
+            drift = window_numbers(out, sample["steps"], seeded)
+        failed = (gap > LIMITS["state_gap"]
+                  or mismatch > LIMITS["state_mismatch"]
+                  or drift > LIMITS["window_mismatch"])
         numbers["state_gap"] = max(numbers["state_gap"], gap)
         numbers["state_mismatch"] += mismatch
         numbers["window_mismatch"] += drift
@@ -143,18 +197,39 @@ def judge(samples: list, fields: dict, traffic: dict, device,
                 prog_img, prog_mesh = ref_frame.frame(out, fields, w, h)
             pixels = int((prog_img.to(img.device) != img).any(-1).sum())
             meshes = mesh_numbers(prog_mesh, mesh)
-            bad = (bad or pixels > LIMITS["frame_pixels"]
-                   or meshes > LIMITS["mesh_mismatch"])
+            failed = (failed or pixels > LIMITS["frame_pixels"]
+                      or meshes > LIMITS["mesh_mismatch"])
             numbers["frame_pixels"] += pixels
             numbers["mesh_mismatch"] += meshes
-        failed += int(bad)
+        bad.append(bool(failed))
         del inp, ref, out
-    return {"numbers": numbers, "failed": failed,
-            "correct": failed == 0 and len(samples) > 0}
+    return {"numbers": numbers, "failed": sum(bad), "bad": bad,
+            "correct": not any(bad) and len(samples) > 0}
 
 
-def control(fields: dict):
+def merge_verdicts(verdicts: list) -> dict:
+    """Several ranks' verdicts on the same samples as one: `state_gap` the
+    widest over the ranks, every count summed, a sample failed where it
+    failed on any rank."""
+    numbers = {}
+    for v in verdicts:
+        for k, x in v["numbers"].items():
+            if k not in numbers:
+                numbers[k] = x
+            elif k == "state_gap":
+                numbers[k] = max(numbers[k], x)
+            else:
+                numbers[k] += x
+    bad = [any(flags) for flags in zip(*(v["bad"] for v in verdicts))]
+    return {"numbers": numbers, "failed": sum(bad), "bad": bad,
+            "correct": bool(verdicts) and not any(bad)}
+
+
+def control(fields: dict, reference=ref_step, group=None):
     """The control: the reference put in the program's place, computed in
     bfloat16, the next precision below the configuration's float32."""
-    scene = ref_step.Scene(fields)
-    return lambda inp: ref_step.step(inp, scene, dtype=torch.bfloat16)
+    scene = reference.Scene(fields)
+    if group is not None:
+        return lambda inp: reference.step(inp, scene, dtype=torch.bfloat16,
+                                          group=group)
+    return lambda inp: reference.step(inp, scene, dtype=torch.bfloat16)

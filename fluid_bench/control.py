@@ -7,8 +7,10 @@ For each seed, one short run of the cell (set-up and a window of
 `--seconds`), then the check's numbers twice: for the program's samples
 (the lower readings: sound runs of the program), and, on the first
 `--control-seeds` seeds, for the control put in the program's place (the
-reference in bfloat16, `check.control`; the upper readings).  One JSON
-line a seed.  The benchmark's own runs never run the control.
+configuration's reference in bfloat16, `check.control`; the upper
+readings).  A multi-card cell runs its ranks as a run does
+(`fluid_bench/ranks.py`), each judging as there.  One JSON line a seed.
+The benchmark's own runs never run the control.
 """
 
 from __future__ import annotations
@@ -27,22 +29,42 @@ def readings(root, name: str, seed: int, seconds: float, control: bool,
 
     from fluid_bench import check, loop
     from fluid_bench.manifest import Manifest
-    from tpu_fluid_torch.solver import graph
 
-    cell = Manifest(root).cell(name)
+    manifest = Manifest(root)
+    cell = manifest.cell(name)
     fields = cell.config["fields"]
     device = torch.device(device)
+    if cell.chips > 1:
+        return _rank_readings(root, name, seed, seconds, control, device)
+    from tpu_fluid_torch.solver import graph
+    reference = manifest.reference(cell.reference)
     window = loop.run(cell.traffic, fields, seed, seconds, False, device,
-                      time.perf_counter())
+                      time.perf_counter(), root=root)
     graph.clear_graphs()
     if device.type == "cuda":
         torch.cuda.empty_cache()
     out = {"seed": seed, "attempted": window.count,
            "program": check.judge(window.samples, fields, cell.traffic,
-                                  device)}
+                                  device, reference=reference)}
     if control:
-        out["control"] = check.judge(window.samples, fields, cell.traffic,
-                                     device, substitute=check.control(fields))
+        out["control"] = check.judge(
+            window.samples, fields, cell.traffic, device,
+            substitute=check.control(fields, reference),
+            reference=reference)
+    return out
+
+
+def _rank_readings(root, name, seed, seconds, control, device) -> dict:
+    """A multi-card cell's readings: each rank judges as in a run
+    (`ranks.judge`), the control too where asked, merged as a run's."""
+    from fluid_bench import check, ranks
+    payloads = ranks.run(root, name, seed, seconds, False, device.type,
+                         time.perf_counter(), control=control)
+    out = {"seed": seed, "attempted": [p["attempted"] for p in payloads]}
+    for side, key in (("program", "verdict"), ("control", "control")):
+        if side == "program" or control:
+            out[side] = check.merge_verdicts(
+                [p[key] for p in payloads if p[key] is not None])
     return out
 
 

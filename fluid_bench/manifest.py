@@ -1,10 +1,19 @@
 """`BENCHMARK.json` and the files it names, found by name.
 
 A cell names a configuration (its file, `configs[].file`) and a traffic
-mix (`fluid_bench/traffic/<traffic>.json`); a per-layer metric is read by
+mix (`fluid_bench/traffic/<traffic>.json`).  The mix's `loop` is the module
+`fluid_bench/loops/<loop>.py` that drives it; the configuration file's
+optional `reference` is the module `fluid_bench/reference/<name>.py` that
+judges it (`step` where it names none); a per-layer metric is read by
 `fluid_bench/metrics/<name>.py`; a kernel family is
-`fluid_bench/kernels/<family>.py`.  Adding a cell, mix, configuration,
-metric or family adds files and entries and edits none.
+`fluid_bench/kernels/<family>.py`.  A name with no file is refused when the
+cell is read, naming the file looked for.
+
+So a new cell, mix, loop, configuration, reference, metric or family adds
+files and entries and edits none.  A cell with `"chips": n > 1` runs one
+rank a card (`fluid_bench/ranks.py`) under a loop that sets
+`MULTI_CARD = True`, such as `spmd_stream`; a configuration whose reference
+sets `SHARDED = True` is judged on every rank from that rank's part.
 """
 
 from __future__ import annotations
@@ -15,6 +24,7 @@ import json
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
+DEFAULT_REFERENCE = "step"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,6 +36,7 @@ class Cell:
     chips: int
     end_to_end: tuple     # the manifest's metric entries this cell reports
     per_layer: tuple
+    reference: str = DEFAULT_REFERENCE   # fluid_bench/reference/<name>.py
 
 
 class Manifest:
@@ -45,13 +56,19 @@ class Manifest:
         config = json.loads(
             (self.root / self.configs[w["config"]]["file"]).read_text())
         traffic = json.loads(self.traffic_path(w["traffic"]).read_text())
+        reference = config.get("reference", DEFAULT_REFERENCE)
+        _existing(loop_path(traffic["loop"], self.root), "traffic loop",
+                  traffic["loop"])
+        _existing(reference_path(reference, self.root), "reference",
+                  reference)
         return Cell(
             name=name, config=config, traffic=traffic,
             traffic_name=w["traffic"], chips=int(w["chips"]),
             end_to_end=tuple(m for m in self.bench["end_to_end"]
                              if self._reports(m, name)),
             per_layer=tuple(m for m in self.bench["per_layer"]
-                            if self._reports(m, name)))
+                            if self._reports(m, name)),
+            reference=reference)
 
     def traffic_path(self, traffic: str) -> Path:
         return self.root / "fluid_bench" / "traffic" / f"{traffic}.json"
@@ -59,9 +76,54 @@ class Manifest:
     def reader_path(self, metric: str) -> Path:
         return self.root / "fluid_bench" / "metrics" / f"{metric}.py"
 
+    def reader_module(self, metric: str):
+        """The module of a per-layer metric's reader: `read(run)`, and
+        optionally `merge(values)` over the ranks' values in rank order."""
+        return load(self.reader_path(metric),
+                    f"fluid_bench_metric_{metric}")
+
     def reader(self, metric: str):
         """The `read(run)` function of a per-layer metric's reader."""
-        return load(self.reader_path(metric), f"fluid_bench_metric_{metric}").read
+        return self.reader_module(metric).read
+
+    def reference(self, name: str):
+        """The reference module `name` of this checkout."""
+        return reference_module(name, self.root)
+
+
+def _base(root) -> Path:
+    return HERE if root is None else Path(root) / "fluid_bench"
+
+
+def loop_path(name: str, root=None) -> Path:
+    """The file of the traffic loop `name` (in this package where `root`,
+    the checkout, is None)."""
+    return _base(root) / "loops" / f"{name}.py"
+
+
+def reference_path(name: str, root=None) -> Path:
+    return _base(root) / "reference" / f"{name}.py"
+
+
+def _existing(path: Path, what: str, name: str) -> Path:
+    if not path.is_file():
+        raise FileNotFoundError(f"no {what} {name!r}: {path} does not "
+                                f"exist")
+    return path
+
+
+def loop_module(name: str, root=None):
+    """The traffic loop `name`: `run(...) -> loop.Window`."""
+    return load(_existing(loop_path(name, root), "traffic loop", name),
+                f"fluid_bench_loop_{name}")
+
+
+def reference_module(name: str, root=None):
+    """The reference `name`: `Scene(fields)`, `step(inp, scene, dtype)`,
+    `FIELDS`, `FLOAT_FIELDS`, and where `SHARDED` is true `part(state,
+    scene, group)` and a `group=` argument of `step`."""
+    return load(_existing(reference_path(name, root), "reference", name),
+                f"fluid_bench_reference_{name}")
 
 
 def load(path: Path, name: str):
@@ -76,5 +138,5 @@ def load(path: Path, name: str):
 def family(name: str, root: Path | None = None):
     """The kernel family `fluid_bench/kernels/<name>.py`: NAMES, the kernel
     names it matches in the trace, and bound(fields) -> (ms, by)."""
-    base = HERE if root is None else Path(root) / "fluid_bench"
-    return load(base / "kernels" / f"{name}.py", f"fluid_bench_family_{name}")
+    return load(_base(root) / "kernels" / f"{name}.py",
+                f"fluid_bench_family_{name}")

@@ -7,17 +7,41 @@ from the root of a checkout, on a machine with the chips the cell asks
 for.  The cell (`BENCHMARK.json`'s `workloads`) names a configuration and a
 traffic mix; the run makes the initial state from the seed, drives the
 program (`tpu_fluid_torch`) through set-up and a window of `--seconds`
-(`fluid_bench/loop.py`), checks what the window produced against the
-plain reference (`fluid_bench/check.py`), and prints one JSON line as the
-last line of standard output: `correct`, `attempted`, `failed`,
-`metrics` (the cell's end-to-end metrics with `--trace 0`, its per-layer
-metrics with `--trace 1`), `device`, with `--trace 1` `breakdown`, and
-last `checks`, each number compared beside its limit, which are also the
-last lines of standard error.
+(the mix's loop, `fluid_bench/loops/<loop>.py`, through
+`fluid_bench/loop.py`), checks what the window produced against the
+configuration's plain reference (`fluid_bench/check.py`), and prints one
+JSON line as the last line of standard output: `correct`, `attempted`,
+`failed`, `metrics` (the cell's end-to-end metrics with `--trace 0`, its
+per-layer metrics with `--trace 1`), `device`, with `--trace 1`
+`breakdown`, and last `checks`, each number compared beside its limit,
+which are also the last lines of standard error.
+
+A cell with `"chips": n > 1` runs one rank a card (`fluid_bench/ranks.py`)
+under a loop that sets `MULTI_CARD`; the ranks' numbers are merged into
+the one line (`merge`):
+
+  attempted          the same on every rank, or the run is not correct
+  the window         calls over the longest rank window, each call's time
+                     the longest rank's; the loop's `end_to_end(count,
+                     seconds, times)` turns them into its metrics
+                     (`steps_per_s`: calls / longest window; `step_ms_p95`:
+                     the 95th percentile of the per-call maximum)
+  setup_s            the last rank's: its window's start less the parent's
+                     first statement
+  checks             `state_gap` the widest over the ranks, the counts summed
+  failed             samples that failed on any rank
+  memory_peak_bytes  the fullest card's peak
+  busy_s, window_s   means over the ranks (so their ratio is the cards'
+                     mean busy share); each rank's pair in `device.ranks`
+  per-layer metrics  the reader's `merge(values)` over the ranks' values in
+                     rank order where it defines one, else their mean; a
+                     metric some rank did not read is left out
+  breakdown          rank 0's
 
 It exits non-zero and prints no result where no CUDA card is visible, or
-fewer than the cell asks for, or where JAX or the JAX package was loaded
-into the process.  Caches go to `.bench_cache/` in the checkout, Python's
+fewer than the cell asks for, where JAX or the JAX package was loaded
+into the process (or into a rank), or where a rank raised, died or did not
+answer in time.  Caches go to `.bench_cache/` in the checkout, Python's
 bytecode too where the installation keeps none beside torch's sources.
 """
 
@@ -108,7 +132,9 @@ class Run:
         ms = self.window.trace.kernel_ms_per_step(matcher(fam.NAMES))
         if ms is None:
             return None
-        return 100.0 * fam.bound(self.fields)[0] / ms
+        # a rank of a multi-card cell does its slab's share of the work
+        shards = getattr(self.window.mesh, "size", 1)
+        return 100.0 * fam.bound(self.fields)[0] / shards / ms
 
 
 def card_name(device) -> str:
@@ -131,11 +157,13 @@ def power_limit() -> str:
 
 def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
              device, t0: float, notes: list | None = None,
-             marks: list | None = None) -> dict:
+             marks: list | None = None, limit: float | None = None) -> dict:
     """One run of cell `name`: the result line as a dict.  A line on the
     window's times, and one on set-up's phases (from `marks`, the
     (phase, host clock at its end) of what came before, and then the
-    loop's own), are appended to `notes` where given."""
+    loop's own), are appended to `notes` where given.  A multi-card cell
+    runs its ranks on `device`'s type, each answering within `limit`
+    seconds (`ranks.LIMIT` where None)."""
     import torch
 
     from fluid_bench import check, loop
@@ -145,7 +173,23 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
     cell = manifest.cell(name)
     fields = cell.config["fields"]
     device = torch.device(device)
-    window = loop.run(cell.traffic, fields, seed, seconds, trace, device, t0)
+    if cell.chips > 1:
+        from fluid_bench import ranks
+        payloads = ranks.run(root, name, seed, seconds, trace, device.type,
+                             t0, limit=limit)
+        result = merge(payloads, cell, manifest, trace, root)
+        if notes is not None:
+            times = [max(ts) for ts in zip(*(p["times"] for p in payloads))]
+            notes.append(f"fluid_bench: window {spread(times)} (the "
+                         f"slowest of {cell.chips} ranks a call)")
+            marks = marks or [("start", t0)]
+            notes.append(f"fluid_bench: rank 0 "
+                         f"{setup_split(marks + payloads[0]['setup'])}")
+            notes.append("fluid_bench: peak bytes by card " + ", ".join(
+                str(p["memory_peak_bytes"]) for p in payloads))
+        return result
+    window = loop.run(cell.traffic, fields, seed, seconds, trace, device, t0,
+                      root=root)
 
     # the program's graphs and pools go before the reference runs; the
     # samples keep the states they hold
@@ -153,7 +197,8 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
     graph.clear_graphs()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    verdict = check.judge(window.samples, fields, cell.traffic, device)
+    verdict = check.judge(window.samples, fields, cell.traffic, device,
+                          reference=manifest.reference(cell.reference))
     window.samples = None
 
     dev = {"platform": "gpu" if device.type == "cuda" else "cpu",
@@ -185,6 +230,57 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
         notes.append(f"fluid_bench: window {spread(window.times)}")
         marks = marks or [("start", t0)]
         notes.append(f"fluid_bench: {setup_split(marks + window.setup)}")
+    return result
+
+
+def merge(payloads: list, cell, manifest, trace: bool, root: Path) -> dict:
+    """The result line of a multi-card run from its ranks' payloads, by
+    the rules of this module's docstring."""
+    from fluid_bench import check
+    from fluid_bench.manifest import loop_module
+    from fluid_bench.ranks import RankFailure
+    found = sorted({m for p in payloads for m in p["forbidden"]})
+    if found:
+        raise RankFailure(f"a rank loaded {', '.join(found)}")
+    attempted = {p["attempted"] for p in payloads}
+    verdict = check.merge_verdicts(
+        [p["verdict"] for p in payloads if p["verdict"] is not None])
+    kind = payloads[0]["kind"]
+    dev = {"platform": "cpu" if kind == "cpu" else "gpu", "kind": kind,
+           "count": len(payloads),
+           "memory_peak_bytes": max(p["memory_peak_bytes"]
+                                    for p in payloads)}
+    metrics = {}
+    if trace:
+        for m in cell.per_layer:
+            values = [p["per_layer"].get(m["name"]) for p in payloads]
+            if any(v is None for v in values):
+                continue
+            reader = manifest.reader_module(m["name"])
+            fold = getattr(reader, "merge", None)
+            value = fold(values) if fold else sum(values) / len(values)
+            metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+        pairs = [(p["busy_s"], p["window_s"]) for p in payloads]
+        if all(b is not None for b, _ in pairs):
+            dev["busy_s"] = sum(b for b, _ in pairs) / len(pairs)
+            dev["window_s"] = sum(w for _, w in pairs) / len(pairs)
+            dev["ranks"] = [list(pair) for pair in pairs]
+    else:
+        loop = loop_module(cell.traffic["loop"], root)
+        times = [max(ts) for ts in zip(*(p["times"] for p in payloads))]
+        values = loop.end_to_end(max(attempted),
+                                 max(p["seconds"] for p in payloads), times)
+        values["setup_s"] = max(p["setup_s"] for p in payloads)
+        for m in cell.end_to_end:
+            metrics[m["name"]] = {"value": values[m["name"]],
+                                  "unit": m["unit"]}
+    result = {"correct": verdict["correct"] and len(attempted) == 1,
+              "attempted": max(attempted), "failed": verdict["failed"],
+              "metrics": metrics, "device": dev}
+    if trace and payloads[0]["breakdown"] is not None:
+        result["breakdown"] = payloads[0]["breakdown"]
+    result["checks"] = {k: {"value": v, "limit": check.LIMITS[k]}
+                        for k, v in verdict["numbers"].items()}
     return result
 
 
@@ -233,8 +329,13 @@ def main(argv=None) -> int:
         return 2
     marks.append(("cell and card query", time.perf_counter()))
     notes = []
-    result = run_cell(ROOT, args.workload, args.seed, args.seconds,
-                      bool(args.trace), "cuda", T0, notes, marks)
+    from fluid_bench.ranks import RankFailure
+    try:
+        result = run_cell(ROOT, args.workload, args.seed, args.seconds,
+                          bool(args.trace), "cuda", T0, notes, marks)
+    except RankFailure as e:
+        print(f"fluid_bench: {e}", file=sys.stderr)
+        return 1
     found = forbidden_modules()
     if found:
         print(f"fluid_bench: the run loaded {', '.join(found)}",

@@ -7,13 +7,20 @@ inactive at the origin.  The velocity, the pressure-free grid fields and
 the counters start at zero, the cell types INACTIVE, and the detailed
 occupancy is that of the initial positions.  The same state is handed to
 the program and to the reference.
+
+The slab seed (`x_range`) builds only some x-planes of the grid fields,
+and of the detailed grid the planes `r * x0 ... r * x1` (r the detail
+resolution), with the occupancy of the particles inside them: bitwise the
+same planes of the whole state, which a rank of a multi-card cell need
+not build.  The particles, their flags and the counters stay whole.
 """
 
 from __future__ import annotations
 
 import torch
 
-from fluid_bench.reference.step import INACTIVE, Scene, occupancy
+from fluid_bench.reference.step import (INACTIVE, Scene, float_to_index,
+                                        occupancy)
 
 
 def generator(seed: int, device) -> torch.Generator:
@@ -50,12 +57,45 @@ def particles(fields: dict, seed: int, device):
     return pos, active
 
 
-def initial(fields: dict, seed: int, device) -> dict:
-    """The whole initial state, field name -> tensor on `device`."""
+def slab(fields: dict, rank: int, size: int) -> tuple:
+    """The grid x-planes (x0, x1) of shard `rank` of `size`."""
+    lx = fields["grid_size"][0] // size
+    return rank * lx, (rank + 1) * lx
+
+
+def slab_occupancy(positions, active, res, detailed_size, dx0):
+    """`occupancy` of the whole detailed grid, planes dx0 ... dx0 +
+    detailed_size[0] only: the same truncated index, its x taken from
+    dx0."""
+    dx, dy, dz = detailed_size
+    idx = float_to_index(torch.trunc(positions * float(res)))
+    x, y, z = idx[:, 0] - dx0, idx[:, 1], idx[:, 2]
+    inb = ((x >= 0) & (x < dx) & (y >= 0) & (y < dy) & (z >= 0) & (z < dz)
+           & active)
+    n = dx * dy * dz
+    flat = torch.where(inb, x * (dy * dz) + y * dz + z, n)
+    occ = torch.zeros(n + 1, dtype=torch.uint8, device=positions.device)
+    occ.index_fill_(0, flat, 1)
+    return occ[:n].reshape(dx, dy, dz)
+
+
+def initial(fields: dict, seed: int, device, x_range=None) -> dict:
+    """The whole initial state, field name -> tensor on `device`; with
+    `x_range` = (x0, x1) the grid fields' x-planes x0 ... x1 only."""
     scene = Scene(fields)
     gx, gy, gz = fields["grid_size"]
     dsize = scene.detailed_size
     pos, active = particles(fields, seed, device)
+    res = fields["surface_render_resolution"]
+    if x_range is None:
+        occ = occupancy(pos, active, res, dsize)
+    else:
+        x0, x1 = x_range
+        if not 0 <= x0 < x1 <= gx:
+            raise ValueError(f"x_range {x_range} outside the grid's {gx}")
+        gx = x1 - x0
+        dsize = (res * gx,) + tuple(dsize[1:])
+        occ = slab_occupancy(pos, active, res, dsize, res * x0)
     return {
         "velocity": torch.zeros((3, gx, gy, gz), dtype=torch.float32,
                                 device=device),
@@ -69,8 +109,7 @@ def initial(fields: dict, seed: int, device) -> dict:
                                     device=device),
         "positions": pos,
         "active": active,
-        "detailed_occ": occupancy(pos, active,
-                                  fields["surface_render_resolution"], dsize),
+        "detailed_occ": occ,
         "step": torch.zeros((), dtype=torch.int32, device=device),
         "dropped": torch.zeros((), dtype=torch.int32, device=device),
     }

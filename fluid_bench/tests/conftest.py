@@ -53,6 +53,42 @@ def tiny_root(tmp: Path, grid: int = 12, particles: int = 20000,
     return root
 
 
+def write(root, rel: str, text: str) -> None:
+    path = root / rel
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(text)
+
+
+def add_cell(root, name: str, traffic: str, chips: int = 1,
+             reference: str | None = None, loop_source: str | None = None,
+             mix: dict | None = None) -> None:
+    """Add cell `name` on a copy of the configuration `tiny` as new files
+    and entries only: the configuration file (naming `reference`), the
+    mix `traffic` (with its loop file where given), and the cell in every
+    list of metrics that names `tiny.stream`."""
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    config = json.loads((root / "fluid_bench/configs/tiny.json").read_text())
+    cname = name.split(".")[0]
+    config["name"] = cname
+    if reference is not None:
+        config["reference"] = reference
+    write(root, f"fluid_bench/configs/{cname}.json", json.dumps(config))
+    if loop_source is not None:
+        write(root, f"fluid_bench/loops/{traffic}.py", loop_source)
+    if mix is not None:
+        write(root, f"fluid_bench/traffic/{traffic}.json", json.dumps(mix))
+    bench["configs"].append({"name": cname, "source": "test",
+                             "file": f"fluid_bench/configs/{cname}.json",
+                             "reduced": [], "why": "test"})
+    bench["workloads"].append({"name": name, "config": cname,
+                               "traffic": traffic, "chips": chips,
+                               "why": "test"})
+    for metric in bench["end_to_end"] + bench["per_layer"]:
+        if "tiny.stream" in metric.get("workloads", ()):
+            metric["workloads"].append(name)
+    (root / "BENCHMARK.json").write_text(json.dumps(bench, indent=1))
+
+
 @pytest.fixture
 def tiny(tmp_path):
     return tiny_root(tmp_path)

@@ -3,21 +3,23 @@ cell finds its files by name."""
 
 from __future__ import annotations
 
-import hashlib
 import json
 import re
+import time
 
 import pytest
 
 from fluid_bench.manifest import Manifest
-from fluid_bench.tests.conftest import REPO, tiny_root
+from fluid_bench.run import run_cell
+from fluid_bench.tests.conftest import REPO, add_cell, tiny_root, write
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 LINE = re.compile(r"^[^\n\t]{1,200}$")
 BENCH = json.loads((REPO / "BENCHMARK.json").read_text())
 LOOP_METRICS = {"stream": {"steps_per_s", "step_ms_p95"},
-                "view": {"frames_per_s", "frame_ms_p95"}}
+                "view": {"frames_per_s", "frame_ms_p95"},
+                "spmd_stream": {"steps_per_s", "step_ms_p95"}}
 
 
 def test_top_level_keys():
@@ -103,27 +105,54 @@ def test_config_files_hold_what_is_run():
         assert c["file"].startswith("fluid_bench/")
 
 
-def _digest(root):
-    files = sorted(p for p in (root / "fluid_bench").rglob("*")
-                   if p.is_file() and "__pycache__" not in p.parts)
-    h = hashlib.sha256()
-    for p in files:
-        h.update(str(p.relative_to(root)).encode())
-        h.update(p.read_bytes())
-    return h.hexdigest()
+# a loop that wraps `stream` and marks that it ran
+MARKED_LOOP = '''
+from pathlib import Path
+
+from fluid_bench.manifest import loop_module
+
+
+def run(traffic, fields, seed, seconds, trace, device, t0, ranks=None):
+    (Path(__file__).parents[2] / "loop_ran").write_text(traffic["loop"])
+    return loop_module("stream").run(traffic, fields, seed, seconds, trace,
+                                     device, t0)
+'''
+
+# a reference that is `step`'s, and marks that it judged
+MARKED_REFERENCE = '''
+from pathlib import Path
+
+from fluid_bench.reference.step import FIELDS, FLOAT_FIELDS, Scene  # noqa
+from fluid_bench.reference.step import step as _step
+
+
+def step(inp, scene, dtype=None, **kw):
+    (Path(__file__).parents[2] / "reference_ran").write_text("step")
+    return _step(inp, scene) if dtype is None else _step(inp, scene, dtype)
+'''
 
 
 def test_a_fourth_cell_needs_only_new_files_and_entries(tmp_path):
+    """New cells, and a cell whose mix names a new loop file and whose
+    configuration names a new reference file, resolve and run after new
+    files and entries only; every file the repository has is as it was."""
     root = tiny_root(tmp_path)
-    copied = _digest(root)
+    add_cell(root, "marked.stream", "marked", reference="marked_ref",
+             loop_source=MARKED_LOOP, mix={"loop": "marked", "why": "test"})
+    write(root, "fluid_bench/reference/marked_ref.py", MARKED_REFERENCE)
     manifest = Manifest(root)
-    for name in ("tiny.stream", "tiny.view"):
+    for name in ("tiny.stream", "tiny.view", "marked.stream"):
         cell = manifest.cell(name)
-        assert cell.config["name"] == "tiny"
         assert {m["name"] for m in cell.per_layer}
-    # the copy's files other than the new ones are the repository's
-    for rel in ("fluid_bench/run.py", "fluid_bench/loop.py",
-                "fluid_bench/check.py", "fluid_bench/manifest.py",
-                "fluid_bench/traffic/stream.json"):
-        assert (root / rel).read_bytes() == (REPO / rel).read_bytes()
-    assert _digest(root) == copied
+    assert manifest.cell("tiny.stream").config["name"] == "tiny"
+    assert manifest.cell("tiny.stream").reference == "step"
+    assert manifest.cell("marked.stream").reference == "marked_ref"
+    r = run_cell(root, "marked.stream", 2 ** 31 + 3, 0.2, False, "cpu",
+                 time.perf_counter())
+    assert r["correct"] and r["failed"] == 0
+    assert (root / "loop_ran").read_text() == "marked"
+    assert (root / "reference_ran").read_text() == "step"
+    for path in (REPO / "fluid_bench").rglob("*"):
+        if path.is_file() and "__pycache__" not in path.parts:
+            rel = path.relative_to(REPO)
+            assert (root / rel).read_bytes() == path.read_bytes(), rel
