@@ -29,15 +29,16 @@ def readings(root, name: str, seed: int, seconds: float, control: bool,
 
     from fluid_bench import check, loop
     from fluid_bench.manifest import Manifest
+    from fluid_bench.run import judged_by
 
     manifest = Manifest(root)
     cell = manifest.cell(name)
     fields = cell.config["fields"]
+    reference = judged_by(manifest, cell)
     device = torch.device(device)
     if cell.chips > 1:
         return _rank_readings(root, name, seed, seconds, control, device)
     from tpu_fluid_torch.solver import graph
-    reference = manifest.reference(cell.reference)
     window = loop.run(cell.traffic, fields, seed, seconds, False, device,
                       time.perf_counter(), root=root)
     graph.clear_graphs()

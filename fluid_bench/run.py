@@ -39,9 +39,10 @@ the one line (`merge`):
   breakdown          rank 0's
 
 It exits non-zero and prints no result where no CUDA card is visible, or
-fewer than the cell asks for, where JAX or the JAX package was loaded
-into the process (or into a rank), or where a rank raised, died or did not
-answer in time.  Caches go to `.bench_cache/` in the checkout, Python's
+fewer than the cell asks for, where the cell's reference refuses its
+configuration (`judged_by`, asked before any set-up or rank), where JAX
+or the JAX package was loaded into the process (or into a rank), or where
+a rank raised, died or did not answer in time.  Caches go to `.bench_cache/` in the checkout, Python's
 bytecode too where the installation keeps none beside torch's sources.
 """
 
@@ -155,6 +156,26 @@ def power_limit() -> str:
         return "power limit not read"
 
 
+class Unjudged(ValueError):
+    """The cell's reference cannot judge its configuration."""
+
+
+def judged_by(manifest, cell):
+    """The cell's reference module, once its `Scene` has taken the
+    configuration; `Unjudged`, naming the option and the reference, where
+    it refuses it.  Asked before any set-up, so such a run ends in
+    seconds."""
+    reference = manifest.reference(cell.reference)
+    try:
+        reference.Scene(cell.config["fields"])
+    except ValueError as e:
+        raise Unjudged(
+            f"{cell.name}: the reference {cell.reference!r} "
+            f"(fluid_bench/reference/{cell.reference}.py) cannot judge the "
+            f"configuration: {e}") from None
+    return reference
+
+
 def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
              device, t0: float, notes: list | None = None,
              marks: list | None = None, limit: float | None = None) -> dict:
@@ -172,6 +193,7 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
     manifest = Manifest(root)
     cell = manifest.cell(name)
     fields = cell.config["fields"]
+    reference = judged_by(manifest, cell)
     device = torch.device(device)
     if cell.chips > 1:
         from fluid_bench import ranks
@@ -198,7 +220,7 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     verdict = check.judge(window.samples, fields, cell.traffic, device,
-                          reference=manifest.reference(cell.reference))
+                          reference=reference)
     window.samples = None
 
     dev = {"platform": "gpu" if device.type == "cuda" else "cpu",
@@ -333,7 +355,7 @@ def main(argv=None) -> int:
     try:
         result = run_cell(ROOT, args.workload, args.seed, args.seconds,
                           bool(args.trace), "cuda", T0, notes, marks)
-    except RankFailure as e:
+    except (RankFailure, Unjudged) as e:
         print(f"fluid_bench: {e}", file=sys.stderr)
         return 1
     found = forbidden_modules()

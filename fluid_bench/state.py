@@ -13,14 +13,19 @@ and of the detailed grid the planes `r * x0 ... r * x1` (r the detail
 resolution), with the occupancy of the particles inside them: bitwise the
 same planes of the whole state, which a rank of a multi-card cell need
 not build.  The particles, their flags and the counters stay whole.
+
+The seed reads sizes, never options: it seeds every configuration the
+program takes (domain-sharded particles, volume correction, the level set,
+the red-black solver, solid boxes), and the reference a configuration
+names (`check.py`) decides what can be judged.  `run.run_cell` asks that
+reference first, so a configuration it refuses ends before any set-up.
 """
 
 from __future__ import annotations
 
 import torch
 
-from fluid_bench.reference.step import (INACTIVE, Scene, float_to_index,
-                                        occupancy)
+from fluid_bench.reference.step import INACTIVE, float_to_index, occupancy
 
 
 def generator(seed: int, device) -> torch.Generator:
@@ -57,6 +62,17 @@ def particles(fields: dict, seed: int, device):
     return pos, active
 
 
+def detailed_size(fields: dict) -> tuple:
+    """The detailed grid's size: the grid's times the detail resolution."""
+    r = fields["surface_render_resolution"]
+    return tuple(s * r for s in fields["grid_size"])
+
+
+def inertia_dtype(fields: dict) -> torch.dtype:
+    """uint8 where every inertia value fits it, else int32."""
+    return torch.uint8 if 0 < fields["max_inertia"] <= 255 else torch.int32
+
+
 def slab(fields: dict, rank: int, size: int) -> tuple:
     """The grid x-planes (x0, x1) of shard `rank` of `size`."""
     lx = fields["grid_size"][0] // size
@@ -82,9 +98,8 @@ def slab_occupancy(positions, active, res, detailed_size, dx0):
 def initial(fields: dict, seed: int, device, x_range=None) -> dict:
     """The whole initial state, field name -> tensor on `device`; with
     `x_range` = (x0, x1) the grid fields' x-planes x0 ... x1 only."""
-    scene = Scene(fields)
     gx, gy, gz = fields["grid_size"]
-    dsize = scene.detailed_size
+    dsize = detailed_size(fields)
     pos, active = particles(fields, seed, device)
     res = fields["surface_render_resolution"]
     if x_range is None:
@@ -101,7 +116,7 @@ def initial(fields: dict, seed: int, device, x_range=None) -> dict:
                                 device=device),
         "cell_types": torch.full((gx, gy, gz), INACTIVE, dtype=torch.uint8,
                                  device=device),
-        "inertia": torch.zeros(dsize, dtype=scene.inertia_dtype,
+        "inertia": torch.zeros(dsize, dtype=inertia_dtype(fields),
                                device=device),
         "float_dens_1": torch.zeros(dsize, dtype=torch.float32,
                                     device=device),
