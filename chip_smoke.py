@@ -2734,24 +2734,30 @@ SPLAT_TIMED = 20
 SPLAT_PLAIN_TIMED = 3
 
 
-def splat_bytes(n_particles: int, n_lattice: int, w: int, h: int) -> int:
+def splat_bytes(n_particles: int, tables, w: int, h: int) -> int:
     """The frame's own bytes: positions and active flags (13 bytes a
-    particle) and the lattice samples (25 bytes) read once, the (h, w, 3)
-    image written.  The kernel pair moves about twice that (both kernels
-    read the inputs; two w*h int32 buffers), which the bound leaves out."""
-    return 13 * n_particles + 25 * n_lattice + 3 * w * h
+    particle), the mesh (36 bytes of vertices and 12 of normal a triangle
+    slot) and the lattice tables (a flag a slot, 8 bytes of id a refined
+    slot) read once, the (h, w, 3) image written.  The kernel pair moves
+    more (both kernels read the inputs; two w*h int32 buffers), which the
+    bound leaves out; the lattice samples are made in registers."""
+    slots = sum(valid.shape[0] * (1 + (0 if ids is None else 8))
+                for ids, valid, _ in tables)
+    mesh = 48 * tables[0][1].shape[0] if tables else 0
+    return 13 * n_particles + mesh + slots + 3 * w * h
 
 
 def splat_scene_inputs(sim, device, w: int, h: int) -> tuple:
-    """(positions, active, mvp, lattice) of `sim`'s frame at w x h: the
-    kernel's inputs, the lattice passes from the plain lattice code."""
-    from tpu_fluid_torch.render.splat import surface_passes
+    """(positions, active, mvp, tris, normals, tables) of `sim`'s frame at
+    w x h: the kernel's inputs, the lattice tables from the frame's own
+    sync-free selection (`surface_tables`)."""
+    from tpu_fluid_torch.render.splat import surface_tables
     mesh = sim.surface_mesh()
     mvp = torch.as_tensor(np.asarray(sim.camera.mvp(), np.float32),
                           device=device)
-    lattice = surface_passes(mesh.vertices, mesh.normals, mesh.valid, mvp,
-                             sim.cfg, w, h)
-    return sim.state.positions, sim.state.active, mvp, lattice
+    tables = surface_tables(mesh.vertices, mesh.valid, mvp, w, h)
+    return (sim.state.positions, sim.state.active, mvp, mesh.vertices,
+            mesh.normals, tables)
 
 
 def extreme_particles(sim, positions, active) -> tuple:
@@ -2783,16 +2789,20 @@ def splat_case(label: str, inputs, cfg, w: int, h: int, radius,
                card: str) -> dict:
     """The kernel pair against its plain version on the card at w x h,
     bitwise, also through the counting instantiation; its launches (the
-    wrapper's and the C counter's), ms and the plain version's ms beside
-    the bound, and the share of tested samples that reached an atomic."""
+    wrapper's and the C counter's), the lattice samples it generated
+    against the plain passes', ms and the plain version's ms (its lattice
+    passes made before the timing) beside the bound, and the share of
+    tested samples that reached an atomic."""
     from tpu_fluid_torch.kernels import build
     from tpu_fluid_torch.kernels.splat import (COUNTS, splat_frame_cuda,
                                                splat_frame_plain)
-    pos, act, mvp, lattice = inputs
+    from tpu_fluid_torch.render.splat import lattice_passes
+    pos, act, mvp, tris, normals, tables = inputs
+    lattice = lattice_passes(tris, normals, tables, mvp, cfg, w, h)
 
     def kernel(counts=None):
-        return splat_frame_cuda(pos, act, mvp, lattice, cfg, w, h,
-                                particle_radius=radius, counts=counts)
+        return splat_frame_cuda(pos, act, mvp, tris, normals, tables, cfg, w,
+                                h, particle_radius=radius, counts=counts)
 
     def plain():
         return splat_frame_plain(pos, act, mvp, lattice, cfg, w, h,
@@ -2818,17 +2828,19 @@ def splat_case(label: str, inputs, cfg, w: int, h: int, radius,
     ms = time_ms(kernel, SPLAT_TIMED)
     plain_ms = time_ms(plain, SPLAT_PLAIN_TIMED, warmup=1)
     n_lattice = sum(int(p[0].shape[0]) for p in lattice)
-    bound_ms = splat_bytes(pos.shape[0], n_lattice, w, h) / \
+    bound_ms = splat_bytes(pos.shape[0], tables, w, h) / \
         HBM_BYTES_PER_S * 1e3
     hit = float((want != torch.as_tensor(
         (np.asarray(cfg.background_color) * 255).astype(np.uint8),
         device=want.device)).any(-1).double().mean())
     print(f"[14 splat {label}] {w}x{h}, {pos.shape[0]} particles "
-          f"({int(act.sum())} active), {n_lattice} lattice samples, sprite "
-          f"radius {radius}: kernel frame bitwise equal to the plain frame "
-          f"{same} ({differ} pixels differ; tolerance 0), counted frame "
-          f"too; launches {launched[0]} wrapper, {launched[1]} kernels (C "
-          f"counter); kernel {ms!r} ms, plain {plain_ms!r} ms, bound "
+          f"({int(act.sum())} active), {n_lattice} lattice samples in the "
+          f"plain passes, sprite radius {radius}: kernel frame bitwise equal "
+          f"to the plain frame {same} ({differ} pixels differ; tolerance "
+          f"0), counted frame too; launches {launched[0]} wrapper, "
+          f"{launched[1]} kernels (C counter), lattice_samples "
+          f"{c['lattice_samples']} generated by the kernel; kernel {ms!r} "
+          f"ms, plain {plain_ms!r} ms, bound "
           f"{bound_ms!r} ms (bytes), {100 * bound_ms / ms!r}% of it; "
           f"{100 * hit!r}% of the pixels drawn; counts {c}; shares of "
           f"tested samples: depth atomics {shares['depth_atomic_share']!r}, "
@@ -2837,7 +2849,11 @@ def splat_case(label: str, inputs, cfg, w: int, h: int, radius,
     check(same, f"14 splat {label}: {differ} pixels differ")
     check(launched == (1, 4), f"14 splat {label}: launches {launched}, "
                               f"expected 1 wrapper call and 4 kernels")
+    check(c["lattice_samples"] == n_lattice,
+          f"14 splat {label}: the kernel generated {c['lattice_samples']} "
+          f"lattice samples, the plain passes hold {n_lattice}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "lattice_samples": c["lattice_samples"],
             "bound_by": "bytes", "max_abs_err": 0.0, "counts": c, **shares}
 
 

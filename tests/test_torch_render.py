@@ -14,6 +14,7 @@ import shutil
 
 import numpy as np
 import pytest
+import splat_cases
 import torch
 
 from tpu_fluid.core.config import FluidConfig as JaxConfig
@@ -23,6 +24,7 @@ from tpu_fluid.render.debug import render_cell_field as jax_cell_field
 from tpu_fluid.surface.marching_cubes import extract_surface as jax_extract
 from tpu_fluid_torch import native
 from tpu_fluid_torch.core.config import FluidConfig
+from tpu_fluid_torch.kernels.splat import splat_frame_plain
 from tpu_fluid_torch.render import camera as port_camera
 from tpu_fluid_torch.render import splat
 from tpu_fluid_torch.render.camera import Camera
@@ -167,6 +169,54 @@ def test_refinement_ties_match_jax():
         torch.from_numpy(normals), torch.from_numpy(valid), cam.mvp(),
         FluidConfig(**KW), 128, 128, fine_tri_budget=8)
     assert equal_share(got.numpy(), want) == 1.0
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and np.array_equal(a.contiguous().numpy().view(np.uint8),
+                               b.contiguous().numpy().view(np.uint8)))
+
+
+@pytest.mark.parametrize("case", sorted(splat_cases.SURFACES))
+def test_lattice_tables_then_expansion_are_surface_passes(case):
+    """The sync-free selection (`surface_tables`) followed by the plain
+    expansion (`lattice_passes`) is `surface_passes` bit for bit, and its
+    frame through `splat_frame_plain` is the CPU route's and JAX's jitted
+    frame, pixel for pixel: no valid triangle, every slot valid, a budget
+    cut among tied extents, vertices behind the camera, NaN normals, NaN
+    and infinite vertices."""
+    tris, normals, valid, cam, budget = splat_cases.surface(case)
+    w, h = splat_cases.SIZE
+    pos, act = splat_cases.particles()
+    mvp = torch.from_numpy(cam.mvp().astype(np.float32))
+    t, n, v = (torch.from_numpy(a) for a in (tris, normals, valid))
+    cfg = FluidConfig(**KW)
+    tables = splat.surface_tables(t, v, mvp, w, h, fine_tri_budget=budget)
+    assert [s for _, _, s in tables] == [4, 10, 24]
+    assert tables[0][0] is None and tables[0][1] is v
+    if case == "budget_ties":
+        # equal extents at the cut: the lower slots first
+        assert tables[1][0].tolist() == [0, 2, 3, 5]
+        assert tables[2][0].tolist() == [0]
+    got = splat.lattice_passes(t, n, tables, mvp, cfg, w, h)
+    want = splat.surface_passes(t, n, v, mvp, cfg, w, h,
+                                fine_tri_budget=budget)
+    assert len(got) == len(want) == 3
+    for g, ref in zip(got, want):
+        assert all(_same_bits(a, b) for a, b in zip(g, ref))
+    assert (sum(p[0].shape[0] for p in got) == 0) == (case == "no_valid")
+
+    frame = splat_frame_plain(torch.from_numpy(pos), torch.from_numpy(act),
+                              mvp, got, cfg, w, h)
+    route = render_particles_and_surface(
+        torch.from_numpy(pos), torch.from_numpy(act), t, n, v, mvp, cfg, w,
+        h, fine_tri_budget=budget)
+    assert torch.equal(frame, route)
+    jframe = jax_splat.render_particles_and_surface_jit(
+        jnp().asarray(pos), jnp().asarray(act), jnp().asarray(tris),
+        jnp().asarray(normals), jnp().asarray(valid), cam.mvp(),
+        cfg=JaxConfig(**KW), width=w, height=h, fine_tri_budget=budget)
+    assert equal_share(frame.numpy(), jframe) == 1.0
 
 
 @pytest.mark.parametrize("log_scale", [True, False])

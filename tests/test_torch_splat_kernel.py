@@ -2,7 +2,9 @@
 `csrc/splat.cu`): its route, its wrapper's checks, the footprint it walks,
 and the order-independence it leans on, on the CPU; on a CUDA card only
 (marked `cuda`; they skip without one), the kernel's frame against the
-plain version's, bitwise.
+plain version's, bitwise, with the lattices the kernel samples itself
+from the triangle tables counted against the plain passes, and no host
+sync in the frame's lattice and scatter spans.
 
 The kernel draws every sample of a frame in one stream, in no fixed order,
 by atomics.  Its plain counterpart is one scatter-min and one scatter-max
@@ -12,6 +14,7 @@ screen and NaN, infinite and huge coordinates."""
 
 import numpy as np
 import pytest
+import splat_cases
 import torch
 
 from tpu_fluid_torch.core.config import FluidConfig
@@ -22,6 +25,7 @@ from tpu_fluid_torch.kernels.splat import (COUNTS, footprint,
 from tpu_fluid_torch.render import splat
 from tpu_fluid_torch.render.camera import Camera
 from tpu_fluid_torch.surface.marching_cubes import extract_surface
+from tpu_fluid_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -56,14 +60,20 @@ def _particles(seed: int, n: int = 2000):
     return torch.from_numpy(pos), torch.from_numpy(act)
 
 
-def _scene(seed: int, w: int, h: int, surface: bool = True,
-           particle_radius=None):
+def _scene(seed: int, w: int, h: int, surface: bool = True):
+    """(positions, active, mvp, mesh, surface, lattice): `surface` the
+    kernel's (tris, normals, tables), `lattice` the plain passes of the
+    same tables; (None, None, []) and [] without the surface."""
     pos, act = _particles(seed)
     mvp = torch.from_numpy(CAMERA.mvp().astype(np.float32))
     mesh = _mesh()
-    lattice = (splat.surface_passes(mesh.vertices, mesh.normals, mesh.valid,
-                                    mvp, CFG, w, h) if surface else [])
-    return pos, act, mvp, mesh, lattice
+    if not surface:
+        return pos, act, mvp, mesh, (None, None, []), []
+    tables = splat.surface_tables(mesh.vertices, mesh.valid, mvp, w, h)
+    lattice = splat.lattice_passes(mesh.vertices, mesh.normals, tables, mvp,
+                                   CFG, w, h)
+    return pos, act, mvp, mesh, (mesh.vertices, mesh.normals, tables), \
+        lattice
 
 
 SCENES = [  # (seed, width, height, surface, particle_radius)
@@ -73,7 +83,7 @@ SCENES = [  # (seed, width, height, surface, particle_radius)
 
 # ------------------------------------------------------------------ route
 def test_render_on_cpu_takes_the_plain_path():
-    pos, act, mvp, mesh, _ = _scene(0, 64, 64)
+    pos, act, mvp, mesh, _, _ = _scene(0, 64, 64)
     before = splat_frame_cuda.launches
     got = splat.render_particles_and_surface(
         pos, act, mesh.vertices, mesh.normals, mesh.valid, mvp, CFG, 64, 64)
@@ -85,7 +95,7 @@ def test_render_on_cpu_takes_the_plain_path():
 
 
 def test_render_with_kernels_on_and_cpu_tensors_raises():
-    pos, act, mvp, mesh, _ = _scene(0, 32, 32)
+    pos, act, mvp, mesh, _, _ = _scene(0, 32, 32)
     with pytest.raises(RuntimeError):
         splat.render_particles_and_surface(
             pos, act, mesh.vertices, mesh.normals, mesh.valid, mvp,
@@ -95,9 +105,9 @@ def test_render_with_kernels_on_and_cpu_tensors_raises():
 @pytest.mark.parametrize("scene", range(len(SCENES)))
 def test_wrapper_on_cpu_runs_plain_version_without_launch(scene):
     seed, w, h, surface, radius = SCENES[scene]
-    pos, act, mvp, mesh, lattice = _scene(seed, w, h, surface)
+    pos, act, mvp, mesh, surf, lattice = _scene(seed, w, h, surface)
     before = splat_frame_cuda.launches
-    got = splat_frame_cuda(pos, act, mvp, lattice, CFG, w, h,
+    got = splat_frame_cuda(pos, act, mvp, *surf, CFG, w, h,
                            particle_radius=radius)
     want = splat_frame_plain(pos, act, mvp, lattice, CFG, w, h,
                              particle_radius=radius)
@@ -111,40 +121,50 @@ def test_wrapper_on_cpu_runs_plain_version_without_launch(scene):
 
 
 def _bad_calls():
-    pos, act, mvp, _, lattice = _scene(0, 32, 32)
+    pos, act, mvp, _, (tris, normals, tables), _ = _scene(0, 32, 32)
     meta = torch.device("meta")
-    px, py, d, front, col = lattice[0]
+    ids, valid, subdiv = tables[1]
+    surf = (tris, normals, tables)
 
-    def lat(k, t):
-        one = [px, py, d, front, col]
-        one[k] = t
-        return [tuple(one)] + lattice[1:]
+    def table(k, one):
+        return (tris, normals, tables[:k] + [one] + tables[k + 1:])
 
     return [
-        (TypeError, (pos.double(), act, mvp, lattice), {}),
-        (ValueError, (pos[:, :2].contiguous(), act, mvp, lattice), {}),
-        (ValueError, (pos.T.contiguous().T, act, mvp, lattice), {}),
-        (TypeError, (pos, act.to(torch.uint8), mvp, lattice), {}),
-        (ValueError, (pos, act[:-1], mvp, lattice), {}),
-        (ValueError, (pos, act.to(meta), mvp, lattice), {}),
-        (TypeError, (pos, act, mvp.double(), lattice), {}),
-        (ValueError, (pos, act, mvp[:3].contiguous(), lattice), {}),
-        (ValueError, (pos, act, mvp.T, lattice), {}),
-        (TypeError, (pos, act, mvp, lat(0, px.double())), {}),
-        (ValueError, (pos, act, mvp, lat(1, py[:-1])), {}),
-        (TypeError, (pos, act, mvp, lat(3, front.to(torch.uint8))), {}),
-        (ValueError, (pos, act, mvp, lat(4, col[:, :2])), {}),
-        (ValueError, (pos, act, mvp, lat(2, d.to(meta))), {}),
-        (ValueError, (pos, act, mvp, lat(0, px.repeat(2)[::2])), {}),
-        (ValueError, (pos, act, mvp, lattice + lattice[:1]), {}),
-        (ValueError, (pos, act, mvp, lattice), {"width": 0}),
-        (ValueError, (pos, act, mvp, lattice), {"height": 32.0}),
-        (ValueError, (pos, act, mvp, lattice),
+        (TypeError, (pos.double(), act, mvp, *surf), {}),
+        (ValueError, (pos[:, :2].contiguous(), act, mvp, *surf), {}),
+        (ValueError, (pos.T.contiguous().T, act, mvp, *surf), {}),
+        (TypeError, (pos, act.to(torch.uint8), mvp, *surf), {}),
+        (ValueError, (pos, act[:-1], mvp, *surf), {}),
+        (ValueError, (pos, act.to(meta), mvp, *surf), {}),
+        (TypeError, (pos, act, mvp.double(), *surf), {}),
+        (ValueError, (pos, act, mvp[:3].contiguous(), *surf), {}),
+        (ValueError, (pos, act, mvp.T, *surf), {}),
+        (TypeError, (pos, act, mvp, tris.double(), normals, tables), {}),
+        (ValueError, (pos, act, mvp,
+                      *table(0, (None, tables[0][1][:-1], 4))), {}),
+        (TypeError, (pos, act, mvp,
+                     *table(1, (ids, valid.to(torch.uint8), subdiv))), {}),
+        (ValueError, (pos, act, mvp, tris, normals[:, :2], tables), {}),
+        (ValueError, (pos, act, mvp,
+                      *table(1, (ids.to(meta), valid, subdiv))), {}),
+        (ValueError, (pos, act, mvp,
+                      *table(1, (ids, valid.repeat(2)[::2], subdiv))), {}),
+        (ValueError, (pos, act, mvp, tris, normals, tables + tables[:1]),
+         {}),
+        (ValueError, (pos, act, mvp, *surf), {"width": 0}),
+        (ValueError, (pos, act, mvp, *surf), {"height": 32.0}),
+        (ValueError, (pos, act, mvp, *surf),
          {"counts": torch.zeros(len(COUNTS), dtype=torch.int64)}),
+        (TypeError, (pos, act, mvp,
+                     *table(2, (ids.to(torch.int32), valid, 24))), {}),
+        (ValueError, (pos, act, mvp, *table(1, (ids, valid, 0))), {}),
+        (ValueError, (pos, act, mvp, tris[:, :2].contiguous(), normals,
+                      tables), {}),
+        (ValueError, (pos, act, mvp, None, None, tables), {}),
     ]
 
 
-N_BAD = 19
+N_BAD = 23
 
 
 def test_bad_calls_are_all_tried():
@@ -207,7 +227,7 @@ def _draw_one_stream(passes, w, h, order=None):
 @pytest.mark.parametrize("scene", range(len(SCENES)))
 def test_one_stream_frame_equals_per_pass_frame(scene):
     seed, w, h, surface, radius = SCENES[scene]
-    pos, act, mvp, _, lattice = _scene(seed, w, h, surface)
+    pos, act, mvp, _, _, lattice = _scene(seed, w, h, surface)
     passes = lattice + splat.sprite_passes(pos, act, mvp, CFG, w, h, radius)
     want = splat.draw_passes(passes, w, h, CFG, torch.device("cpu"))
     # the scene holds what the kernel has to get right
@@ -232,31 +252,90 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+def _kernel_and_plain(pos, act, mvp, tris, normals, tables, w, h,
+                      radius=None):
+    """The kernel's frame, the counting instantiation's frame and counts,
+    the plain frame of the same tables, and the plain passes' samples."""
+    lattice = ([] if tris is None else splat.lattice_passes(
+        tris, normals, tables, mvp, CFG, w, h))
+    before = splat_frame_cuda.launches
+    got = splat_frame_cuda(pos, act, mvp, tris, normals, tables, CFG, w, h,
+                           particle_radius=radius)
+    want = splat_frame_plain(pos, act, mvp, lattice, CFG, w, h,
+                             particle_radius=radius)
+    counts = torch.zeros(len(COUNTS), dtype=torch.int64, device=pos.device)
+    counted = splat_frame_cuda(pos, act, mvp, tris, normals, tables, CFG, w,
+                               h, particle_radius=radius, counts=counts)
+    torch.cuda.synchronize()
+    assert splat_frame_cuda.launches == before + 2
+    return (got, counted, want, dict(zip(COUNTS, counts.tolist())),
+            sum(p[0].shape[0] for p in lattice))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("scene", range(len(SCENES)))
 def test_cuda_splat_matches_plain_bitwise(cuda_device, scene):
     seed, w, h, surface, radius = SCENES[scene]
-    pos, act, mvp, mesh, _ = _scene(seed, w, h, False)
+    pos, act, mvp, mesh, _, _ = _scene(seed, w, h, False)
     pos, act, mvp = (t.to(cuda_device) for t in (pos, act, mvp))
-    # the lattice made on the card, as the frame makes it: each pass's
-    # depth a strided column of its clip coordinates
-    lattice = (splat.surface_passes(
-        *(t.to(cuda_device) for t in (mesh.vertices, mesh.normals,
-                                      mesh.valid)), mvp, CFG, w, h)
-        if surface else [])
-    assert all(p[2].stride(0) > 1 for p in lattice)
-    before = splat_frame_cuda.launches
-    got = splat_frame_cuda(pos, act, mvp, lattice, CFG, w, h,
-                           particle_radius=radius)
-    want = splat_frame_plain(pos, act, mvp, lattice, CFG, w, h,
-                             particle_radius=radius)
-    counts = torch.zeros(len(COUNTS), dtype=torch.int64, device=cuda_device)
-    counted = splat_frame_cuda(pos, act, mvp, lattice, CFG, w, h,
-                               particle_radius=radius, counts=counts)
-    torch.cuda.synchronize()
-    assert splat_frame_cuda.launches == before + 2
+    # the tables made on the card, as the frame makes them
+    tris, normals, valid = (t.to(cuda_device) for t in (
+        mesh.vertices, mesh.normals, mesh.valid))
+    tables = splat.surface_tables(tris, valid, mvp, w, h) if surface else []
+    if not surface:
+        tris = normals = None
+    got, counted, want, c, samples = _kernel_and_plain(
+        pos, act, mvp, tris, normals, tables, w, h, radius)
     assert torch.equal(got, want) and torch.equal(counted, want)
-    c = dict(zip(COUNTS, counts.tolist()))
     assert 0 < c["depth_atomics"] <= c["depth_tested"]
     assert c["color_tested"] == c["depth_tested"]
     assert 0 < c["color_atomics"] <= c["color_won"] <= c["color_tested"]
+    assert c["lattice_samples"] == samples and (samples > 0) == surface
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(splat_cases.SURFACES))
+@pytest.mark.parametrize("size", [splat_cases.SIZE, (61, 47)])
+def test_cuda_lattice_cases_match_plain_bitwise(cuda_device, case, size):
+    """The kernel's own lattice samples on the lattice corner cases: no
+    valid triangle, every slot valid, a budget cut among tied extents,
+    vertices behind the camera, NaN normals, NaN and infinite vertices."""
+    tris, normals, valid, cam, budget = splat_cases.surface(case)
+    pos, act = splat_cases.particles()
+    w, h = size
+    pos, act, tris, normals, valid = (
+        torch.from_numpy(a).to(cuda_device)
+        for a in (pos, act, tris, normals, valid))
+    mvp = torch.from_numpy(cam.mvp().astype(np.float32)).to(cuda_device)
+    tables = splat.surface_tables(tris, valid, mvp, w, h,
+                                  fine_tri_budget=budget)
+    got, counted, want, c, samples = _kernel_and_plain(
+        pos, act, mvp, tris, normals, tables, w, h)
+    assert torch.equal(got, want) and torch.equal(counted, want)
+    assert c["lattice_samples"] == samples
+    assert (samples == 0) == (case == "no_valid")
+
+
+@pytest.mark.cuda
+def test_cuda_frame_lattice_and_scatter_spans_make_no_host_sync(cuda_device):
+    pos, act, mvp, mesh, _, _ = _scene(0, 96, 96)
+    args = [t.to(cuda_device) for t in (pos, act, mesh.vertices,
+                                        mesh.normals, mesh.valid, mvp)]
+
+    def frame():
+        return splat.render_particles_and_surface(*args, CFG, 96, 96)
+
+    want = frame()                      # the library and offsets, once
+    before = splat_frame_cuda.launches
+    profiling.tracing(True)
+    try:
+        profiling.reset()
+        got = frame()
+        rep = profiling.report()
+    finally:
+        profiling.tracing(False)
+        profiling.reset()
+    assert splat_frame_cuda.launches == before + 1
+    assert torch.equal(got, want)
+    for name in ("splat.surface_lattice", "splat.scatter"):
+        assert rep[name]["calls"] == 1 and rep[name]["syncs"] == 0, rep

@@ -6,30 +6,35 @@
 // scatters inside one jitted frame (tpu_fluid/render/splat.py:215-223: a
 // scatter-min of depth, then a scatter-max of packed colour, once a sample
 // pass).  The port has no jitted frame: its plain version
-// (render/splat.py) dispatches 32 sample passes -- 3 surface lattices and
-// the footprint offsets of the sprites -- each twice, every pass a dozen
-// eager elementwise ops on 1M-element tensors and a scatter_reduce, whose
-// float amin loops a compare-and-swap under contention.
+// (render/splat.py) expands 3 surface lattices into sample tensors (a
+// chain of f64 elementwise ops for the fused multiply-adds, a nonzero
+// compaction a lattice) and dispatches 32 sample passes -- the lattices
+// and the footprint offsets of the sprites -- each twice, every pass a
+// dozen eager elementwise ops on 1M-element tensors and a scatter_reduce,
+// whose float amin loops a compare-and-swap under contention.
 //
 // What bounds it.  Bytes first: the function needs the positions and
-// active flags (13 bytes a particle) and the lattice samples (25 bytes)
-// read once and the image written (3 bytes a pixel): 185 MB at 1M
-// particles, 6.63M lattice samples and 1400^2, some 0.055 ms at 3.35 TB/s.
-// This design moves about twice that: both kernels read the inputs (the
-// lattice's depth is a column of its clip coordinates, read in place), and
-// two w*h int32 buffers are filled, read and written.  Then atomic
-// contention: 1M particles land on the few hundred thousand pixels their
-// cube covers.  The design:
+// active flags (13 bytes a particle), the mesh (36 bytes of vertices and
+// 12 of normal a triangle slot, its validity and the refinement's ids)
+// read once and the image written (3 bytes a pixel): some 26 MB at 1M
+// particles, 400,000 slots and 1400^2, 0.008 ms at 3.35 TB/s.  This design
+// moves more: both kernels read the inputs, and two w*h int32 buffers are
+// filled, read and written.  Then atomic contention: 1M particles land on
+// the few hundred thousand pixels their cube covers, and 6.63M lattice
+// samples on the surface's.  The design:
 //  - one thread a particle projects it once, in registers (the plain
 //    version's per-pass tensors of px, py, bounds and indices are never
 //    written), and walks its sprite footprint itself; the footprint is the
 //    wrapper's table of offsets {(dx, dy) : dx^2 + dy^2 <= rmax^2}, ordered
 //    by distance from the centre, so the walk stops at the first offset
 //    outside the sprite's radius (every later one is outside too);
-//  - the lattice samples come projected from the plain lattice code, one
-//    thread each, in the same launch as the particles, read from the
-//    lattice passes where they lie (up to kMaxLattice of them, each its own
-//    run of blocks), never gathered into one stream first;
+//  - one thread a lattice sample, in the same launch as the particles,
+//    each lattice pass its own run of blocks (up to kMaxLattice of them):
+//    the pass's table gives the slot's triangle (its ids, or the slot
+//    itself) and whether it is sampled, and the thread computes its
+//    barycentric point, the projection and the triangle's shaded colour in
+//    registers (some 40 flops against the 25 bytes a sample the plain
+//    lattice tensors held), so no sample is ever written to memory;
 //  - a read before each atomic: the depth minimum and the colour maximum
 //    only ever move one way, so a sample whose value the buffer already
 //    beats (or equals) changes nothing and skips its atomic.  A stale read
@@ -50,7 +55,14 @@
 // order of the atomics.
 //
 // Arithmetic, in the plain version's order with -fmad=false (no a*b+c
-// contraction, see kernels/build.py): the projection adds its four terms
+// contraction, see kernels/build.py): a lattice point is the barycentric
+// (a, b, c) / S, each weight the float of the double quotient (numpy's
+// float32 of Python's i / S), combined as b0 * v0, then fmaf(b1, v1, .)
+// and fmaf(b2, v2, .) (render/splat.py:_lattice_points; ops/rounding.fma
+// is the plain version's correctly rounded fused multiply-add); the
+// triangle's colour is dot = n0 * l0, then fmaf over n1 l1 and n2 l2,
+// lam = max(-dot, 0) with a NaN kept (torch.clamp), fmaf(lam, diffuse,
+// ambient) a channel; the projection adds its four terms
 // pairwise, ((x m0 + y m1) + (z m2 + m3)), divides by w (IEEE), and maps
 // ndc * 0.5 + 0.5 times the viewport; the sprite size chain is
 // min(base / max(w, 1e-6), max_size), then 0.5 * size * scale clamped to
@@ -65,7 +77,9 @@
 //
 // The counting instantiation (kCount) adds, a kernel, the samples tested
 // against the buffer and those that reached an atomic (and, in the colour
-// kernel, the winners); the main path never launches it.
+// kernel, the winners; in the depth kernel, the lattice samples generated
+// from a selected valid triangle, which the plain passes hold); the main
+// path never launches it.
 
 #include <cstring>
 
@@ -78,7 +92,7 @@ long long g_launches = 0;  // kernels launched by this file, all calls
 constexpr int kHit = 1 << 30;
 
 // Lattice passes a frame takes: the surface's base lattice and its two
-// finer ones (render/splat.py:surface_passes).
+// finer ones (render/splat.py:surface_tables).
 constexpr int kMaxLattice = 3;
 
 // Counters of the counting instantiation.
@@ -87,18 +101,19 @@ enum Count {
   kDepthAtomics,
   kColorTested,
   kColorWon,
-  kColorAtomics
+  kColorAtomics,
+  kLatticeSamples
 };
 
-// A pass of projected lattice samples.
+// A lattice pass: `slots` triangle slots, each sampled at the `samples` =
+// (subdiv + 1)(subdiv + 2) / 2 points of its barycentric lattice; thread
+// i of the pass takes sample i % samples of slot i / samples.
 struct Lattice {
-  const float* px;
-  const float* py;
-  const float* d;  // every d_stride-th float: a column of clip coordinates
-  const uint8_t* front;
-  const float* col;  // (n, 3)
-  long long d_stride;
-  long long n;
+  const long long* ids;  // the slot's triangle; null: slot k is triangle k
+  const uint8_t* valid;  // (slots,): the slot is sampled
+  long long n;           // slots * samples
+  int subdiv;
+  int samples;
 };
 
 struct Frame {
@@ -112,11 +127,16 @@ struct Frame {
   float base, max_size, scale, radius;
   int scaled;  // 1: r_px = clamp(0.5 * size * scale, 0, radius); 0: radius
   float color[3];  // every particle's
-  // projected lattice samples: pass s has the blocks [lblock[s],
-  // lblock[s + 1]) after the particles'
+  // the mesh: tris (T, 3, 3), normals (T, 3); the lattice passes over
+  // it: pass s has the blocks [lblock[s], lblock[s + 1]) after the
+  // particles'
+  const float* tris;
+  const float* normals;
   Lattice lattice[kMaxLattice];
   long long lblock[kMaxLattice + 1];
   int n_lattice;
+  // the surface's shading: the unit light direction, ambient, diffuse
+  float light[3], ambient[3], diffuse[3];
   // the viewport
   int width, height;
   float factor;  // (1 + tol) rounded to float
@@ -158,16 +178,16 @@ __device__ __forceinline__ int pack(float r, float g, float b) {
   return (channel(r) << 16) | (channel(g) << 8) | channel(b) | kHit;
 }
 
-// A particle projected as render/splat.py:project does it, and its squared
-// sprite radius.
+// A point projected as render/splat.py:project does it: its pixel
+// coordinates, its view depth w, whether it is in front (w > 1e-6), and
+// max(w, 1e-6).
 struct Projected {
-  float px, py, d, r2;
+  float px, py, d, wc;
   bool front;
 };
 
-__device__ __forceinline__ Projected project_particle(const Frame& f,
-                                                      long long p) {
-  const float x = f.pos[3 * p], y = f.pos[3 * p + 1], z = f.pos[3 * p + 2];
+__device__ __forceinline__ Projected project(const Frame& f, float x,
+                                             float y, float z) {
   const float* m = f.mvp;
   float clip[4];
 #pragma unroll
@@ -178,62 +198,131 @@ __device__ __forceinline__ Projected project_particle(const Frame& f,
   Projected q;
   q.d = clip[3];
   q.front = q.d > 1e-6f;
-  const float wc = clamp_min(q.d, 1e-6f);
-  q.px = (clip[0] / wc * 0.5f + 0.5f) * static_cast<float>(f.width);
-  q.py = (clip[1] / wc * 0.5f + 0.5f) * static_cast<float>(f.height);
+  q.wc = clamp_min(q.d, 1e-6f);
+  q.px = (clip[0] / q.wc * 0.5f + 0.5f) * static_cast<float>(f.width);
+  q.py = (clip[1] / q.wc * 0.5f + 0.5f) * static_cast<float>(f.height);
+  return q;
+}
+
+// A particle projected, and its squared sprite radius.
+struct Particle {
+  Projected q;
+  float r2;
+};
+
+__device__ __forceinline__ Particle project_particle(const Frame& f,
+                                                     long long p) {
+  Particle pt;
+  pt.q = project(f, f.pos[3 * p], f.pos[3 * p + 1], f.pos[3 * p + 2]);
+  const float wc = pt.q.wc;
   float r_px = f.radius;
   if (f.scaled) {
     const float size = clamp_max(f.base / wc, f.max_size);
     r_px = tf::clamp_nan(0.5f * size * f.scale, 0.0f, f.radius);
   }
   const float r = clamp_min(r_px, 0.5f);
-  q.r2 = r * r;
-  return q;
+  pt.r2 = r * r;
+  return pt;
+}
+
+// Sample s of a triangle's lattice of subdivision S: the barycentric
+// weights (a, b, S - a - b) / S of render/splat.py:_bary_lattice, a-major.
+__device__ __forceinline__ void bary_weights(int s, int S, float w[3]) {
+  int a = 0, start = 0;
+  while (s >= start + S + 1 - a) {
+    start += S + 1 - a;
+    ++a;
+  }
+  const int b = s - start;
+  const double q = static_cast<double>(S);
+  w[0] = static_cast<float>(static_cast<double>(a) / q);
+  w[1] = static_cast<float>(static_cast<double>(b) / q);
+  w[2] = static_cast<float>(static_cast<double>(S - a - b) / q);
 }
 
 // Each sample of the frame, as (pixel, depth, packed colour): a particle's
 // lit footprint offsets, or one lattice sample.  `visit` returns nothing.
+// Returns whether the thread generated a lattice sample of a selected
+// valid triangle.
 template <typename Visit>
-__device__ __forceinline__ void for_samples(const Frame& f, long long pblocks,
+__device__ __forceinline__ bool for_samples(const Frame& f, long long pblocks,
                                             Visit visit) {
   const long long b = blockIdx.x;
   if (b < pblocks) {
     const long long p = b * tf::kThreads + threadIdx.x;
-    if (p >= f.np || !f.active[p]) return;
-    const Projected q = project_particle(f, p);
-    if (!q.front) return;
+    if (p >= f.np || !f.active[p]) return false;
+    const Particle pt = project_particle(f, p);
+    const Projected& q = pt.q;
+    if (!q.front) return false;
     const int word = pack(f.color[0], f.color[1], f.color[2]);
     for (int k = 0; k < f.n_offsets; ++k) {
       const int dx = __ldg(f.offsets + 2 * k);
       const int dy = __ldg(f.offsets + 2 * k + 1);
       const bool centre = dx == 0 && dy == 0;
       // nearest first: the first offset outside the sprite ends the walk
-      if (!centre && !(static_cast<float>(dx * dx + dy * dy) <= q.r2)) break;
+      if (!centre && !(static_cast<float>(dx * dx + dy * dy) <= pt.r2)) {
+        break;
+      }
       const long long idx =
           centre ? pixel(q.px, q.py, f.width, f.height)
                  : pixel(q.px + static_cast<float>(dx),
                          q.py + static_cast<float>(dy), f.width, f.height);
       if (idx >= 0) visit(idx, q.d, word);
     }
-  } else {
-    // the block's pass, chosen by constant indices (no local copy)
-    const long long lb = b - pblocks;
-    Lattice l = f.lattice[0];
-    long long first = 0;
-#pragma unroll
-    for (int s = 1; s < kMaxLattice; ++s) {
-      if (s < f.n_lattice && lb >= f.lblock[s]) {
-        l = f.lattice[s];
-        first = f.lblock[s];
-      }
-    }
-    const long long i = (lb - first) * tf::kThreads + threadIdx.x;
-    if (i >= l.n || !l.front[i]) return;
-    const long long idx = pixel(l.px[i], l.py[i], f.width, f.height);
-    if (idx < 0) return;
-    visit(idx, l.d[i * l.d_stride],
-          pack(l.col[3 * i], l.col[3 * i + 1], l.col[3 * i + 2]));
+    return false;
   }
+  // the block's pass, chosen by constant indices (no local copy)
+  const long long lb = b - pblocks;
+  Lattice l = f.lattice[0];
+  long long first = 0;
+#pragma unroll
+  for (int s = 1; s < kMaxLattice; ++s) {
+    if (s < f.n_lattice && lb >= f.lblock[s]) {
+      l = f.lattice[s];
+      first = f.lblock[s];
+    }
+  }
+  const long long i = (lb - first) * tf::kThreads + threadIdx.x;
+  if (i >= l.n) return false;
+  // the pass's size is the block's, so the branch is uniform
+  long long slot;
+  int s;
+  if (l.n <= 0xffffffffLL) {
+    const unsigned int u = static_cast<unsigned int>(i);
+    const unsigned int q = u / static_cast<unsigned int>(l.samples);
+    slot = q;
+    s = static_cast<int>(u - q * static_cast<unsigned int>(l.samples));
+  } else {
+    slot = i / l.samples;
+    s = static_cast<int>(i - slot * l.samples);
+  }
+  if (!l.valid[slot]) return false;
+  const long long tri = l.ids ? __ldg(l.ids + slot) : slot;
+  float w[3];
+  bary_weights(s, l.subdiv, w);
+  const float* v = f.tris + 9 * tri;
+  float pt[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    pt[d] = w[0] * __ldg(v + d);
+    pt[d] = fmaf(w[1], __ldg(v + 3 + d), pt[d]);
+    pt[d] = fmaf(w[2], __ldg(v + 6 + d), pt[d]);
+  }
+  const Projected q = project(f, pt[0], pt[1], pt[2]);
+  if (!q.front) return true;
+  const long long idx = pixel(q.px, q.py, f.width, f.height);
+  if (idx < 0) return true;
+  // the triangle's flat shade: ambient + max(0, dot(-L, N)) * diffuse
+  const float* n = f.normals + 3 * tri;
+  float dot = __ldg(n) * f.light[0];
+  dot = fmaf(__ldg(n + 1), f.light[1], dot);
+  dot = fmaf(__ldg(n + 2), f.light[2], dot);
+  const float lam = clamp_min(-dot, 0.0f);
+  visit(idx, q.d,
+        pack(fmaf(lam, f.diffuse[0], f.ambient[0]),
+             fmaf(lam, f.diffuse[1], f.ambient[1]),
+             fmaf(lam, f.diffuse[2], f.ambient[2])));
+  return true;
 }
 
 // Adds a thread's counts to the counters, one atomic a warp.
@@ -249,7 +338,8 @@ __global__ void __launch_bounds__(tf::kThreads)
     depth_kernel(Frame f, long long pblocks, int* __restrict__ depth,
                  unsigned long long* counts) {
   unsigned long long tested = 0, atomics = 0;
-  for_samples(f, pblocks, [&](long long idx, float d, int) {
+  const bool lattice = for_samples(f, pblocks, [&](long long idx, float d,
+                                                   int) {
     const int bits = __float_as_int(d);
     if (kCount) ++tested;
     if (__ldcg(depth + idx) > bits) {
@@ -260,6 +350,7 @@ __global__ void __launch_bounds__(tf::kThreads)
   if (kCount) {
     add_count(counts, kDepthTested, tested);
     add_count(counts, kDepthAtomics, atomics);
+    add_count(counts, kLatticeSamples, lattice ? 1 : 0);
   }
 }
 
@@ -311,39 +402,77 @@ __global__ void __launch_bounds__(tf::kThreads)
 }  // namespace
 
 // One frame: depth and color are w*h int32 scratch buffers, image the
-// (h, w, 3) u8 output.  lattice, in host memory, holds n_lattice rows of 7
-// (px, py, d, front, col pointers, d's stride in floats, samples), one a
-// lattice pass.  counts null launches the main path's kernels; else the
-// counting instantiation, adding into counts[0..4] (depth tested, depth
-// atomics, colour tested, colour won, colour atomics).
+// (h, w, 3) u8 output.  tris (T, 3, 3) and normals (T, 3) are the mesh;
+// lattice, in host memory, holds n_lattice rows of 4 (the ids pointer, 0
+// for slot k = triangle k; the validity pointer; slots; subdiv), one a
+// lattice pass; light, ambient (a*) and diffuse (d*) shade it.  counts
+// null launches the main path's kernels; else the counting instantiation,
+// adding into counts[0..5] (depth tested, depth atomics, colour tested,
+// colour won, colour atomics, lattice samples).
 extern "C" int tf_splat(const float* pos, const uint8_t* active,
                         long long np, const float* mvp, const int* offsets,
                         int n_offsets, float base, float max_size,
                         float scale, float radius, int scaled, float pr,
-                        float pg, float pb, const long long* lattice,
-                        int n_lattice, int width, int height, float factor,
+                        float pg, float pb, const float* tris,
+                        const float* normals, const long long* lattice,
+                        int n_lattice, float lx, float ly, float lz,
+                        float ar, float ag, float ab, float dr, float dg,
+                        float db, int width, int height, float factor,
                         float inf_depth, int bg_r, int bg_g, int bg_b,
                         int* depth, int* color, uint8_t* image,
                         unsigned long long* counts, void* stream_ptr) {
   if (width < 1 || height < 1 || np < 0 || n_offsets < 0 ||
-      n_lattice < 0 || n_lattice > kMaxLattice) {
+      n_lattice < 0 || n_lattice > kMaxLattice ||
+      (n_lattice > 0 && (!tris || !normals))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const long long n = static_cast<long long>(width) * height;
-  Frame f{pos, active, np, mvp, offsets, n_offsets, base, max_size,
-          scale, radius, scaled, {pr, pg, pb}, {}, {}, n_lattice, width,
-          height, factor};
+  Frame f{};
+  f.pos = pos;
+  f.active = active;
+  f.np = np;
+  f.mvp = mvp;
+  f.offsets = offsets;
+  f.n_offsets = n_offsets;
+  f.base = base;
+  f.max_size = max_size;
+  f.scale = scale;
+  f.radius = radius;
+  f.scaled = scaled;
+  f.color[0] = pr;
+  f.color[1] = pg;
+  f.color[2] = pb;
+  f.tris = tris;
+  f.normals = normals;
+  f.n_lattice = n_lattice;
+  f.light[0] = lx;
+  f.light[1] = ly;
+  f.light[2] = lz;
+  f.ambient[0] = ar;
+  f.ambient[1] = ag;
+  f.ambient[2] = ab;
+  f.diffuse[0] = dr;
+  f.diffuse[1] = dg;
+  f.diffuse[2] = db;
+  f.width = width;
+  f.height = height;
+  f.factor = factor;
   for (int s = 0; s < n_lattice; ++s) {
-    const long long* row = lattice + 7 * s;
-    f.lattice[s] = Lattice{reinterpret_cast<const float*>(row[0]),
-                           reinterpret_cast<const float*>(row[1]),
-                           reinterpret_cast<const float*>(row[2]),
-                           reinterpret_cast<const uint8_t*>(row[3]),
-                           reinterpret_cast<const float*>(row[4]), row[5],
-                           row[6]};
-    if (row[6] < 0) return static_cast<int>(cudaErrorInvalidValue);
-    f.lblock[s + 1] = f.lblock[s] + tf::blocks_for(row[6]);
+    const long long* row = lattice + 4 * s;
+    const long long slots = row[2];
+    const long long subdiv = row[3];
+    // a slot's samples, (subdiv + 1)(subdiv + 2) / 2, fit an int up to
+    // subdiv 65534
+    if (!row[1] || slots < 0 || subdiv < 1 || subdiv > 65534) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int samples = static_cast<int>((subdiv + 1) * (subdiv + 2) / 2);
+    f.lattice[s] = Lattice{reinterpret_cast<const long long*>(row[0]),
+                           reinterpret_cast<const uint8_t*>(row[1]),
+                           slots * samples, static_cast<int>(subdiv),
+                           samples};
+    f.lblock[s + 1] = f.lblock[s] + tf::blocks_for(slots * samples);
   }
   int inf_bits;
   std::memcpy(&inf_bits, &inf_depth, sizeof inf_bits);

@@ -19,8 +19,10 @@ buffer, then a scatter-max of packed colors writes every sample that won
 its pixel.  The packed color (hit bit at bit 30, RGB below) fits int32.
 On CUDA tensors (`kernels.kernel_choice`) the sprites and the scatters
 are the CUDA kernel pair of `kernels/splat.py`, which draws the same
-pixels; the plain passes below (`sprite_passes`, `draw_passes`), composed
-by `kernels.splat.splat_frame_plain`, are its plain version and serve CPU
+pixels and samples the surface lattices itself from the triangle tables of
+`surface_tables`; the plain passes below (`lattice_passes`,
+`sprite_passes`, `draw_passes`), composed by
+`kernels.splat.splat_frame_plain`, are its plain version and serve CPU
 tensors.
 
 The arithmetic is that of the JAX package's jitted frame on XLA:CPU, so
@@ -30,7 +32,7 @@ products accumulate by fused multiply-adds (`ops/rounding.fma`), and the
 shaded color is one fused multiply-add.  Among triangles of equal extent
 the refinement passes take the lower index first, as `jax.lax.top_k`.
 Only the valid triangles are sampled, where JAX samples every slot of the
-fixed-capacity mesh: the frame is the same (`lattice_pass`).
+fixed-capacity mesh: the frame is the same (`lattice_passes`).
 """
 
 from __future__ import annotations
@@ -163,22 +165,27 @@ def render_particles_and_surface(positions, active, tris, tri_normals,
         w, h = width, height
         device = positions.device
         mvp = _f32(mvp, device)
-        passes = []  # (px, py, depth, valid, color_rgb)
+        tables = []  # (ids, valid, subdiv) a lattice pass
         if tris is not None:
             part("splat.surface_lattice")
-            passes = surface_passes(tris, tri_normals, tri_valid, mvp, cfg,
-                                    w, h, surface_subdiv, fine_tri_budget)
+            tables = surface_tables(tris, tri_valid, mvp, w, h,
+                                    surface_subdiv, fine_tri_budget)
 
         from tpu_fluid_torch.kernels.splat import (splat_frame_cuda,
                                                    splat_frame_plain)
         if kernel_choice(cfg, device):
+            # the kernel pair samples the lattices itself
             part("splat.scatter")
             img = splat_frame_cuda(
-                positions, active, mvp.contiguous(), passes, cfg, w, h,
-                particle_radius=particle_radius,
+                positions, active, mvp.contiguous(),
+                None if tris is None else tris.contiguous(),
+                None if tris is None else tri_normals.contiguous(), tables,
+                cfg, w, h, particle_radius=particle_radius,
                 max_sprite_radius=max_sprite_radius)
             part()
         else:
+            passes = ([] if tris is None else lattice_passes(
+                tris, tri_normals, tables, mvp, cfg, w, h))
             # its own spans: splat.sprites, splat.scatter
             part()
             img = splat_frame_plain(
@@ -188,27 +195,21 @@ def render_particles_and_surface(positions, active, tris, tri_normals,
         return img
 
 
-def surface_passes(tris, tri_normals, tri_valid, mvp, cfg: FluidConfig,
-                   width: int, height: int, surface_subdiv: int = 4,
-                   fine_tri_budget: int = 65536) -> list:
-    """The surface's sample passes (px, py, depth, front, color): the
-    base lattice of every valid triangle, then the two finer lattices of
-    the largest (`render_particles_and_surface`)."""
-    w, h = width, height
-    device = mvp.device
-    passes = []
+def light_direction(cfg: FluidConfig) -> np.ndarray:
+    """The unit light direction, (3,) float32, normalized in float32."""
     light = np.asarray(cfg.render_light_direction, dtype=np.float32)
-    light = _f32(light / np.linalg.norm(light), device)
-    # tri_normals @ light by fused multiply-adds, as XLA:CPU's dot
-    dot = tri_normals[:, 0] * light[0]
-    for k in (1, 2):
-        dot = fma(tri_normals[:, k], light[k], dot)
-    lam = torch.clamp(-dot, min=0.0)
-    amb = _f32(cfg.render_surface_ambient_color, device)
-    dif = _f32(cfg.render_surface_diffuse_color, device)
-    # a colour a triangle, (T, 3)
-    tri_color = fma(lam[:, None], dif[None, :], amb[None, :])
+    return light / np.linalg.norm(light)
 
+
+def surface_tables(tris, tri_valid, mvp, width: int, height: int,
+                   surface_subdiv: int = 4,
+                   fine_tri_budget: int = 65536) -> list:
+    """The surface's three lattice passes as triangle tables (ids, valid,
+    subdiv), on the device of `mvp` with no host sync and no host copy:
+    the base lattice of every slot (ids None, valid `tri_valid`), then the
+    two finer lattices of the triangles that project largest, largest
+    first (ids of the selected slots, valid where a slot was selected)."""
+    w, h = width, height
     # per-triangle projected extent (px): max abs vertex-pair delta
     # over the FRONT vertices only, so partially-clipped
     # near-camera triangles still refine
@@ -224,21 +225,8 @@ def surface_passes(tris, tri_normals, tri_valid, mvp, cfg: FluidConfig,
         - torch.where(vfront, vy, big).amin(1))
     ext = torch.where(tri_valid & vfront.any(1), ext, 0.0)
 
-    def lattice_pass(sel_tris, sel_colors, sel_valid, subdiv):
-        # only the valid triangles are sampled: an invalid sample
-        # scatters INF_DEPTH and 0 onto pixel 0, which changes
-        # nothing, so the frame is the one JAX's fixed shapes give
-        keep = torch.nonzero(sel_valid).reshape(-1)
-        bary = _f32(_bary_lattice(subdiv), device)
-        pts = _lattice_points(bary, sel_tris[keep])
-        px, py, d, front = project(mvp, pts.reshape(-1, 3), w, h)
-        col = torch.repeat_interleave(sel_colors[keep],
-                                      bary.shape[0], dim=0)
-        passes.append((px, py, d, front, col))
-
     # base lattice: hole-free for triangles up to ~subdiv px
-    lattice_pass(tris, tri_color, tri_valid, surface_subdiv)
-
+    tables = [(None, tri_valid, surface_subdiv)]
     # adaptive refinement: the triangles that project larger,
     # largest first, re-sampled through finer lattices
     for threshold, budget, subdiv in (
@@ -248,8 +236,55 @@ def surface_passes(tris, tri_normals, tri_valid, mvp, cfg: FluidConfig,
                                  -1.0)
         vals, ids = top_extents(ext_masked,
                                 min(budget, ext_masked.shape[0]))
-        lattice_pass(tris[ids], tri_color[ids], vals > 0.0, subdiv)
+        tables.append((ids, vals > 0.0, subdiv))
+    return tables
+
+
+def lattice_passes(tris, tri_normals, tables, mvp, cfg: FluidConfig,
+                   width: int, height: int) -> list:
+    """The sample passes (px, py, depth, front, color) of `surface_tables`'
+    tables: each selected valid triangle's barycentric lattice, projected,
+    in its flat-shaded colour."""
+    w, h = width, height
+    device = mvp.device
+    light = _f32(light_direction(cfg), device)
+    # tri_normals @ light by fused multiply-adds, as XLA:CPU's dot
+    dot = tri_normals[:, 0] * light[0]
+    for k in (1, 2):
+        dot = fma(tri_normals[:, k], light[k], dot)
+    lam = torch.clamp(-dot, min=0.0)
+    amb = _f32(cfg.render_surface_ambient_color, device)
+    dif = _f32(cfg.render_surface_diffuse_color, device)
+    # a colour a triangle, (T, 3)
+    tri_color = fma(lam[:, None], dif[None, :], amb[None, :])
+
+    passes = []
+    for ids, valid, subdiv in tables:
+        sel_tris, sel_colors = ((tris, tri_color) if ids is None
+                                else (tris[ids], tri_color[ids]))
+        # only the valid triangles are sampled: an invalid sample
+        # scatters INF_DEPTH and 0 onto pixel 0, which changes
+        # nothing, so the frame is the one JAX's fixed shapes give
+        keep = torch.nonzero(valid).reshape(-1)
+        bary = _f32(_bary_lattice(subdiv), device)
+        pts = _lattice_points(bary, sel_tris[keep])
+        px, py, d, front = project(mvp, pts.reshape(-1, 3), w, h)
+        col = torch.repeat_interleave(sel_colors[keep], bary.shape[0],
+                                      dim=0)
+        passes.append((px, py, d, front, col))
     return passes
+
+
+def surface_passes(tris, tri_normals, tri_valid, mvp, cfg: FluidConfig,
+                   width: int, height: int, surface_subdiv: int = 4,
+                   fine_tri_budget: int = 65536) -> list:
+    """The surface's sample passes (px, py, depth, front, color): the
+    base lattice of every valid triangle, then the two finer lattices of
+    the largest (`render_particles_and_surface`), in plain PyTorch."""
+    tables = surface_tables(tris, tri_valid, mvp, width, height,
+                            surface_subdiv, fine_tri_budget)
+    return lattice_passes(tris, tri_normals, tables, mvp, cfg, width,
+                          height)
 
 
 def sprite_passes(positions, active, mvp, cfg: FluidConfig, width: int,
