@@ -98,9 +98,7 @@ Phases, one line each (more for the parity and scene phases):
               turn (4 jit_steps, then a jit_multi_step of 3 each), with
               and without the volume cadence every 2 and every 4 (the
               lineages at different phases): each bitwise against its own
-              eager steps, each in one entry a key, no residual.  Then
-              tpu_fluid_torch.bench at 128^3 for 40 steps,
-              whose JSON line it prints.
+              eager steps, each in one entry a key, no residual.
  11 physics   the options beyond the reference at the bench scene's width
               (128^3, 1M particles): (a) volume_correction=1.0 every 4
               steps toward a density of 4.0, (b) surface_method=
@@ -165,9 +163,7 @@ Phases, one line each (more for the parity and scene phases):
               a step (medians of 7, CUDA events).  (b) each halo and local
               form at its 1-rank shapes (the whole grid as one slab, zero
               halos) against its plain version bitwise, timed beside its
-              bound, with its launches a step.  (c) TPU_FLUID_BENCH_SPMD=1
-              python -m tpu_fluid_torch.bench at 128^3 for 40 steps in a
-              subprocess, whose JSON line it prints.  (d) with at least 2
+              bound, with its launches a step.  (d) with at least 2
               visible cards, 2 ranks (and 4 where 4 are visible) one a
               card over nccl, graphed, at the bench scene (index) and the
               large one (domain, with chip_smoke.domain_scene's border
@@ -222,12 +218,10 @@ LARGE_COMPARE_STEPS = 2
 SHARDS = 4
 SHARDED_STEPS = 2
 # phase 10: eager steps against graph replays (jit_step replays: twice
-# each of a lineage's two buffer sets), timed steps a median takes, the
-# bench's window
+# each of a lineage's two buffer sets), timed steps a median takes
 GRAPH_STEPS = 3
 GRAPH_REPLAYS = 4
 GRAPH_TIMED = 7
-BENCH_WINDOW = 40
 PARITY_SHARDS = (0, 1, 3)
 ODD_SHAPES = ((13, 22, 17), (37, 45, 29))
 # phase 8: K6c's halo form also at the slabs of an odd grid
@@ -1715,14 +1709,12 @@ def two_lineages(device, scene: str, cfg) -> None:
     graph.clear_graphs()
 
 
-def phase_graph(device, scenes, wrappers, fused_wrappers, card: str,
-                smi: str) -> dict:
-    """Phase 10: the CUDA-graph step at each scene (`graph_scene`), two
+def phase_graph(device, scenes, wrappers, fused_wrappers,
+                card: str) -> dict:
+    """Phase 10: the CUDA-graph step at each scene (`graph_scene`) and two
     lineages of one key at the scenes without the fused kernels
-    (`two_lineages`), then the port's bench (`tpu_fluid_torch.bench`) for
-    a short window at 128^3, whose JSON line it prints; returns the
-    wrappers' counts over the captures of `graph_scene`."""
-    from tpu_fluid_torch import bench
+    (`two_lineages`); returns the wrappers' counts over the captures of
+    `graph_scene`."""
     launches = {}
     for scene, cfg in scenes:
         paths = wrappers + (fused_wrappers if cfg.grid_fused else ())
@@ -1732,12 +1724,6 @@ def phase_graph(device, scenes, wrappers, fused_wrappers, card: str,
         if not cfg.grid_fused:
             two_lineages(device, scene, cfg)
             torch.cuda.empty_cache()
-    _, sps, chunks = bench._run_once(128, 1_000_000, BENCH_WINDOW, 5)
-    print(f"[10 graph bench] tpu_fluid_torch.bench at 128^3, {BENCH_WINDOW} "
-          f"steps, per-chunk steps/s {chunks!r}", flush=True)
-    print(json.dumps(bench.result_line(128, 1_000_000, sps, smi)),
-          flush=True)
-    torch.cuda.empty_cache()
     return launches
 
 
@@ -2395,9 +2381,8 @@ def phase_facade(device, ref_cfg, bench_cfg, wrappers, card: str) -> dict:
 
 
 # --------------------------------------------------- 13: the SPMD program form
-# 13c: the bench's SPMD route's window; 13d: the limit of each multi-card
-# run, rank start-up included (12-21 s each on 2 and 4 cards)
-SPMD_BENCH_STEPS = 40
+# 13d: the limit of each multi-card run, rank start-up included (12-21 s
+# each on 2 and 4 cards)
 SPMD_RANK_TIMEOUT = 300.0
 
 
@@ -2557,35 +2542,6 @@ def phase_spmd_kernels(device, scenes, per_step) -> dict:
     return results
 
 
-def phase_spmd_bench(card: str) -> dict:
-    """Phase 13c: `TPU_FLUID_BENCH_SPMD=1 python -m tpu_fluid_torch.bench`
-    at 128^3 for SPMD_BENCH_STEPS steps in a subprocess; its JSON line."""
-    import os
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, TPU_FLUID_BENCH_SPMD="1",
-               TPU_FLUID_BENCH_GRID="128",
-               TPU_FLUID_BENCH_STEPS=str(SPMD_BENCH_STEPS),
-               TPU_FLUID_BENCH_SYNC_EVERY="5")
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "tpu_fluid_torch.bench"],
-                       cwd=root, env=env, capture_output=True, text=True,
-                       timeout=CLI_TIMEOUT)
-    check(r.returncode == 0, f"13c: the bench's SPMD route exited "
-                             f"{r.returncode}: {r.stderr[-2000:]}")
-    lines = r.stdout.strip().splitlines()
-    check(len(lines) == 1, f"13c: the bench printed {lines}")
-    line = json.loads(lines[0])
-    check(list(line) == ["metric", "value", "unit", "vs_baseline"]
-          and line["metric"].endswith(", SPMD program form forced")
-          and line["value"] > 0, f"13c: unexpected line {line}")
-    chunks = [s for s in r.stderr.splitlines() if "per-chunk" in s]
-    print(f"[13c spmd bench] TPU_FLUID_BENCH_SPMD=1 python -m "
-          f"tpu_fluid_torch.bench at 128^3, {SPMD_BENCH_STEPS} steps, in "
-          f"{time.perf_counter() - t0!r} s on {card}; {chunks}", flush=True)
-    print(json.dumps(line), flush=True)
-    return line
-
-
 def spmd_multi_rank(rank, n, init_method, cfg, device, backend):
     """One rank of phase 13d: GRAPH_STEPS `jit_spmd_step` replays and one
     `jit_spmd_multi_step(GRAPH_STEPS)` of its shard from the state after 2
@@ -2693,7 +2649,7 @@ def phase_spmd_multi_card(card: str, cfgs, device="cuda",
 
 def phase_spmd(device, scenes, card: str) -> dict:
     """Phase 13: 13a at each scene (`spmd_scene`), 13b (`phase_spmd_
-    kernels`), 13c (`phase_spmd_bench`) and 13d (`phase_spmd_multi_card`).
+    kernels`) and 13d (`phase_spmd_multi_card`).
     Returns the launches of 13a by wrapper name, and 13b's results."""
     launches, per_step = {}, {}
     for scene, cfg in scenes:
@@ -2702,7 +2658,6 @@ def phase_spmd(device, scenes, card: str) -> dict:
         for name, count in r["launches"].items():
             launches[name] = launches.get(name, 0) + count
     kernels = phase_spmd_kernels(device, scenes, per_step)
-    phase_spmd_bench(card)
     phase_spmd_multi_card(card, multi_card_configs(scenes))
     return {"launches": launches, "kernels": kernels}
 
@@ -3102,11 +3057,11 @@ def main(argv) -> int:
     domain_launches = phase_domain(domain_cfg, card, device)
 
     # 10: the CUDA-graph step (jit_step, jit_multi_step) at the three
-    # scenes, and the bench
+    # scenes
     graph_launches = phase_graph(device, (("reference", ref_cfg),
                                           ("bench", bench_cfg),
                                           ("large", large_cfg)),
-                                 wrappers, fused_wrappers, card, smi)
+                                 wrappers, fused_wrappers, card)
     for name, count in graph_launches.items():
         launches[name] += count
 
@@ -3128,8 +3083,8 @@ def main(argv) -> int:
         launches[name] += count
 
     # 13: the SPMD program form on a 1-rank mesh (jit_spmd_step,
-    # jit_spmd_multi_step), its kernels at their 1-rank shapes, the bench's
-    # SPMD route, and the nccl route where several cards are visible
+    # jit_spmd_multi_step), its kernels at their 1-rank shapes, and the
+    # nccl route where several cards are visible
     spmd = phase_spmd(device, (
         ("reference", ref_cfg), ("bench", bench_cfg),
         ("large", large_cfg.replace(particle_sharding="domain"))), card)

@@ -423,6 +423,14 @@ ARGVS = {
     "set": ["--grid", "16", "--set", "gravity=9.81", "--set",
             "surface_enabled=false", "--set", "fountain_position=3,4,5",
             "--set", "levelset_iso=1.5", "--set", "pressure_solver=redblack"],
+    "set_fused": ["--grid", "16", "--set", "grid_fused=true", "--set",
+                  "jacobi_iters=7", "--set", "gravity=9.81"],
+    "set_unfused": ["--grid", "16", "--set", "grid_fused=no", "--set",
+                    "reference_pressure_parity=0"],
+    "set_plain": ["--grid", "16", "--set", "pallas_mode=off", "--set",
+                  "advect_method=shift", "--set", "dt=0.02"],
+    "set_surface": ["--grid", "16", "--set", "surface_render_resolution=3",
+                    "--set", "particle_count=1000"],
 }
 
 
@@ -440,6 +448,21 @@ def test_config_from_args_equals_jax(name, tmp_path):
     want = jax_cli.config_from_args(jax_cli.build_parser().parse_args(argv))
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     hash(got)
+
+
+@pytest.mark.parametrize("spec", ["grid_fused=ture", "not_a_field=1",
+                                  "jacobi_iters=x"])
+def test_cli_set_rejects_bad_scalars_as_jax(spec):
+    """A bad boolean, an unknown field and a bad integer exit with JAX's
+    CLI's message."""
+    from tpu_fluid import cli as jax_cli
+    argv = ["--grid", "16", "--set", spec]
+    with pytest.raises(SystemExit) as want:
+        jax_cli.config_from_args(jax_cli.build_parser().parse_args(argv))
+    with pytest.raises(SystemExit) as got:
+        cli.config_from_args(cli.build_parser().parse_args(argv))
+    assert isinstance(got.value.code, str)
+    assert got.value.code == want.value.code
 
 
 def test_parser_has_jax_flags_and_device():

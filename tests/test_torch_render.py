@@ -19,6 +19,7 @@ import torch
 
 from tpu_fluid.core.config import FluidConfig as JaxConfig
 from tpu_fluid.render import camera as jax_camera
+from tpu_fluid.render import export as jax_export
 from tpu_fluid.render import splat as jax_splat
 from tpu_fluid.render.debug import render_cell_field as jax_cell_field
 from tpu_fluid.surface.marching_cubes import extract_surface as jax_extract
@@ -29,7 +30,8 @@ from tpu_fluid_torch.render import camera as port_camera
 from tpu_fluid_torch.render import splat
 from tpu_fluid_torch.render.camera import Camera
 from tpu_fluid_torch.render.debug import render_cell_field
-from tpu_fluid_torch.render.export import write_png
+from tpu_fluid_torch.render.export import (write_particles_csv, write_ply,
+                                            write_png)
 from tpu_fluid_torch.render.raster import render_frame_native
 from tpu_fluid_torch.render.splat import render_particles_and_surface
 from tpu_fluid_torch.surface.marching_cubes import extract_surface
@@ -250,6 +252,34 @@ def test_png_reads_back_with_pil(tmp_path, shape):
 def test_png_refuses_other_shapes(tmp_path):
     with pytest.raises(ValueError):
         write_png(str(tmp_path / "g.png"), np.zeros((4, 4), np.uint8))
+
+
+# --------------------------------------------------------- PLY and CSV
+def test_write_ply_equals_jax(tmp_path):
+    """A seeded triangle soup, from a tensor, byte for byte as JAX's
+    writer writes it from the array."""
+    tris = np.random.default_rng(2).uniform(-20, 20, (5, 3, 3)) \
+        .astype(np.float32)
+    write_ply(str(tmp_path / "port" / "m.ply"), torch.from_numpy(tris))
+    jax_export.write_ply(str(tmp_path / "jax" / "m.ply"), jnp().asarray(tris))
+    got = (tmp_path / "port" / "m.ply").read_bytes()
+    assert got == (tmp_path / "jax" / "m.ply").read_bytes()
+    assert got.count(b"\n3 ") == 5
+
+
+def test_write_particles_csv_equals_jax(tmp_path):
+    """Seeded positions with some slots inactive: only the active rows,
+    byte for byte as JAX's writer writes them."""
+    rng = np.random.default_rng(3)
+    pos = rng.uniform(0, 20, (40, 3)).astype(np.float32)
+    active = rng.random(40) < 0.6
+    write_particles_csv(str(tmp_path / "port" / "p.csv"),
+                        torch.from_numpy(pos), torch.from_numpy(active))
+    jax_export.write_particles_csv(str(tmp_path / "jax" / "p.csv"),
+                                   jnp().asarray(pos), jnp().asarray(active))
+    got = (tmp_path / "port" / "p.csv").read_bytes()
+    assert got == (tmp_path / "jax" / "p.csv").read_bytes()
+    assert got.count(b"\n") == 1 + int(active.sum())
 
 
 # ------------------------------------- mirrors of test_render_splat.py

@@ -2,7 +2,9 @@
 CPU: n = 2 and n = 4 ranks, each a spawned process on a gloo group, against
 the port's single-device step (bitwise) and JAX's single-device
 `simulation_step` (the tolerances of tests/test_torch_step.py), on the
-scene of tests/test_spmd_step.py:31-43; the sharded Jacobi sweeps against
+scene of tests/test_spmd_step.py:31-43; the program form `jit_spmd_step`
+(on CPU states its eager route through `solver/graph.replay`) from the
+program's `layout_state` against the same; the sharded Jacobi sweeps against
 JAX's `jacobi_sweeps_sharded` under shard_map; the halo helpers and
 collectives; one shard without spawning; and the config rejections.
 
@@ -36,7 +38,9 @@ from tpu_fluid_torch.parallel.halo import (all_gather_x, exchange_x_halo,
 from tpu_fluid_torch.parallel.launch import run_ranks
 from tpu_fluid_torch.parallel.mesh import (gather_state, make_mesh,
                                            shard_scene, shard_state)
-from tpu_fluid_torch.parallel.spmd_step import (spmd_multi_step, spmd_step,
+from tpu_fluid_torch.parallel.particles_domain import layout_state
+from tpu_fluid_torch.parallel.spmd_step import (jit_spmd_step,
+                                                spmd_multi_step, spmd_step,
                                                 validate_spmd_config)
 from tpu_fluid_torch.stages.pressure import jacobi_fold, jacobi_solve
 
@@ -89,6 +93,9 @@ SCENARIOS = {
                           levelset_sweeps=20),
 }
 WITH_SCENE = ("physics",)
+# the scenarios also run through jit_spmd_step: the plain stages, and the
+# options beyond the reference with scene fields and the volume cadence
+JIT_SCENARIOS = ("off", "physics")
 SPHERE, VORTEX = ((16, 13, 8), 2.5), ((16, 8), 40.0)
 JACOBI_SHAPE, JACOBI_ITERS, JACOBI_KS = (16, 8, 8), 11, (1, 3, None)
 JACOBI_CFG = FluidConfig(grid_size=JACOBI_SHAPE, jacobi_iters=25)
@@ -138,6 +145,15 @@ def _rank(rank, n, init_method):
         local = spmd_multi_step(cfg, mesh, STEPS, scene)(local)
         full = gather_state(local, mesh)
         out[name] = state_to_numpy(full) if rank == 0 else None
+    for name in JIT_SCENARIOS:
+        cfg = cfg_of(name)
+        run = jit_spmd_step(cfg, mesh, shard_scene(scene_of(name, cfg),
+                                                   rank, n))
+        local = layout_state(initial_state(cfg, device="cpu"), rank, n, cfg)
+        for _ in range(STEPS):
+            local = run(local)
+        full = gather_state(local, mesh)
+        out["jit " + name] = state_to_numpy(full) if rank == 0 else None
     q0, code, c2 = jacobi_inputs()
     lx = JACOBI_SHAPE[0] // n
     sl = slice(rank * lx, (rank + 1) * lx)
@@ -229,10 +245,8 @@ def jax_single():
     return get
 
 
-@pytest.mark.parametrize("name", ["off", "obstacles", "physics"])
-def test_sharded_steps_match_jax_single_device(sharded, jax_single, name):
-    got = scenario_state(sharded, name)
-    for field, w in jax_single(name).items():
+def assert_matches_jax(got: dict, want: dict):
+    for field, w in want.items():
         g = got[field]
         assert g.dtype == w.dtype and g.shape == w.shape, field
         if field in TOL:
@@ -241,6 +255,22 @@ def test_sharded_steps_match_jax_single_device(sharded, jax_single, name):
                                        err_msg=field)
         else:
             np.testing.assert_array_equal(g, w, err_msg=field)
+
+
+@pytest.mark.parametrize("name", ["off", "obstacles", "physics"])
+def test_sharded_steps_match_jax_single_device(sharded, jax_single, name):
+    assert_matches_jax(scenario_state(sharded, name), jax_single(name))
+
+
+@pytest.mark.parametrize("name", JIT_SCENARIOS)
+def test_jit_spmd_step_equals_single_device_and_jax(sharded, single,
+                                                     jax_single, name):
+    """STEPS `jit_spmd_step` calls on each rank's `layout_state`: gathered,
+    the port's single-device steps bitwise and JAX's at TOL."""
+    got = scenario_state(sharded, "jit " + name)
+    assert_bitwise(got, single[name], f"n={sharded[0]} jit {name}")
+    assert int(got["step"]) == STEPS
+    assert_matches_jax(got, jax_single(name))
 
 
 def test_sharded_jacobi_independent_of_k_and_matches_jax(sharded):

@@ -1,6 +1,5 @@
 """The SPMD program form (`tpu_fluid_torch/parallel/spmd_step.py`:
-`jit_spmd_step`, `jit_spmd_multi_step`) and the bench's SPMD and
-multi-card routes (`tpu_fluid_torch/bench.py`).
+`jit_spmd_step`, `jit_spmd_multi_step`).
 
 On the CPU the graphed entry points run the eager sharded step: they are
 held against `spmd_multi_step` bitwise and against JAX's jitted 1-device
@@ -13,17 +12,12 @@ On the card (the `cuda` tests, which skip here) 1-rank replays against
 eager sharded steps bitwise, the host-staged refusal and the nccl mesh's
 current card."""
 
-import contextlib
-import io
-import json
-
 import jax
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
 
-from test_torch_bench import jax_bench
 from test_torch_graph import stand_in  # noqa: F401  (a fixture)
 from test_torch_spmd import cfg_of, scene_of
 from tpu_fluid.core import scene_fields as jscene
@@ -34,7 +28,7 @@ from tpu_fluid.parallel.mesh import shard_state as jax_shard_state
 from tpu_fluid.parallel.particles_domain import \
     domain_shard_state as jax_domain_shard_state
 from tpu_fluid.parallel.spmd_step import spmd_step as jax_spmd_step
-from tpu_fluid_torch import bench, initial_state
+from tpu_fluid_torch import initial_state
 from tpu_fluid_torch.core.state import state_to_numpy
 from tpu_fluid_torch.parallel.mesh import Mesh, make_mesh
 from tpu_fluid_torch.parallel.particles_domain import layout_state
@@ -316,60 +310,6 @@ def test_bad_calls_raise():
         jit_spmd_multi_step(cfg, cpu_mesh(), 0)(local_state(cfg))
     with pytest.raises(ValueError):              # 32 rows over 64 shards
         jit_spmd_step(cfg, Mesh(0, 64, torch.device("cpu")))
-
-
-# ------------------------------------------------------------ the bench
-BENCH_ENV = {"TPU_FLUID_BENCH_GRID": "16", "TPU_FLUID_BENCH_PARTICLES": "512",
-             "TPU_FLUID_BENCH_STEPS": "4", "TPU_FLUID_BENCH_SYNC_EVERY": "2"}
-
-
-def test_bench_spmd_route_prints_one_json_line(monkeypatch):
-    for key, val in dict(BENCH_ENV, TPU_FLUID_BENCH_SPMD="1").items():
-        monkeypatch.setenv(key, val)
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out), \
-            contextlib.redirect_stderr(io.StringIO()):
-        bench.run(device="cpu")
-    lines = out.getvalue().strip().splitlines()
-    assert len(lines) == 1
-    line = json.loads(lines[0])
-    module = jax_bench()
-    monkeypatch.setattr(module, "_run_once", lambda *a: (1, 12.5, [12.5]))
-    want = io.StringIO()
-    with contextlib.redirect_stdout(want), \
-            contextlib.redirect_stderr(io.StringIO()):
-        module.main()
-    jax_line = json.loads(want.getvalue().strip().splitlines()[-1])
-    assert list(line) == list(jax_line)
-    assert line["metric"].endswith(", SPMD program form forced")
-    assert jax_line["metric"].endswith(", SPMD program form forced")
-    assert "CUDA-graph SPMD step" in line["metric"] and line["value"] > 0
-
-
-@pytest.mark.parametrize("n,spec,want", [
-    (256, "", "domain"), (128, "", "index"), (20, "", "index"),
-    (256, "particle_sharding=index", "index"),
-    (128, "particle_sharding=domain", "domain")])
-def test_bench_sharding_choice_follows_bench_py(n, spec, want):
-    """Domain sharding at n >= 256 and index below, chosen before the
-    TPU_FLUID_BENCH_SET overrides, which win; the single-device route
-    keeps the config's own."""
-    env = {"TPU_FLUID_BENCH_SET": spec}
-    with contextlib.redirect_stderr(io.StringIO()):
-        assert bench.bench_config(n, 1000, True, env).particle_sharding \
-            == want
-        plain = bench.bench_config(n, 1000, False, env).particle_sharding
-    assert plain == (want if spec else "index")
-
-
-def test_bench_multi_rank_route_on_two_gloo_ranks(tmp_path):
-    """The multi-card orchestration (`bench._run_ranks`) on 2 spawned CPU
-    ranks over gloo: rank 0's rates over the chunks."""
-    with contextlib.redirect_stderr(io.StringIO()):
-        cfg = bench.bench_config(16, 512, True, {})
-    sps, chunks = bench._run_ranks(cfg, 2, 4, 2, device="cpu",
-                                   backend="gloo")
-    assert sps > 0 and len(chunks) == 2 and all(c > 0 for c in chunks)
 
 
 # ------------------------------------------------------------------ on card
