@@ -14,11 +14,13 @@ Phases, one line each (more for the parity and scene phases):
               the detailed occupancy, with NaN, infinite, huge and (-1, 0)
               positions among them, and positions NaN on one, two and
               three axes, which move only their NaN coordinates and
-              occupy detailed index 0 on those axes), and K1, K2, K3+K4,
-              K5, K6a, K6b and K6c
-              also at two odd non-cubic shapes (5 and 199 sweeps; 0, 1, 4
+              occupy detailed index 0 on those axes), and K1, K2f, K2,
+              K3+K4, K5, K6a, K6b and K6c
+              also at two odd non-cubic shapes (5 and 199 sweeps; K2f with
+              NaN, infinite, -0.0 and huge div at both boundaries; 0, 1, 4
               and 12 blur passes, u8 and int32 inertia; K6a at pools 1, 2
-              and 3); K1 and K3+K4 also on the velocity, types, positions
+              and 3); K1, K2f and K3+K4 also on the velocity (its
+              divergence for K2f), types, positions
               and active flags of scaled_scene(256) after 2 steps: every
               output must match bitwise (tolerance 0; a NaN matches a NaN
               in the same place), and each last writer's `out=` form
@@ -28,21 +30,24 @@ Phases, one line each (more for the parity and scene phases):
               times by CUDA
               events beside each call's bound (bytes over 3.35 TB/s or f32
               operations over 67 TFLOP/s); and the kernel launches each
-              K2, K5 and K6 call makes, read from the C counters: one for
-              K2's one-block route (20^3), for K5 up to 8 blur passes (12
-              take two) and for each K6 call, one a pass of k >= 2 sweeps
-              on K2's blocked route
+              K2f, K2, K5 and K6 call makes, read from the C counters: one
+              for each K2f call (its own counter), for K2's one-block route
+              (20^3), for K5 up to 8 blur passes (12 take two) and for
+              each K6 call, one a pass of k >= 2 sweeps on K2's blocked
+              route
   4 reference FluidConfig.reference_scene() (20^3, 1M particles), 20 steps,
               invariants; then 3 steps with the kernels and 3 with
               pallas_mode="off" from the same state must agree
   5 bench     FluidConfig.scaled_scene(128) (1M particles), 1 warm-up and
               10 timed steps, invariants, steps/s
-  6 launches  every kernel ran during phases 4 and 5
+  6 launches  every kernel ran during phases 4 and 5, K2f once for each
+              K2 solve
   7 large     FluidConfig.scaled_scene(256) (1M particles, 512^3 detailed
               grid, grid_fused on), 1 warm-up and 5 timed steps,
               invariants, steps/s, and every kernel, K6 included, launched
               in it (K6 also by its C counter: one launch a wrapper call,
-              the max-pool taken into K6a), and no plain condition mask or
+              the max-pool taken into K6a; K2f by its own: one launch a
+              solve), and no plain condition mask or
               occupancy scatter run beside K1 and K3+K4; then 2 steps with
               the kernels
               and 2 with
@@ -60,8 +65,8 @@ Phases, one line each (more for the parity and scene phases):
               for 2 steps: the
               gathered state must equal 2 single-device steps from the
               same initial state bitwise in every field, hold the
-              invariants, and every halo-form kernel must have launched on
-              every rank (K6 also by its C counter).  Its steps/s measures
+              invariants, and every halo-form kernel and K2f must have
+              launched on every rank (K6 also by its C counter).  Its steps/s measures
               the host-staged transport, not the port.
   9 domain    domain-sharded particles (particle_sharding="domain",
               tpu_fluid_torch/parallel/particles_domain.py): first K3+K4's
@@ -107,7 +112,7 @@ Phases, one line each (more for the parity and scene phases):
               sphere and a vortex force).  Each: 5 eager steps with the
               invariants (for (a) K2 called twice on the corrected steps
               0 and 4, once on the others, with the volume solve's
-              launches); the same steps with pallas_mode="off" within the
+              launches; K2f as often as K2); the same steps with pallas_mode="off" within the
               step tolerances; 3 jit_step replays and a jit_multi_step of
               3 against 3 eager steps, every field bitwise, from the state
               after 2 steps (for (a) from the steps at phases 0 and 1 of
@@ -116,7 +121,7 @@ Phases, one line each (more for the parity and scene phases):
               jit_step and jit_multi_step ms a step (medians of 8, CUDA
               events; for (a) corrected and uncorrected steps apart) and
               each capture's pool and residual hand-over (fields,
-              bytes).  At (a) K2 on the volume solve's folded
+              bytes).  At (a) K2f and K2 on the volume solve's
               inputs and K3+K4 on vel + drift against their plain
               versions bitwise, and the correction's parts timed; at (b)
               the plain level set against K5's stage.  Then
@@ -274,6 +279,10 @@ HALO_SOURCES = {
         "tpu_fluid/kernels/grid_fused.py:473 (project_pallas, halo form; "
         "pallas_call in _call :340)"),
 }
+# K2f's special divergences: NaN, infinities, zeros of both signs, values
+# that overflow once scaled, the smallest subnormal.
+SPECIAL_DIV = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0, 3e38, -3e38,
+                        1e-45], dtype=np.float32)
 # K3+K4's extreme positions (x, y, z): NaN, infinities, beyond 2^31 once
 # scaled, inside (-1, 0), and beside the grid's upper faces.
 EXTREME_POSITIONS = (
@@ -317,12 +326,15 @@ def _pass_ops(args, kw, outs):
 # f32 operations a call needs, counted from each kernel's arithmetic (adds,
 # multiplies, divisions, min/max; index and integer work not counted):
 # K1 65 a component a cell (face velocity, clamped back-trace, 8 weighted
-# taps); K2 7 a cell a sweep (5 adds, a multiply, an add); K3+K4 113 a
+# taps); K2f 5 a cell (the scale, n_air * boundary, the subtraction, the
+# clamp, the division); K2 7 a cell a sweep (5 adds, a multiply, an add);
+# K3+K4 113 a
 # particle (hat weights, 24 weighted taps, the move, the 3 products of the
 # occupancy index); K5 4 a cell for the
 # signed field and 8 a cell a blur pass; K6a 15, K6b 15 and K6c 9 a cell.
 OPS = {
     "advect_all_cuda": lambda a, kw, o: 65 * o[0].numel(),
+    "jacobi_fold_cuda": lambda a, kw, o: 5 * a[0].numel(),
     "jacobi_sweeps_cuda": lambda a, kw, o: 7 * a[0].numel() * a[3],
     "jacobi_pass_cuda": _pass_ops,
     "particle_move_cuda": lambda a, kw, o: 113 * o[0].shape[0],
@@ -533,13 +545,14 @@ def kernel_cases(device, scenes):
     K6 cases at the scenes whose config turns grid_fused on."""
     from tpu_fluid_torch.kernels.advect import (advect_all_cuda,
                                                 advect_from_types_plain)
-    from tpu_fluid_torch.kernels.jacobi import (jacobi_sweeps_cuda,
+    from tpu_fluid_torch.kernels.jacobi import (jacobi_fold_cuda,
+                                                jacobi_fold_plain,
+                                                jacobi_sweeps_cuda,
                                                 jacobi_sweeps_plain)
     from tpu_fluid_torch.kernels.particle_move import (
         particle_move_cuda, particle_move_occupancy_plain)
     from tpu_fluid_torch.kernels.surface_fused import (surface_fused_cuda,
                                                        surface_fused_plain)
-    from tpu_fluid_torch.stages.pressure import jacobi_fold
     from tpu_fluid_torch.stages.surface_fields import solid_parent_mask
 
     def t(a):
@@ -555,12 +568,15 @@ def kernel_cases(device, scenes):
         cases.append((scene, advect_all_cuda, advect_from_types_plain,
                       (vel, t(random_types(rng, n)),
                        cfg.advect_max_displacement, cfg.dt), {}))
-        # K2: the folded inputs of a real solve on a plausible cell field
+        # K2f: the fold of a plausible cell field and a divergence; K2:
+        # the folded inputs of that solve
         types = t(random_types(rng, n))
-        rhs = t((rng.standard_normal((n, n, n)) * 100).astype(np.float32))
-        _, q0, code, c2 = jacobi_fold(types, rhs, cfg, cfg.air_pressure)
+        div = t(rng.standard_normal((n, n, n)).astype(np.float32))
+        fold = (types, div, solve_scale(cfg), cfg.air_pressure)
+        cases.append((scene, jacobi_fold_cuda, jacobi_fold_plain, fold, {}))
         cases.append((scene, jacobi_sweeps_cuda, jacobi_sweeps_plain,
-                      (q0, code, c2, cfg.jacobi_iters - 1), {}))
+                      jacobi_fold_plain(*fold) + (cfg.jacobi_iters - 1,),
+                      {}))
         # K3+K4: positions around and just outside the grid, the extremes
         # first
         p = cfg.particle_count
@@ -597,18 +613,30 @@ def kernel_cases(device, scenes):
     return cases
 
 
+def solve_scale(cfg) -> float:
+    """The pressure solve's scale of div (`stages/pressure.jacobi_solve`)."""
+    return cfg.fluid_density * cfg.cell_width / cfg.dt
+
+
 def scene_cases(device, cfg, steps: int = 2):
-    """K1 and K3+K4 on the fields of `cfg`'s scene after `steps` steps:
-    its velocity and cell types, its positions and active flags."""
+    """K1, K2f and K3+K4 on the fields of `cfg`'s scene after `steps`
+    steps: its velocity and cell types (and the velocity's divergence),
+    its positions and active flags."""
     from tpu_fluid_torch import initial_state
     from tpu_fluid_torch.kernels.advect import (advect_all_cuda,
                                                 advect_from_types_plain)
+    from tpu_fluid_torch.kernels.jacobi import (jacobi_fold_cuda,
+                                                jacobi_fold_plain)
     from tpu_fluid_torch.kernels.particle_move import (
         particle_move_cuda, particle_move_occupancy_plain)
+    from tpu_fluid_torch.stages.pressure import compute_divergence
     state = run_steps(initial_state(cfg, device), cfg, steps)
     return [(advect_all_cuda, advect_from_types_plain,
              (state.velocity, state.cell_types, cfg.advect_max_displacement,
               cfg.dt), {}),
+            (jacobi_fold_cuda, jacobi_fold_plain,
+             (state.cell_types, compute_divergence(state.velocity),
+              solve_scale(cfg), cfg.air_pressure), {}),
             (particle_move_cuda, particle_move_occupancy_plain,
              (state.velocity, state.positions, state.active, cfg.dt,
               cfg.surface_render_resolution), {})]
@@ -666,9 +694,11 @@ def non_finite_velocity(vel: np.ndarray, rng, device,
 
 
 def odd_cases(device):
-    """K1, K3+K4, K2, K5 and K6 at odd non-cubic shapes: K2 on its
-    one-block route (13, 22, 17) and its blocked route (37, 45, 29), 5
-    sweeps (a remainder pass) and 199; K5 with 0, 1 and 4 blur passes, and
+    """K1, K3+K4, K2f, K2, K5 and K6 at odd non-cubic shapes: K2f on
+    a div with NaN, infinities, -0.0 and huge values, at the pressure
+    solve's boundary and scale and at the volume solve's (0 and 1.0); K2
+    on its one-block route (13, 22, 17) and its blocked route (37, 45, 29),
+    5 sweeps (a remainder pass) and 199; K5 with 0, 1 and 4 blur passes, and
     int32 inertia, and with 12 (a second launch of blur passes only); K6a
     at pools 1, 2 and 3 (several y and z tiles at (37, 45, 29)), K6b and
     K6c; K1 at R = 1, 2 and 3, on finite velocities and with NaNs and
@@ -676,13 +706,14 @@ def odd_cases(device):
     from tpu_fluid_torch import FluidConfig
     from tpu_fluid_torch.kernels.advect import (advect_all_cuda,
                                                 advect_from_types_plain)
-    from tpu_fluid_torch.kernels.jacobi import (jacobi_sweeps_cuda,
+    from tpu_fluid_torch.kernels.jacobi import (jacobi_fold_cuda,
+                                                jacobi_fold_plain,
+                                                jacobi_sweeps_cuda,
                                                 jacobi_sweeps_plain)
     from tpu_fluid_torch.kernels.particle_move import (
         particle_move_cuda, particle_move_occupancy_plain)
     from tpu_fluid_torch.kernels.surface_fused import (surface_fused_cuda,
                                                        surface_fused_plain)
-    from tpu_fluid_torch.stages.pressure import jacobi_fold
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -695,11 +726,21 @@ def odd_cases(device):
         types[0], types[-1], types[:, 0], types[:, -1] = (3,) * 4
         types[:, :, 0], types[:, :, -1] = 3, 3
         rhs = (rng.standard_normal(shape) * 100).astype(np.float32)
-        _, q0, code, c2 = jacobi_fold(t(types), t(rhs), cfg,
-                                      cfg.air_pressure)
+        folded = jacobi_fold_plain(t(types), t(rhs), 1.0, cfg.air_pressure)
         for n in (5, 199):
             cases.append((f"{shape} n={n}", jacobi_sweeps_cuda,
-                          jacobi_sweeps_plain, (q0, code, c2, n), {}))
+                          jacobi_sweeps_plain, folded + (n,), {}))
+        # its own generator: the other cases' inputs stay as they were
+        special = np.random.default_rng(SEED + 21)
+        bad = rhs / 100
+        bad.reshape(-1)[special.choice(bad.size, 4 * len(SPECIAL_DIV),
+                                       replace=False)] = np.resize(
+            SPECIAL_DIV, 4 * len(SPECIAL_DIV))
+        for boundary, scale in ((cfg.air_pressure, solve_scale(cfg)),
+                                (0.0, 1.0)):
+            cases.append((f"{shape} boundary={boundary} non-finite div",
+                          jacobi_fold_cuda, jacobi_fold_plain,
+                          (t(types), t(bad), scale, boundary), {}))
         for steps, dtype, top in ((0, np.uint8, 100), (1, np.uint8, 100),
                                   (4, np.uint8, 100), (4, np.int32, 300),
                                   (12, np.uint8, 100)):
@@ -742,7 +783,8 @@ def expected_device_launches(kernel, args, kw) -> tuple:
     wrapper's plan."""
     from tpu_fluid_torch.kernels import build, tiling
     sms = build.sm_count(args[0].device.index)
-    if kernel.__module__.endswith("grid_fused"):
+    if kernel.__module__.endswith("grid_fused") or \
+            kernel.__name__ == "jacobi_fold_cuda":
         return 1, "one pass"
     if kernel.__name__ == "jacobi_sweeps_cuda":
         plan = tiling.jacobi_plan(args[0].shape, args[3], sms=sms)
@@ -760,10 +802,12 @@ def expected_device_launches(kernel, args, kw) -> tuple:
 
 
 def device_launch_counter(kernel):
-    """The C launch counter behind K2's, K5's and K6's wrappers, else
-    None."""
+    """The C launch counter behind K2f's, K2's, K5's and K6's wrappers,
+    else None."""
     from tpu_fluid_torch.kernels import grid_fused, jacobi, surface_fused
     name = kernel.__name__
+    if name == "jacobi_fold_cuda":
+        return jacobi.fold_launches
     if name.startswith("jacobi_"):
         return jacobi.device_launches
     if name.startswith("surface_fused"):
@@ -775,7 +819,7 @@ def device_launch_counter(kernel):
 
 def run_case(label: str, kernel, plain, args, kw, reps: int) -> dict:
     """Hold one kernel call against its plain version bitwise; time both;
-    compute the bound; for K2, K5 and K6, count the launches the call
+    compute the bound; for K2f, K2, K5 and K6, count the launches the call
     made."""
     name = kernel.__name__
     counter = device_launch_counter(kernel)
@@ -829,6 +873,10 @@ def phase_parity(device, scenes) -> dict:
         entry[f"{scene} scene"] = r
     torch.cuda.empty_cache()
     nan_axes(device)
+    k2f = results["jacobi_fold_cuda"]["large"]
+    print(f"[3 parity] K2f at 256^3: {k2f['ms']!r} ms a launch, "
+          f"{k2f['bound_ms'] / k2f['ms']!r} of its {k2f['bound_ms']!r} ms "
+          f"bound ({k2f['bound_by']})", flush=True)
     k2 = results["jacobi_sweeps_cuda"]
     check(k2["reference"]["launches"] == 1,
           "the one-block route did not solve 20^3 in one launch")
@@ -975,12 +1023,12 @@ def halo_cases(device, cfg, shards: int = SHARDS, parity=PARITY_SHARDS):
     from tpu_fluid_torch.kernels import grid_fused as k6
     from tpu_fluid_torch.kernels.advect import (advect_all_halo_cuda,
                                                 advect_from_types_halo_plain)
-    from tpu_fluid_torch.kernels.jacobi import (SHARDED_K, fold_c2e,
+    from tpu_fluid_torch.kernels.jacobi import (SHARDED_K,
+                                                jacobi_fold_plain,
                                                 jacobi_pass_cuda,
                                                 jacobi_pass_plain)
     from tpu_fluid_torch.kernels.surface_fused import (
         surface_fused_halo_cuda, surface_fused_halo_plain)
-    from tpu_fluid_torch.stages.pressure import jacobi_fold
     from tpu_fluid_torch.stages.surface_fields import solid_parent_mask
 
     gx, gy, gz = cfg.grid_size
@@ -1035,9 +1083,7 @@ def halo_cases(device, cfg, shards: int = SHARDS, parity=PARITY_SHARDS):
         k = SHARDED_K
         rhs = torch.from_numpy((rng.standard_normal((lx + 2 * k, gy, gz))
                                 * 100).astype(np.float32)).to(device)
-        _, q0, code, c2 = jacobi_fold(types_rows(k), rhs, cfg,
-                                      cfg.air_pressure)
-        ext = [q0, code, fold_c2e(q0, code, c2)]
+        ext = jacobi_fold_plain(types_rows(k), rhs, 1.0, cfg.air_pressure)
         x = torch.arange(x0 - k, x0 + lx + k, device=device)
         outside = ((x < 0) | (x >= gx)).reshape(-1, 1, 1)
         ext = [torch.where(outside, torch.zeros_like(a), a) for a in ext]
@@ -1153,12 +1199,14 @@ def phase_halo_parity(device, cfg) -> dict:
 def halo_wrappers():
     from tpu_fluid_torch.kernels import grid_fused as k6
     from tpu_fluid_torch.kernels.advect import advect_all_halo_cuda
-    from tpu_fluid_torch.kernels.jacobi import jacobi_pass_cuda
+    from tpu_fluid_torch.kernels.jacobi import (jacobi_fold_cuda,
+                                                jacobi_pass_cuda)
     from tpu_fluid_torch.kernels.particle_move import particle_move_cuda
     from tpu_fluid_torch.kernels.surface_fused import surface_fused_halo_cuda
-    return (advect_all_halo_cuda, jacobi_pass_cuda, surface_fused_halo_cuda,
-            k6.classify_extrap_halo_cuda, k6.forces_solids_div_halo_cuda,
-            k6.project_halo_cuda, particle_move_cuda)
+    return (advect_all_halo_cuda, jacobi_fold_cuda, jacobi_pass_cuda,
+            surface_fused_halo_cuda, k6.classify_extrap_halo_cuda,
+            k6.forces_solids_div_halo_cuda, k6.project_halo_cuda,
+            particle_move_cuda)
 
 
 def sharded_rank(rank, n, init_method, cfg, device):
@@ -1737,9 +1785,9 @@ VOLUME = dict(volume_correction=1.0, volume_correction_every=PHYSICS_EVERY,
 PHYSICS_SHARDED_GRID = 64
 PHYSICS_SHARDED_PARTICLES = 250_000
 # the kernels each configuration's single-device path must launch and
-# must not: the level set skips K5, the red-black solver K2
+# must not: the level set skips K5, the red-black solver K2f and K2
 PHYSICS_SKIPS = {"levelset": ("surface_fused_cuda",),
-                 "redblack": ("jacobi_sweeps_cuda",)}
+                 "redblack": ("jacobi_fold_cuda", "jacobi_sweeps_cuda")}
 
 
 def physics_configs(bench_cfg):
@@ -1816,26 +1864,30 @@ def timed_calls(fn, state, reps: int, n_steps: int,
 
 
 def physics_parity(device, cfg, state, label: str) -> dict:
-    """(a)'s kernels on their own inputs at this state: K2 on the volume
-    solve's folded inputs (boundary 0, volume_jacobi_iters sweeps) and
-    K3+K4 on the corrected move velocity, each bitwise against its plain
-    version; then the corrected step's parts timed apart: the histogram,
-    the volume potential (fold and K2), the drift."""
-    from tpu_fluid_torch.kernels.jacobi import (jacobi_sweeps_cuda,
+    """(a)'s kernels on their own inputs at this state: K2f on the volume
+    solve's density error (boundary 0, scale 1.0), K2 on its folded inputs
+    (volume_jacobi_iters sweeps) and K3+K4 on the corrected move velocity,
+    each bitwise against its plain version; then the corrected step's
+    parts timed apart: the histogram, the volume potential (K2f and K2),
+    the drift."""
+    from tpu_fluid_torch.kernels.jacobi import (jacobi_fold_cuda,
+                                                jacobi_fold_plain,
+                                                jacobi_sweeps_cuda,
                                                 jacobi_sweeps_plain)
     from tpu_fluid_torch.kernels.particle_move import (
         particle_move_cuda, particle_move_occupancy_plain)
     from tpu_fluid_torch.ops.scatter import particle_cell_histogram
     from tpu_fluid_torch.stages import volume
-    from tpu_fluid_torch.stages.pressure import jacobi_fold
     types = state.cell_types
     counts = particle_cell_histogram(state.positions, state.active,
                                      cfg.grid_size)
-    _, q0, code, c2 = jacobi_fold(
-        types, volume.density_error(counts, types, cfg), cfg, 0.0)
+    fold = (types, volume.density_error(counts, types, cfg), 1.0, 0.0)
+    k2f = run_case(f"{label} volume fold", jacobi_fold_cuda,
+                   jacobi_fold_plain, fold, {}, 20)
     k2 = run_case(f"{label} volume solve", jacobi_sweeps_cuda,
-                  jacobi_sweeps_plain, (q0, code, c2, cfg.volume_jacobi_iters),
-                  {}, 20)
+                  jacobi_sweeps_plain,
+                  jacobi_fold_plain(*fold) + (cfg.volume_jacobi_iters,), {},
+                  20)
     move_vel = volume.corrected_move_velocity(
         state.velocity, state.positions, state.active, types, cfg)
     k34 = run_case(f"{label} vel + drift", particle_move_cuda,
@@ -1855,7 +1907,7 @@ def physics_parity(device, cfg, state, label: str) -> dict:
     print(f"[{label}] the correction's parts, device ms a call (10 calls "
           f"in one CUDA graph): {parts}; K2 alone on the volume solve "
           f"{k2['ms']!r}", flush=True)
-    return {"k2": k2, "k34": k34, "parts": parts}
+    return {"k2f": k2f, "k2": k2, "k34": k34, "parts": parts}
 
 
 def levelset_parts(device, cfg, state, label: str) -> dict:
@@ -1893,7 +1945,8 @@ def physics_case(device, name, cfg, with_scene, wrappers, card) -> dict:
 
     from tpu_fluid_torch import initial_state, jit_multi_step, jit_step, step
     from tpu_fluid_torch.kernels import jacobi
-    from tpu_fluid_torch.kernels.jacobi import jacobi_sweeps_cuda
+    from tpu_fluid_torch.kernels.jacobi import (jacobi_fold_cuda,
+                                                jacobi_sweeps_cuda)
     from tpu_fluid_torch.solver import graph
     label = f"11 physics {name}"
     scene = physics_scene(cfg, device) if with_scene else None
@@ -1918,6 +1971,9 @@ def physics_case(device, name, cfg, with_scene, wrappers, card) -> dict:
     check(all((v == 0) == (k in skips) for k, v in launches.items()),
           f"{label}: the path's kernels {launches}, expected none of "
           f"{skips} and all others")
+    check(jacobi_fold_cuda.launches == jacobi_sweeps_cuda.launches,
+          f"{label}: {jacobi_fold_cuda.launches} K2f calls for "
+          f"{jacobi_sweeps_cuda.launches} K2 solves")
     if name == "volume":
         due = [k % PHYSICS_EVERY == 0 for k in range(PHYSICS_STEPS)]
         check(k2_calls == [2 if d else 1 for d in due],
@@ -2388,14 +2444,15 @@ SPMD_RANK_TIMEOUT = 300.0
 
 def spmd_wrappers(cfg) -> tuple:
     """The kernel wrappers the 1-rank SPMD form of `cfg` launches: K1's,
-    K5's and K6's halo forms (K6 where grid_fused is on), K2's sharded
-    pass, and K3+K4 (index sharding) or its local-slab form (domain)."""
+    K5's and K6's halo forms (K6 where grid_fused is on), K2f, K2's
+    sharded pass, and K3+K4 (index sharding) or its local-slab form
+    (domain)."""
     from tpu_fluid_torch.kernels.particle_move import particle_move_local_cuda
-    k1, k2, k5, k6a, k6b, k6c, k34 = halo_wrappers()
+    k1, k2f, k2, k5, k6a, k6b, k6c, k34 = halo_wrappers()
     move = k34 if cfg.particle_sharding == "index" else \
         particle_move_local_cuda
-    return (k1, k2, k5) + ((k6a, k6b, k6c) if cfg.grid_fused else ()) + \
-        (move,)
+    return (k1, k2f, k2, k5) + ((k6a, k6b, k6c) if cfg.grid_fused
+                                else ()) + (move,)
 
 
 def spmd_differences(got, want, cfg) -> list:
@@ -2905,11 +2962,13 @@ def main(argv) -> int:
     from tpu_fluid_torch.kernels.grid_fused import (classify_extrap_cuda,
                                                     forces_solids_div_cuda,
                                                     project_cuda)
-    from tpu_fluid_torch.kernels.jacobi import jacobi_sweeps_cuda
+    from tpu_fluid_torch.kernels import jacobi
+    from tpu_fluid_torch.kernels.jacobi import (jacobi_fold_cuda,
+                                                jacobi_sweeps_cuda)
     from tpu_fluid_torch.kernels.particle_move import particle_move_cuda
     from tpu_fluid_torch.kernels.surface_fused import surface_fused_cuda
-    wrappers = (advect_all_cuda, jacobi_sweeps_cuda, particle_move_cuda,
-                surface_fused_cuda)
+    wrappers = (advect_all_cuda, jacobi_fold_cuda, jacobi_sweeps_cuda,
+                particle_move_cuda, surface_fused_cuda)
     fused_wrappers = (classify_extrap_cuda, forces_solids_div_cuda,
                       project_cuda)
     sources = {
@@ -2922,6 +2981,11 @@ def main(argv) -> int:
                             "(advect_one_pallas, covered), "
                             "tpu_fluid/kernels/advect.py:369 "
                             "(advect_component_pallas, covered)"),
+        "jacobi_fold_cuda": ("tpu_fluid_torch/csrc/jacobi_fold.cu",
+                             "none: JAX folds with XLA, "
+                             "tpu_fluid/stages/pressure.py:35 (jacobi_stats) "
+                             "and :84 (poisson_solve); replaces the port's "
+                             "plain fold"),
         "jacobi_sweeps_cuda": ("tpu_fluid_torch/csrc/jacobi.cu",
                                "tpu_fluid/kernels/jacobi.py:192, "
                                "tpu_fluid/kernels/jacobi.py:263 "
@@ -3001,10 +3065,13 @@ def main(argv) -> int:
           f"1 warm-up: {bench_sps!r} steps/s on {card}", flush=True)
     check_invariants(state, bench_cfg, ymax0, "5 bench")
 
-    # 6: every kernel of the path launched in phases 4 and 5
+    # 6: every kernel of the path launched in phases 4 and 5, K2f once a
+    # solve
     print(f"[6 launches] phases 4-5: {launches}", flush=True)
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path never launched: {launches}")
+    check(launches["jacobi_fold_cuda"] == launches["jacobi_sweeps_cuda"],
+          f"K2f and K2 calls differ in phases 4-5: {launches}")
     del state, with_kernels, plain
 
     # 7: large scene, the grid_fused path of scaled_scene(256)
@@ -3013,6 +3080,7 @@ def main(argv) -> int:
     plain_passes = PlainPasses()
     reset_launches(wrappers + fused_wrappers)
     k6_before = k6_device_launches(device)
+    k2f_before = jacobi.fold_launches()
     state = run_steps(state, large_cfg, 1)
     start.record()
     state = run_steps(state, large_cfg, LARGE_STEPS)
@@ -3020,6 +3088,7 @@ def main(argv) -> int:
     torch.cuda.synchronize()
     large_launches = read_launches(wrappers + fused_wrappers)
     k6_device = k6_device_launches(device) - k6_before
+    k2f_device = jacobi.fold_launches() - k2f_before
     passes = plain_passes.take()
     print(f"[7 large] plain passes K1 and K3+K4 took in, calls in "
           f"{LARGE_STEPS + 1} steps: {passes}", flush=True)
@@ -3034,6 +3103,13 @@ def main(argv) -> int:
     check(all(v > 0 for v in large_launches.values()),
           f"a kernel of the large path never launched: {large_launches}")
     check_k6_device("7 large", k6_device, large_launches)
+    print(f"[6 launches] phase 7: K2f C counter {k2f_device} for "
+          f"{large_launches['jacobi_sweeps_cuda']} K2 solves", flush=True)
+    check(k2f_device == large_launches["jacobi_fold_cuda"]
+          == large_launches["jacobi_sweeps_cuda"] == LARGE_STEPS + 1,
+          f"7 large: K2f launched {k2f_device} times by its C counter, "
+          f"{large_launches['jacobi_fold_cuda']} wrapper calls, for "
+          f"{large_launches['jacobi_sweeps_cuda']} K2 solves")
     for name, count in large_launches.items():
         launches[name] = launches.get(name, 0) + count
     with_kernels = run_steps(state, large_cfg, LARGE_COMPARE_STEPS)

@@ -50,7 +50,8 @@ from tpu_fluid_torch.kernels.grid_fused import (
     classify_extrap_plain, forces_solids_div_halo_cuda,
     forces_solids_div_halo_plain, forces_solids_div_plain, project_halo_cuda,
     project_halo_plain, project_plain)
-from tpu_fluid_torch.kernels.jacobi import (fold_c2e, jacobi_pass_cuda,
+from tpu_fluid_torch.kernels.jacobi import (jacobi_fold_plain,
+                                            jacobi_pass_cuda,
                                             jacobi_pass_plain,
                                             jacobi_sweeps_plain)
 from tpu_fluid_torch.kernels.particle_move import (particle_move_local_cuda,
@@ -59,7 +60,6 @@ from tpu_fluid_torch.kernels.particle_move import (particle_move_local_cuda,
 from tpu_fluid_torch.kernels.surface_fused import (surface_fused_halo_cuda,
                                                    surface_fused_halo_plain,
                                                    surface_fused_plain)
-from tpu_fluid_torch.stages.pressure import jacobi_fold
 from tpu_fluid_torch.stages.surface_fields import solid_parent_mask
 
 torch.set_num_threads(2)
@@ -356,15 +356,14 @@ def test_jacobi_pass_equals_single_device_rows(shard):
     r = np.random.default_rng(11)
     types = T(random_types(r, GRID))
     rhs = T((r.standard_normal(GRID) * 50).astype(np.float32))
-    _, q0, code, c2 = jacobi_fold(types, rhs, FluidConfig(), 1.0)
-    c2e = fold_c2e(q0, code, c2)
+    q0, code, c2e = jacobi_fold_plain(types, rhs, 1.0, 1.0)
     lx = GRID[0] // N_SHARDS
     h = 4
     for kk in (1, 3, 4):
         ext = [torch.cat([T(q[1][0]), T(q[0]), T(q[1][1])]) for q in
                (slab(a.numpy(), shard, h=h) for a in (q0, code, c2e))]
         got = jacobi_pass_plain(*ext, h, kk)
-        same(got, jacobi_sweeps_plain(q0, code, c2, kk)[
+        same(got, jacobi_sweeps_plain(q0, code, c2e, kk)[
             shard * lx:(shard + 1) * lx])
 
 
@@ -459,13 +458,11 @@ def halo_calls(device):
                                            for q in parts),
                                x0=x0, global_gx=GRID[0])))
         r = np.random.default_rng(50 + shard)
-        _, q0, code, c2 = jacobi_fold(
+        folded = jacobi_fold_plain(
             T(random_types(r, GRID)),
-            T((r.standard_normal(GRID) * 50).astype(np.float32)),
-            FluidConfig(), 1.0)
+            T((r.standard_normal(GRID) * 50).astype(np.float32)), 1.0, 1.0)
         ext = [torch.cat([T(q[1][0]), T(q[0]), T(q[1][1])]).to(device)
-               for q in (slab(a.numpy(), shard, h=3)
-                         for a in (q0, code, fold_c2e(q0, code, c2)))]
+               for q in (slab(a.numpy(), shard, h=3) for a in folded)]
         calls.append((jacobi_pass_cuda, jacobi_pass_plain,
                       tuple(ext) + (3, 3), {}))
         _, vel_e, pos, act, x0, _ = local_particle_case(shard, 70 + shard)
@@ -485,13 +482,11 @@ def halo_calls(device):
                            x0=shard * fields[0].shape[0] // N_SHARDS,
                            global_gx=fields[0].shape[0], **kw)))
         r = np.random.default_rng(90 + shard)
-        _, q0, code, c2 = jacobi_fold(
+        folded = jacobi_fold_plain(
             T(random_types(r, GRID)),
-            T((r.standard_normal(GRID) * 50).astype(np.float32)),
-            FluidConfig(), 1.0)
+            T((r.standard_normal(GRID) * 50).astype(np.float32)), 1.0, 1.0)
         ext = [torch.cat([T(q[1][0]), T(q[0]), T(q[1][1])]).to(device)
-               for q in (slab(a.numpy(), shard, h=h)
-                         for a in (q0, code, fold_c2e(q0, code, c2)))]
+               for q in (slab(a.numpy(), shard, h=h) for a in folded)]
         calls.append((jacobi_pass_cuda, jacobi_pass_plain,
                       tuple(ext) + (h, kk), {}))
     # K6a, K6b and K6c at every shard of an odd grid split 3 ways: 13-row

@@ -41,14 +41,15 @@ from tpu_fluid_torch.kernels.advect import (advect_all_cuda,
                                             advect_all_plain,
                                             advect_from_types_plain,
                                             face_center_velocity)
-from tpu_fluid_torch.kernels.jacobi import (jacobi_sweeps_cuda,
+from tpu_fluid_torch.kernels.jacobi import (jacobi_fold_cuda,
+                                            jacobi_fold_plain,
+                                            jacobi_sweeps_cuda,
                                             jacobi_sweeps_plain)
 from tpu_fluid_torch.kernels.particle_move import (
     particle_move_cuda, particle_move_occupancy_plain, particle_move_plain)
 from tpu_fluid_torch.kernels.surface_fused import (surface_fused_cuda,
                                                    surface_fused_plain)
 from tpu_fluid_torch.ops.packed_sampler import build_packed_table
-from tpu_fluid_torch.stages.pressure import jacobi_fold
 from tpu_fluid_torch.stages.surface_fields import solid_parent_mask
 
 torch.set_num_threads(2)
@@ -87,12 +88,13 @@ def advect_inputs(shape, seed):
 
 
 def jacobi_inputs(n, seed):
+    """(q0, code, c2e): K2's folded inputs.  JAX's sweeps fold c2
+    themselves, and c2e folds to itself."""
     shape = n if isinstance(n, tuple) else (n, n, n)
     r = np.random.default_rng(seed)
     types = T(random_types(r, shape))
-    rhs = T((r.standard_normal(shape) * 50).astype(np.float32))
-    _, q0, code, c2 = jacobi_fold(types, rhs, FluidConfig(), 1.0)
-    return q0, code, c2
+    div = T((r.standard_normal(shape) * 50).astype(np.float32))
+    return jacobi_fold_plain(types, div, 1.0, 1.0)
 
 
 def particle_inputs(shape, p, seed):
@@ -219,11 +221,11 @@ def test_advect_from_types_non_finite_matches_jax(shape):
 # ------------------------------------------------------------------ K2
 @pytest.mark.parametrize("n,iters", [(12, 17), (16, 9)])
 def test_jacobi_plain_matches_pallas_interpret(n, iters):
-    q0, code, c2 = jacobi_inputs(n, 1)
-    got = jacobi_sweeps_plain(q0, code, c2, iters)
+    q0, code, c2e = jacobi_inputs(n, 1)
+    got = jacobi_sweeps_plain(q0, code, c2e, iters)
     want = jacobi_sweeps_pallas(jnp.asarray(q0.numpy()),
                                 jnp.asarray(code.numpy()),
-                                jnp.asarray(c2.numpy()), iters,
+                                jnp.asarray(c2e.numpy()), iters,
                                 interpret=True, whole_grid=True)
     same(got, want, ulp=1)
 
@@ -234,18 +236,18 @@ def test_jacobi_slab_branch_is_covered_by_k2(k, iters):
     against K2's plain version on the u8 code: k = 4 reads its halos
     directly (4 | tx), k = 3 materialises them, and 11 = 2 * 4 + 3 sweeps
     end in a remainder pass of 3."""
-    q0, code, c2 = jacobi_inputs(16, 17)
-    got = jacobi_sweeps_plain(q0, code, c2, iters)
+    q0, code, c2e = jacobi_inputs(16, 17)
+    got = jacobi_sweeps_plain(q0, code, c2e, iters)
     want = jacobi_sweeps_pallas(jnp.asarray(q0.numpy()),
                                 jnp.asarray(code.numpy()),
-                                jnp.asarray(c2.numpy()), iters, k=k, tx=16,
+                                jnp.asarray(c2e.numpy()), iters, k=k, tx=16,
                                 interpret=True, whole_grid=False)
     same(got, want, ulp=1)
 
 
 def test_jacobi_zero_iterations_is_identity():
-    q0, code, c2 = jacobi_inputs(6, 2)
-    same(jacobi_sweeps_plain(q0, code, c2, 0), q0.numpy())
+    q0, code, c2e = jacobi_inputs(6, 2)
+    same(jacobi_sweeps_plain(q0, code, c2e, 0), q0.numpy())
 
 
 # ------------------------------------------------------------------ K3+K4
@@ -377,6 +379,8 @@ def test_surface_plain_noncubic_obstacles(inertia_dtype):
 # in one launch, 12 and 17 in two and three, u8 and int32 inertia
 ODD_JACOBI = [((13, 22, 17), 5), ((13, 22, 17), 199), ((37, 45, 29), 5),
               ((37, 45, 29), 199)]
+# K2f on finite div (tests/test_torch_jacobi_fold.py takes the non-finite)
+FOLD_SHAPES = [(6, 7, 8), (13, 22, 17), (37, 45, 29)]
 ODD_SURFACE = [(0, np.uint8), (1, np.int32), (4, np.uint8), (4, np.int32),
                (6, np.uint8), (8, np.int32), (12, np.uint8), (17, np.int32)]
 
@@ -384,10 +388,10 @@ ODD_SURFACE = [(0, np.uint8), (1, np.int32), (4, np.uint8), (4, np.int32),
 def _wrapper_calls(device="cpu"):
     """(wrapper, plain, args, kwargs) at small shapes, then K2 and K5 at
     the odd shapes, then K6a at pools 1-3, K6b and K6c at the odd
-    shapes."""
+    shapes, then K2f at a small and the odd shapes."""
     vel, _ = advect_inputs((6, 7, 8), 7)
     types = random_types(np.random.default_rng(7), (6, 7, 8))
-    q0, code, c2 = jacobi_inputs(6, 8)
+    q0, code, c2e = jacobi_inputs(6, 8)
     pvel, pos, act = particle_inputs((6, 7, 8), 300, 9)
     cfg = FluidConfig(grid_size=(4, 5, 6), surface_render_resolution=2)
     occ, inertia, f2, skip = surface_inputs(cfg, 10)
@@ -399,7 +403,7 @@ def _wrapper_calls(device="cpu"):
     return [
         (advect_all_cuda, advect_from_types_plain,
          dev(vel, types) + (2, 0.01), {}),
-        (jacobi_sweeps_cuda, jacobi_sweeps_plain, dev(q0, code, c2) + (5,),
+        (jacobi_sweeps_cuda, jacobi_sweeps_plain, dev(q0, code, c2e) + (5,),
          {}),
         (particle_move_cuda, particle_move_occupancy_plain,
          dev(pvel, pos, act) + (0.01, 2), {}),
@@ -414,7 +418,16 @@ def _wrapper_calls(device="cpu"):
          dev(*surface_inputs(odd_surface_cfg(steps, dtype), 30 + i, dtype)),
          surface_kw(odd_surface_cfg(steps, dtype)))
         for i, (steps, dtype) in enumerate(ODD_SURFACE)] + \
-        odd_grid_fused_calls(device)
+        odd_grid_fused_calls(device) + [
+        (jacobi_fold_cuda, jacobi_fold_plain,
+         dev(*fold_inputs(shape, 40 + i)) + (100.0, 1.0), {})
+        for i, shape in enumerate(FOLD_SHAPES)]
+
+
+def fold_inputs(shape, seed):
+    r = np.random.default_rng(seed)
+    return (random_types(r, shape),
+            (r.standard_normal(shape) * 50).astype(np.float32))
 
 
 def odd_surface_cfg(steps, inertia_dtype):
@@ -423,7 +436,7 @@ def odd_surface_cfg(steps, inertia_dtype):
     return cfg.replace(max_inertia=300) if inertia_dtype == np.int32 else cfg
 
 
-N_CALLS = 7 + len(ODD_JACOBI) + len(ODD_SURFACE) + 11
+N_CALLS = 7 + len(ODD_JACOBI) + len(ODD_SURFACE) + 11 + len(FOLD_SHAPES)
 
 
 @pytest.mark.parametrize("case", range(N_CALLS))
@@ -449,9 +462,9 @@ def test_wrappers_reject_bad_inputs():
         advect_all_cuda(vel.transpose(1, 3), types, 2, 0.01)
     with pytest.raises(ValueError):
         advect_all_cuda(vel, types, 8, 0.01)
-    q0, code, c2 = jacobi_inputs(4, 12)
+    q0, code, c2e = jacobi_inputs(4, 12)
     with pytest.raises(TypeError):
-        jacobi_sweeps_cuda(q0, code.to(torch.int32), c2, 3)
+        jacobi_sweeps_cuda(q0, code.to(torch.int32), c2e, 3)
     pvel, pos, act = map(T, particle_inputs((4, 4, 4), 10, 13))
     with pytest.raises(ValueError):
         particle_move_cuda(pvel, pos.T.contiguous(), act, 0.01, 2)
@@ -475,7 +488,8 @@ def test_build_flags_and_sources():
     assert not any("fast_math" in f or "fast-math" in f for f in flags)
     names = [p.name for p in build.sources()]
     assert names == sorted(["advect.cu", "errors.cu", "grid_fused.cu",
-                            "jacobi.cu", "particle_move.cu", "splat.cu",
+                            "jacobi.cu", "jacobi_fold.cu",
+                            "particle_move.cu", "splat.cu",
                             "surface_fused.cu"])
     assert build.LIBRARY.parent == build.BUILD_DIR
     assert build.BUILD_DIR.parts[-2:] == ("build", "tpu_fluid_torch")

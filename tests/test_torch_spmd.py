@@ -28,7 +28,8 @@ from tpu_fluid.solver.step import simulation_step as jax_step
 from tpu_fluid_torch import (FluidConfig, SceneFields, initial_state,
                              solid_sphere, step, vortex_force)
 from tpu_fluid_torch.core.state import state_to_numpy
-from tpu_fluid_torch.kernels.jacobi import (jacobi_sweeps_plain,
+from tpu_fluid_torch.kernels.jacobi import (jacobi_fold_plain,
+                                            jacobi_sweeps_plain,
                                             jacobi_sweeps_sharded_cuda,
                                             jacobi_sweeps_sharded_plain)
 from tpu_fluid_torch.parallel.halo import (all_gather_x, exchange_x_halo,
@@ -42,7 +43,7 @@ from tpu_fluid_torch.parallel.particles_domain import layout_state
 from tpu_fluid_torch.parallel.spmd_step import (jit_spmd_step,
                                                 spmd_multi_step, spmd_step,
                                                 validate_spmd_config)
-from tpu_fluid_torch.stages.pressure import jacobi_fold, jacobi_solve
+from tpu_fluid_torch.stages.pressure import fold_slab, jacobi_solve
 
 torch.set_num_threads(2)
 EPS = np.finfo(np.float32).eps
@@ -126,9 +127,27 @@ def jacobi_scene():
     return torch.from_numpy(t), torch.from_numpy(rhs)
 
 
+def fold_scene():
+    """Cell types of every type with WATER on both x faces, so the slab
+    folds read water across the shard boundaries and past the domain
+    ends; div with NaN, an infinity and -0.0."""
+    r = np.random.default_rng(8)
+    t = r.integers(0, 4, JACOBI_SHAPE).astype(np.uint8)
+    t[0], t[-1] = 2, 2
+    div = (r.standard_normal(JACOBI_SHAPE) * 50).astype(np.float32)
+    div.reshape(-1)[:3] = (np.nan, np.inf, -0.0)
+    return torch.from_numpy(t), torch.from_numpy(div)
+
+
+# (boundary_value, scale): the pressure solve's and the volume solve's
+FOLD_BOUNDARIES = ((JACOBI_CFG.air_pressure, JACOBI_CFG.fluid_density
+                    * JACOBI_CFG.cell_width / JACOBI_CFG.dt), (0.0, 1.0))
+
+
 def jacobi_inputs():
-    _, q0, code, c2 = jacobi_fold(*jacobi_scene(), FluidConfig(), 1.0)
-    return q0, code, c2
+    """(q0, code, c2e): the folded inputs the port's sweeps take.  JAX's
+    sweeps fold c2 themselves, and c2e folds to itself."""
+    return jacobi_fold_plain(*jacobi_scene(), 1.0, 1.0)
 
 
 # ------------------------------------------------------------ rank worker
@@ -154,14 +173,19 @@ def _rank(rank, n, init_method):
             local = run(local)
         full = gather_state(local, mesh)
         out["jit " + name] = state_to_numpy(full) if rank == 0 else None
-    q0, code, c2 = jacobi_inputs()
+    q0, code, c2e = jacobi_inputs()
     lx = JACOBI_SHAPE[0] // n
     sl = slice(rank * lx, (rank + 1) * lx)
-    args = (q0[sl].contiguous(), code[sl].contiguous(), c2[sl].contiguous(),
+    args = (q0[sl].contiguous(), code[sl].contiguous(), c2e[sl].contiguous(),
             JACOBI_ITERS, mesh)
     out["jacobi"] = [jacobi_sweeps_sharded_plain(*args, k=k).numpy()
                      for k in JACOBI_KS]
     out["jacobi_cuda_wrapper"] = jacobi_sweeps_sharded_cuda(*args).numpy()
+    types, div = fold_scene()
+    out["fold_slab"] = [[a.numpy() for a in fold_slab(
+        jacobi_fold_plain, types[sl].contiguous(), div[sl].contiguous(),
+        scale, boundary_value, mesh)]
+        for boundary_value, scale in FOLD_BOUNDARIES]
     types, div = jacobi_scene()
     out["jacobi_solve_halo"] = jacobi_solve_halo(
         mesh, types[sl].contiguous(), div[sl].contiguous(),
@@ -280,8 +304,8 @@ def test_sharded_jacobi_independent_of_k_and_matches_jax(sharded):
     devices) within 1 ULP of the field's scale (XLA:CPU may contract a
     mul+add in the interpreted kernel)."""
     n, ranks = sharded
-    q0, code, c2 = jacobi_inputs()
-    want = jacobi_sweeps_plain(q0, code, c2, JACOBI_ITERS).numpy()
+    q0, code, c2e = jacobi_inputs()
+    want = jacobi_sweeps_plain(q0, code, c2e, JACOBI_ITERS).numpy()
     for i, k in enumerate(JACOBI_KS):
         got = np.concatenate([r["jacobi"][i] for r in ranks])
         np.testing.assert_array_equal(got, want, err_msg=f"k={k}")
@@ -299,9 +323,26 @@ def test_sharded_jacobi_independent_of_k_and_matches_jax(sharded):
                                                k=3, interpret=True),
         mesh=mesh, in_specs=(P("x"),) * 3, out_specs=P("x"),
         check_vma=False)
-    jax_q = np.asarray(fn(*(jnp.asarray(a.numpy()) for a in (q0, code, c2))))
+    jax_q = np.asarray(fn(*(jnp.asarray(a.numpy()) for a in (q0, code, c2e))))
     scale = float(np.abs(jax_q).max())
     np.testing.assert_allclose(want, jax_q, rtol=EPS, atol=EPS * scale)
+
+
+def test_sharded_fold_equals_single_device_bitwise(sharded):
+    """Each shard's fold of its slab with one halo plane of the types
+    (`stages/pressure.fold_slab`) is the single-device fold's rows, bit
+    for bit, NaNs too, at both boundaries."""
+    n, ranks = sharded
+    types, div = fold_scene()
+    for i, (boundary_value, scale) in enumerate(FOLD_BOUNDARIES):
+        want = jacobi_fold_plain(types, div, scale, boundary_value)
+        for j, w in enumerate(want):
+            got = np.concatenate([r["fold_slab"][i][j] for r in ranks])
+            w = w.numpy()
+            assert got.dtype == w.dtype and got.shape == w.shape
+            if w.dtype == np.float32:
+                got, w = got.view(np.int32), w.view(np.int32)
+            np.testing.assert_array_equal(got, w, err_msg=f"{i} {j}")
 
 
 def test_halo_planes_and_collectives(sharded):

@@ -30,13 +30,13 @@ from tpu_fluid_torch.kernels.grid_fused import (
     classify_extrap_halo_plain, classify_extrap_plain,
     forces_solids_div_halo_plain, forces_solids_div_plain,
     project_halo_plain, project_plain)
-from tpu_fluid_torch.kernels.jacobi import (fold_c2e, jacobi_pass_plain,
+from tpu_fluid_torch.kernels.jacobi import (jacobi_fold_plain,
+                                            jacobi_pass_plain,
                                             jacobi_sweeps_plain)
 from tpu_fluid_torch.kernels.surface_fused import (_blur, _surface,
                                                    surface_fused_halo_plain,
                                                    surface_fused_plain)
 from tpu_fluid_torch.parallel.mesh import make_mesh
-from tpu_fluid_torch.stages.pressure import jacobi_fold
 from tpu_fluid_torch.stages.surface_fields import solid_parent_mask
 
 torch.set_num_threads(2)
@@ -87,40 +87,32 @@ def out_rows(p: tiling.Pass) -> int:
 
 
 # ------------------------------------------------------------------ K2
-def emulate_jacobi(plan: tiling.Plan, q0, code, c2, n_iters):
+def emulate_jacobi(plan: tiling.Plan, q0, code, c2e, n_iters):
     """q0 after the plan's sweeps, every block from its own window."""
     if plan.route == "copy":
         return q0
     if plan.route == "whole":
         # one block, whose window is the grid
-        return jacobi_pass_plain(q0, code, fold_c2e(q0, code, c2), 0,
-                                 n_iters)
-    c2e = nan_like(q0, q0.shape[0])
+        return jacobi_pass_plain(q0, code, c2e, 0, n_iters)
     src = q0
     for p in plan.passes:
         dst = nan_like(q0, out_rows(p))
         for box in p.blocks():
             win = window(p, box)
-            if p.fold:
-                ce = fold_c2e(src[win], code[win], c2[win])
-                stitch(p, (c2e,), box, win, (ce,))
-            else:
-                ce = c2[win]
             stitch(p, (dst,), box, win,
-                   (jacobi_pass_plain(src[win], code[win], ce, 0,
+                   (jacobi_pass_plain(src[win], code[win], c2e[win], 0,
                                       p.levels),))
-        if p.fold:
-            c2 = c2e
         src = dst
     return src
 
 
 def jacobi_case(shape, seed):
+    """(q0, code, c2e) of a random cell field: K2f's outputs, which every
+    pass of a plan reads."""
     r = np.random.default_rng(seed)
     types = T(random_types(r, shape))
-    rhs = T((r.standard_normal(shape) * 50).astype(np.float32))
-    _, q0, code, c2 = jacobi_fold(types, rhs, FluidConfig(), 1.0)
-    return q0, code, c2
+    div = T((r.standard_normal(shape) * 50).astype(np.float32))
+    return jacobi_fold_plain(types, div, 1.0, 1.0)
 
 
 @pytest.mark.parametrize("sms", SMS)
@@ -135,26 +127,24 @@ def test_jacobi_blocked_plan_equals_plain(shape, n_iters, sms):
     k does not divide them."""
     k = tiling.BLOCKED_K
     n = k + 1 if n_iters == "k+1" else n_iters
-    q0, code, c2 = jacobi_case(shape, 1)
+    q0, code, c2e = jacobi_case(shape, 1)
     plan = tiling.jacobi_plan(shape, n, sms=sms)
     assert tiling.whole_grid_parts(shape) is None
     if n:
         assert plan.route == "blocked"
         assert [p.levels for p in plan.passes] == \
             [k] * (n // k) + ([n % k] if n % k else [])
-        assert [p.fold for p in plan.passes] == \
-            [True] + [False] * (len(plan.passes) - 1)
-    got = emulate_jacobi(plan, q0, code, c2, n)
-    assert torch.equal(got, jacobi_sweeps_plain(q0, code, c2, n))
+    got = emulate_jacobi(plan, q0, code, c2e, n)
+    assert torch.equal(got, jacobi_sweeps_plain(q0, code, c2e, n))
 
 
 @pytest.mark.parametrize("shape", [(20, 20, 20), (13, 22, 17)])
 def test_jacobi_whole_route_takes_the_small_grids(shape):
     plan = tiling.jacobi_plan(shape, 199)
     assert plan.route == "whole" and plan.passes == () and plan.parts == 2
-    q0, code, c2 = jacobi_case(shape, 4)
-    assert torch.equal(emulate_jacobi(plan, q0, code, c2, 9),
-                       jacobi_sweeps_plain(q0, code, c2, 9))
+    q0, code, c2e = jacobi_case(shape, 4)
+    assert torch.equal(emulate_jacobi(plan, q0, code, c2e, 9),
+                       jacobi_sweeps_plain(q0, code, c2e, 9))
     assert tiling.jacobi_plan(shape, 0).route == "copy"
     assert tiling.jacobi_plan((40, 20, 20), 5).route == "blocked"
     for shape, parts in (((5, 10, 10), 5), ((30, 6, 5), 30),
@@ -182,8 +172,7 @@ def test_jacobi_large_grids_run_k_sweeps_a_launch(n):
 def sharded_slab(shape, shard, h, seed):
     """Shard `shard` of SHARDS of a folded solve's inputs, extended by h
     planes a side, zero planes with code 0 past the domain."""
-    q0, code, c2 = jacobi_case(shape, seed)
-    c2e = fold_c2e(q0, code, c2)
+    q0, code, c2e = jacobi_case(shape, seed)
     lx = shape[0] // SHARDS
     rows = np.arange(shard * lx - h, (shard + 1) * lx + h)
     inside = T((rows >= 0) & (rows < shape[0]))

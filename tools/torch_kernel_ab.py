@@ -18,9 +18,10 @@ checkout's script, that tree's package): K1 advects random +-60
 velocities on a random cell field, and K3+K4 moves 1,000,000 random
 positions (the extremes among them) and scatters their occupancy, at
 20^3, 128^3 and 256^3, and both again on the velocity, cell types,
-positions and active flags of `scaled_scene(256)` after 2 steps; K2
-solves the folded system of a random cell field for 199 sweeps at 20^3,
-128^3 and 256^3; K5 runs 4 blur passes at the detailed grids 100^3, 256^3
+positions and active flags of `scaled_scene(256)` after 2 steps; K2f
+folds a random cell field and divergence, and K2 solves the folded
+system for 199 sweeps, at 20^3, 128^3 and 256^3 (K2f also on the large
+scene's types and divergence after 2 steps); K5 runs 4 blur passes at the detailed grids 100^3, 256^3
 and 512^3; K6a (stages 01-06) takes the 512^3 detailed occupancy at pool
 2 and K6b (08-11) and K6c (13) their 256^3 fields; and at shard 1 of
 `scaled_scene(256)` split 4 ways, K1's halo form runs on a 64 x 256^2 slab
@@ -81,8 +82,8 @@ ROOT = Path(__file__).resolve().parents[1]
 # so many calls average out the host's jitter
 REPS = {"reference": 200, "bench": 20, "large": 8, "large shard 1/4": 10}
 REPS["large scene"] = REPS["large"]
-SCENE_KERNELS = ("advect_all_cuda", "jacobi_sweeps_cuda",
-                 "particle_move_cuda", "surface_fused_cuda",
+SCENE_KERNELS = ("advect_all_cuda", "jacobi_fold_cuda",
+                 "jacobi_sweeps_cuda", "particle_move_cuda", "surface_fused_cuda",
                  "classify_extrap_cuda", "forces_solids_div_cuda",
                  "project_cuda")
 HALO_KERNELS = ("advect_all_halo_cuda", "jacobi_pass_cuda",
@@ -100,7 +101,7 @@ SPLIT = (
     ("stages.velocity", "advect_all_cuda", "07 K1", False),
     ("kernels.grid_fused", "forces_solids_div_cuda", "08-11 K6b", True),
     ("stages.pressure", "jacobi_solve", "12 pressure solve", True),
-    ("stages.pressure", "jacobi_fold", "12 jacobi_fold (plain)", False),
+    ("stages.pressure", "jacobi_fold_cuda", "12 K2f", False),
     ("stages.pressure", "jacobi_sweeps_cuda", "12 K2", False),
     ("kernels.grid_fused", "project_cuda", "13 K6c", True),
     ("stages.particles", "move_and_scatter",
@@ -121,8 +122,8 @@ def time_kernels(label, chip_smoke, device) -> None:
     from tpu_fluid_torch import FluidConfig, initial_state
 
     def report(scene, kernel, call_args, kw):
-        module = importlib.import_module(kernel.__module__)
-        counter = getattr(module, "device_launches", None)
+        counter = chip_smoke.device_launch_counter(kernel)
+
         def call():
             return kernel(*call_args, **kw)
 

@@ -7,8 +7,9 @@
 // with a literal 0.0f added for each neighbour outside the grid (skipping
 // the add would change the bits of a -0.0 sum), rd decoded from the u8 aii
 // code exactly as _decode_rd does, and c2e = where(rd > 0, c2, q0) folded
-// once a solve.  Built with -fmad=false: rd * s + c2e rounds twice, as the
-// plain version does, and the two agree bitwise.
+// once a solve by K2f (csrc/jacobi_fold.cu) before the sweeps.  Built with
+// -fmad=false: rd * s + c2e rounds twice, as the plain version does, and
+// the two agree bitwise.
 //
 // What bounds it: 7 flops a cell a sweep against 13 bytes a cell a sweep
 // if every sweep streams q, c2e and the code through device memory, as
@@ -39,10 +40,10 @@
 //   tile, so only the inner cells of sweep K are written; each x segment
 //   starts K planes early and ends K planes late.  A pass reads q, c2e and
 //   the code once and writes q once: 13 bytes a cell for K sweeps, plus the
-//   halos' re-reads, which come mostly from the L2.  The first pass folds
-//   c2e and writes it for the others.  The sharded pass (tf_jacobi_march on
-//   an extended slab, rows [h - kk + done, nx - h + kk - done) after `done`
-//   sweeps) is the same kernel, ceil(kk / 4) launches a pass.
+//   halos' re-reads, which come mostly from the L2.  The sharded pass
+//   (tf_jacobi_march on an extended slab, rows [h - kk + done, nx - h + kk
+//   - done) after `done` sweeps) is the same kernel, ceil(kk / 4) launches
+//   a pass.
 //
 // What bounds the march on the card is instruction issue, not memory (the
 // SASS of a one-cell K = 4 step was about 130 instructions a thread for 28
@@ -88,7 +89,7 @@ template <int kMaxChunk>
 __global__ void __launch_bounds__(kWholeThreads, 1)
     jacobi_whole_kernel(const float* __restrict__ q0,
                         const uint8_t* __restrict__ code,
-                        const float* __restrict__ c2,
+                        const float* __restrict__ c2e,
                         float* __restrict__ out, int gx, int gy, int gz,
                         int chunk, int n_iters) {
   extern __shared__ float smem[];
@@ -113,7 +114,7 @@ __global__ void __launch_bounds__(kWholeThreads, 1)
       const int i = (x0 + j) * plane + yz;
       q[j] = q0[i];
       rd[j] = decode_rd(code[i]);
-      ce[j] = code[i] > 0 ? c2[i] : q[j];
+      ce[j] = c2e[i];
     }
   }
   const int base = x0 * pplane + (y + 1) * pz + z + 1;
@@ -152,16 +153,14 @@ __global__ void __launch_bounds__(kWholeThreads, 1)
 
 // K sweeps of the rows [xs, xe) of an nx-row field, one 32 x 64 tile and
 // one x segment a block, two z cells a thread; writes rows [x_lo, x_hi)
-// to out row p - out_x0.  kFold: `c2` is c2, and the folded c2e of the
-// inner cells is written to `c2e`; otherwise `c2` is c2e.
-template <int K, bool kFold>
+// to out row p - out_x0.
+template <int K>
 __global__ void __launch_bounds__(kTile * kTile, 1)
     jacobi_march_kernel(const float* __restrict__ q,
                         const uint8_t* __restrict__ code,
-                        const float* __restrict__ c2,
-                        float* __restrict__ c2e, float* __restrict__ out,
-                        int nx, int gy, int gz, int xs, int xe, int seg,
-                        int out_x0) {
+                        const float* __restrict__ c2e,
+                        float* __restrict__ out, int nx, int gy, int gz,
+                        int xs, int xe, int seg, int out_x0) {
   // [2][K][kPairPlane] sweep planes (a zero row above and below the
   // tile), then rd by code value [256]
   extern __shared__ float smem[];
@@ -207,13 +206,11 @@ __global__ void __launch_bounds__(kTile * kTile, 1)
   for (int s = 0; s <= K; ++s) {
     rda[s] = cea[s] = rdb[s] = ceb[s] = 0.0f;
   }
-  // q, code and c2 (or c2e) of both cells at plane t + 1, loaded a step
-  // ahead
+  // q, code and c2e of both cells at plane t + 1, loaded a step ahead
   float pqa = 0.0f, pqb = 0.0f, pca = 0.0f, pcb = 0.0f;
   int pda = 0, pdb = 0;
   int load_t = t_begin;
   long long load_at = load_t * plane + yz;
-  long long here = load_at;
   long long out_at = (t_begin - K - out_x0) * plane + yz;
   auto load = [&]() {
     const bool live = load_t < t_load;
@@ -222,12 +219,12 @@ __global__ void __launch_bounds__(kTile * kTile, 1)
     if (live && in_a) {
       pqa = q[load_at];
       pda = code[load_at];
-      pca = c2[load_at];
+      pca = c2e[load_at];
     }
     if (live && in_b) {
       pqb = q[load_at + 1];
       pdb = code[load_at + 1];
-      pcb = c2[load_at + 1];
+      pcb = c2e[load_at + 1];
     }
     ++load_t;
     load_at += plane;
@@ -245,16 +242,11 @@ __global__ void __launch_bounds__(kTile * kTile, 1)
     }
     float va = pqa, vb = pqb;  // sweep 0 (the input) at plane t
     const int cda = pda, cdb = pdb;
-    const float cva = pca, cvb = pcb;
-    load();
+    cea[0] = pca;
+    ceb[0] = pcb;
+    load();  // the next plane's loads go out before this plane's table reads
     rda[0] = rd_of[cda];
     rdb[0] = rd_of[cdb];
-    cea[0] = kFold ? (cda > 0 ? cva : va) : cva;
-    ceb[0] = kFold ? (cdb > 0 ? cvb : vb) : cvb;
-    if (kFold && t >= x_lo && t < x_hi) {
-      if (inner_a) c2e[here] = cea[0];
-      if (inner_b) c2e[here + 1] = ceb[0];
-    }
     *reinterpret_cast<float2*>(next + me) = make_float2(va, vb);
 #pragma unroll
     for (int s = 1; s <= K; ++s) {
@@ -295,7 +287,6 @@ __global__ void __launch_bounds__(kTile * kTile, 1)
       if (inner_a) out[out_at] = va;
       if (inner_b) out[out_at + 1] = vb;
     }
-    here += plane;
     out_at += plane;
     __syncthreads();
     const float* const swap = next;
@@ -312,12 +303,12 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
       static_cast<int>(bytes));
 }
 
-template <int K, bool kFold>
+template <int K>
 cudaError_t launch_march(const float* q, const uint8_t* code,
-                         const float* c2, float* c2e, float* out, int nx,
-                         int gy, int gz, int xs, int xe, int seg, int out_x0,
+                         const float* c2e, float* out, int nx, int gy,
+                         int gz, int xs, int xe, int seg, int out_x0,
                          cudaStream_t stream) {
-  auto kernel = jacobi_march_kernel<K, kFold>;
+  auto kernel = jacobi_march_kernel<K>;
   const size_t bytes = (2 * K * kPairPlane + 256) * sizeof(float);
   const cudaError_t err = allow_shared(kernel, bytes);
   if (err != cudaSuccess) return err;
@@ -326,20 +317,19 @@ cudaError_t launch_march(const float* q, const uint8_t* code,
   const dim3 grid((gz + kInnerZ - 1) / kInnerZ, (gy + kInnerY - 1) / kInnerY,
                   (xe - xs + seg - 1) / seg);
   kernel<<<grid, dim3(kTile, kTile), bytes, stream>>>(
-      q, code, c2, c2e, out, nx, gy, gz, xs, xe, seg, out_x0);
+      q, code, c2e, out, nx, gy, gz, xs, xe, seg, out_x0);
   ++g_launches;
   return cudaGetLastError();
 }
 
-template <bool kFold>
 cudaError_t launch_march_k(int k, const float* q, const uint8_t* code,
-                           const float* c2, float* c2e, float* out, int nx,
-                           int gy, int gz, int xs, int xe, int seg,
-                           int out_x0, cudaStream_t stream) {
+                           const float* c2e, float* out, int nx, int gy,
+                           int gz, int xs, int xe, int seg, int out_x0,
+                           cudaStream_t stream) {
 #define TF_MARCH(K)                                                        \
   case K:                                                                  \
-    return launch_march<K, kFold>(q, code, c2, c2e, out, nx, gy, gz, xs,   \
-                                  xe, seg, out_x0, stream);
+    return launch_march<K>(q, code, c2e, out, nx, gy, gz, xs, xe, seg,     \
+                           out_x0, stream);
   switch (k) {
     TF_MARCH(1)
     TF_MARCH(2)
@@ -357,7 +347,7 @@ cudaError_t launch_march_k(int k, const float* q, const uint8_t* code,
 // `parts` threads a (y, z) column, each with ceil(gx / parts) <= 12 rows
 // (kernels/tiling.py whole_grid_parts).
 extern "C" int tf_jacobi_whole(const float* q0, const uint8_t* code,
-                               const float* c2, float* out, int gx, int gy,
+                               const float* c2e, float* out, int gx, int gy,
                                int gz, int parts, int n_iters,
                                void* stream_ptr) {
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -375,45 +365,36 @@ extern "C" int tf_jacobi_whole(const float* q0, const uint8_t* code,
       2 * static_cast<size_t>(gx) * (gy + 2) * (gz + 2) * sizeof(float);
   const cudaError_t err = allow_shared(kernel, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<1, parts * plane, bytes, stream>>>(q0, code, c2, out, gx, gy, gz,
-                                              chunk, n_iters);
+  kernel<<<1, parts * plane, bytes, stream>>>(q0, code, c2e, out, gx, gy,
+                                              gz, chunk, n_iters);
   ++g_launches;
   return static_cast<int>(cudaGetLastError());
 }
 
 // One blocked pass of k <= 4 sweeps (kernels/tiling.py Pass): rows [xs, xe)
 // of the nx-row input q to out row p - out_x0, in segments of seg rows.
-// fold: c2 holds c2, and c2e receives the folded constant of those rows;
-// otherwise c2 holds c2e and c2e is unused.
 extern "C" int tf_jacobi_march(const float* q, const uint8_t* code,
-                               const float* c2, float* c2e, float* out,
-                               int nx, int gy, int gz, int xs, int xe,
-                               int seg, int out_x0, int k, int fold,
-                               void* stream_ptr) {
+                               const float* c2e, float* out, int nx, int gy,
+                               int gz, int xs, int xe, int seg, int out_x0,
+                               int k, void* stream_ptr) {
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (k < 1 || k > kMaxLevels || xs < 0 || xe > nx || xs >= xe ||
       seg < 1 || out_x0 > xs || gy < 1 || gz < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaError_t err =
-      fold ? launch_march_k<true>(k, q, code, c2, c2e, out, nx, gy, gz, xs,
-                                  xe, seg, out_x0, stream)
-           : launch_march_k<false>(k, q, code, c2, c2e, out, nx, gy, gz, xs,
-                                   xe, seg, out_x0, stream);
-  return static_cast<int>(err);
+  return static_cast<int>(launch_march_k(k, q, code, c2e, out, nx, gy, gz,
+                                         xs, xe, seg, out_x0, stream));
 }
 
 // A single-device solve on the blocked route (kernels/tiling.py
 // jacobi_plan): n_iters / k passes of k sweeps, then a pass of the
 // remaining n_iters % k, each one launch over all nx rows in segments of
-// seg_k (seg_rem) rows; the first folds c2e into `c2e`, the last writes
-// `out`, `tmp` takes the other half of the ping-pong.
+// seg_k (seg_rem) rows; the last writes `out`, `tmp` takes the other half
+// of the ping-pong.
 extern "C" int tf_jacobi_blocked(const float* q0, const uint8_t* code,
-                                 const float* c2, float* c2e, float* out,
-                                 float* tmp, int nx, int gy, int gz,
-                                 int n_iters, int k, int seg_k, int seg_rem,
-                                 void* stream_ptr) {
-  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+                                 const float* c2e, float* out, float* tmp,
+                                 int nx, int gy, int gz, int n_iters, int k,
+                                 int seg_k, int seg_rem, void* stream_ptr) {
   if (n_iters < 1 || k < 1 || k > kMaxLevels) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -423,9 +404,9 @@ extern "C" int tf_jacobi_blocked(const float* q0, const uint8_t* code,
   for (int i = 0; i < passes; ++i) {
     float* dst = (passes - 1 - i) % 2 == 0 ? out : tmp;
     const bool rest = i == full;
-    const int err = tf_jacobi_march(
-        src, code, i == 0 ? c2 : c2e, c2e, dst, nx, gy, gz, 0, nx,
-        rest ? seg_rem : seg_k, 0, rest ? n_iters % k : k, i == 0, stream);
+    const int err = tf_jacobi_march(src, code, c2e, dst, nx, gy, gz, 0, nx,
+                                    rest ? seg_rem : seg_k, 0,
+                                    rest ? n_iters % k : k, stream_ptr);
     if (err != 0) return err;
     src = dst;
   }

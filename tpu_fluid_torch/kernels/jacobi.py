@@ -6,7 +6,15 @@ Replaces `tpu_fluid/kernels/jacobi.py:_whole_grid_jacobi` (kernel
 128^3); CUDA source `csrc/jacobi.cu`.  One sweep is
 q' = rd * (sum of the 6 zero-padded neighbours, x+1, x-1, y+1, y-1, z+1,
 z-1) + c2e, with rd decoded from the u8 aii code and c2e = where(rd > 0,
-c2, q0) folded once (`stages/pressure.poisson_solve` builds the inputs).
+c2, q0) the constant a sweep adds.
+
+K2f builds those inputs, (q0, code, c2e), from the cell types and the
+divergence in one pass over the grid (`jacobi_fold_cuda`, CUDA source
+`csrc/jacobi_fold.cu`).  It replaces no TPU kernel: the JAX package leaves
+the fold to XLA.  `jacobi_fold_plain` is the same function in plain
+PyTorch, from padded views of the types; the x-slab route runs either on
+its slab extended by one halo plane of the types
+(`stages/pressure.fold_slab`).
 
 What bounds it: 7 flops a cell a sweep, against 13 bytes a cell a sweep
 if each sweep streams q, c2e and the code through device memory.  Like
@@ -22,7 +30,9 @@ the TPU kernels, both routes keep the sweeps of a launch on chip
 tests/test_torch_tiling.py holds the plans against the plain version on
 the CPU; on the card both routes match `jacobi_sweeps_plain` bitwise.
 
-`jacobi_sweeps_plain` is the same function in plain PyTorch.
+`jacobi_sweeps_plain` is the same function in plain PyTorch.  Each
+wrapper's launches are counted by its own C counter:
+`tf_jacobi_launches` counts K2's, `tf_jacobi_fold_launches` K2f's.
 
 The sharded form replaces `jacobi_sweeps_sharded` (`jacobi.py:367`, the
 halo branch of `_one_pass` with `_halo_blocks` and `edges`) in the x-slab
@@ -43,18 +53,87 @@ from __future__ import annotations
 
 import torch
 
+from tpu_fluid_torch.core.types import CellType
 from tpu_fluid_torch.kernels import build, on_cuda, require, tiling
 from tpu_fluid_torch.ops.stencil import AXIS_MOVES, neighbor_sum
 from tpu_fluid_torch.parallel.halo import halo_extend
 
+_FOLD_ARGTYPES = ((build.POINTER,) * 2 + (build.FLOAT,) * 2
+                  + (build.POINTER,) * 3 + (build.INT,) * 3
+                  + (build.POINTER,))
 _WHOLE_ARGTYPES = (build.POINTER,) * 4 + (build.INT,) * 5 + (build.POINTER,)
-_MARCH_ARGTYPES = ((build.POINTER,) * 5 + (build.INT,) * 9
+_MARCH_ARGTYPES = ((build.POINTER,) * 4 + (build.INT,) * 8
                    + (build.POINTER,))
-_BLOCKED_ARGTYPES = ((build.POINTER,) * 6 + (build.INT,) * 7
+_BLOCKED_ARGTYPES = ((build.POINTER,) * 5 + (build.INT,) * 7
                      + (build.POINTER,))
 
 # Sweeps per pass (and planes per exchange) of the sharded solve.
 SHARDED_K = 8
+
+
+def jacobi_fold_plain(types: torch.Tensor, div: torch.Tensor,
+                      scale: float, boundary_value: float) -> tuple:
+    """(q0, code, c2e) of a solve from the u8 cell types and the f32
+    divergence: with rhs = div * scale, aii the neighbours that are not
+    SOLID and n_air those neither SOLID nor WATER (a neighbour outside the
+    grid counts as neither), q0 = where(water, boundary_value, 0), code =
+    the u8 aii where the cell is WATER with aii > 0 and 0 elsewhere, and
+    c2e = where(code > 0, (n_air * boundary_value - rhs) / max(aii, 1),
+    q0).  The neighbours are views of the types padded by one cell of
+    INACTIVE; the counts are exact, so their order is free."""
+    rhs = div * scale
+    pad = torch.nn.functional.pad(types, (1,) * 6, value=CellType.INACTIVE)
+    not_solid = pad != CellType.SOLID
+    dry = not_solid & (pad != CellType.WATER)
+    gx, gy, gz = types.shape
+    aii = torch.zeros(types.shape, dtype=torch.uint8, device=types.device)
+    n_air = torch.zeros_like(aii)
+    for dx, dy, dz in AXIS_MOVES:
+        view = (slice(1 + dx, 1 + dx + gx), slice(1 + dy, 1 + dy + gy),
+                slice(1 + dz, 1 + dz + gz))
+        aii += not_solid[view]
+        n_air += dry[view]
+    water = types == CellType.WATER
+    code = torch.where(water & (aii > 0), aii, 0)
+    q0 = torch.where(water, boundary_value, 0.0).to(torch.float32)
+    c2 = (n_air.to(torch.float32) * boundary_value - rhs) / \
+        torch.clamp(aii.to(torch.float32), min=1.0)
+    return q0, code, torch.where(code > 0, c2, q0)
+
+
+def fold_launches() -> int:
+    """Kernels the C entry point of `csrc/jacobi_fold.cu` has launched."""
+    return build.launches("tf_jacobi_fold_launches")
+
+
+def jacobi_fold_cuda(types: torch.Tensor, div: torch.Tensor, scale: float,
+                     boundary_value: float) -> tuple:
+    """K2f wrapper: `jacobi_fold_plain` in one CUDA launch for CUDA
+    tensors, the plain version for CPU tensors.  types is the u8 (X,Y,Z)
+    cell types, div the f32 divergence of the same shape; scale and
+    boundary_value are rounded to f32, as PyTorch's tensor-by-scalar ops
+    round them."""
+    require(types, "types", torch.uint8)
+    if types.ndim != 3:
+        raise ValueError(f"types: shape {tuple(types.shape)}, expected "
+                         f"(X,Y,Z)")
+    require(div, "div", torch.float32, types.shape, types.device)
+    if not on_cuda(types):
+        return jacobi_fold_plain(types, div, scale, boundary_value)
+    with torch.cuda.device(types.device):
+        q0 = torch.empty(types.shape, dtype=torch.float32,
+                         device=types.device)
+        code = torch.empty_like(types)
+        c2e = torch.empty_like(q0)
+        stream = torch.cuda.current_stream(types.device).cuda_stream
+        build.call("tf_jacobi_fold", _FOLD_ARGTYPES, types.data_ptr(),
+                   div.data_ptr(), scale, boundary_value, q0.data_ptr(),
+                   code.data_ptr(), c2e.data_ptr(), *types.shape, stream)
+    jacobi_fold_cuda.launches += 1
+    return q0, code, c2e
+
+
+jacobi_fold_cuda.launches = 0
 
 
 def decode_rd(code: torch.Tensor) -> torch.Tensor:
@@ -67,32 +146,22 @@ def decode_rd(code: torch.Tensor) -> torch.Tensor:
                        0.0)
 
 
-def fold_c2e(q0: torch.Tensor, code: torch.Tensor,
-             c2: torch.Tensor) -> torch.Tensor:
-    """c2e = where(rd > 0, c2, q0): the constant a sweep adds, which holds
-    the cells that do not update at q0."""
-    return torch.where(code > 0, c2, q0)
-
-
 def jacobi_sweeps_plain(q0: torch.Tensor, code: torch.Tensor,
-                        c2: torch.Tensor, n_iters: int) -> torch.Tensor:
+                        c2e: torch.Tensor, n_iters: int) -> torch.Tensor:
     rd = decode_rd(code)
-    c2e = fold_c2e(q0, code, c2)
     q = q0
     for _ in range(n_iters):
         q = rd * neighbor_sum(q, moves=AXIS_MOVES) + c2e
     return q
 
 
-def _march(p: tiling.Pass, q, code, c2, c2e, out) -> None:
+def _march(p: tiling.Pass, q, code, c2e, out) -> None:
     """One blocked pass (`tiling.Pass`) on the current stream."""
     nx, gy, gz = p.shape
     stream = torch.cuda.current_stream(q.device).cuda_stream
     build.call("tf_jacobi_march", _MARCH_ARGTYPES, q.data_ptr(),
-               code.data_ptr(), c2.data_ptr(),
-               c2e.data_ptr() if c2e is not None else None, out.data_ptr(),
-               nx, gy, gz, p.xs, p.xe, p.seg, p.out_x0, p.levels,
-               int(p.fold), stream)
+               code.data_ptr(), c2e.data_ptr(), out.data_ptr(), nx, gy, gz,
+               p.xs, p.xe, p.seg, p.out_x0, p.levels, stream)
 
 
 def device_launches() -> int:
@@ -101,40 +170,38 @@ def device_launches() -> int:
 
 
 def jacobi_sweeps_cuda(q0: torch.Tensor, code: torch.Tensor,
-                       c2: torch.Tensor, n_iters: int) -> torch.Tensor:
+                       c2e: torch.Tensor, n_iters: int) -> torch.Tensor:
     """K2 wrapper: n_iters sweeps by the CUDA kernels for CUDA tensors
     (the route of `tiling.jacobi_plan`), `jacobi_sweeps_plain` for CPU
-    tensors.  q0 and c2 are f32 (X,Y,Z), code the u8 aii code of the same
-    shape."""
+    tensors.  q0 and c2e are f32 (X,Y,Z), code the u8 aii code of the
+    same shape (K2f's outputs)."""
     require(q0, "q0", torch.float32)
     if q0.ndim != 3:
         raise ValueError(f"q0: shape {tuple(q0.shape)}, expected (X,Y,Z)")
     require(code, "code", torch.uint8, q0.shape, q0.device)
-    require(c2, "c2", torch.float32, q0.shape, q0.device)
+    require(c2e, "c2e", torch.float32, q0.shape, q0.device)
     if not on_cuda(q0):
-        return jacobi_sweeps_plain(q0, code, c2, n_iters)
+        return jacobi_sweeps_plain(q0, code, c2e, n_iters)
     with torch.cuda.device(q0.device):
         plan = tiling.jacobi_plan(q0.shape, n_iters,
                                   sms=build.sm_count(q0.device.index))
         if plan.route == "copy":
             return q0.clone()
         out = torch.empty_like(q0)
+        stream = torch.cuda.current_stream(q0.device).cuda_stream
         if plan.route == "whole":
-            stream = torch.cuda.current_stream(q0.device).cuda_stream
             build.call("tf_jacobi_whole", _WHOLE_ARGTYPES, q0.data_ptr(),
-                       code.data_ptr(), c2.data_ptr(), out.data_ptr(),
+                       code.data_ptr(), c2e.data_ptr(), out.data_ptr(),
                        *q0.shape, plan.parts, n_iters, stream)
         else:
             # the passes of the plan in one C call: k sweeps each, then the
-            # remainder, the first folding c2e
+            # remainder
             first, last = plan.passes[0], plan.passes[-1]
-            c2e = torch.empty_like(q0)
             other = torch.empty_like(q0) if len(plan.passes) > 1 else out
-            stream = torch.cuda.current_stream(q0.device).cuda_stream
             build.call("tf_jacobi_blocked", _BLOCKED_ARGTYPES, q0.data_ptr(),
-                       code.data_ptr(), c2.data_ptr(), c2e.data_ptr(),
-                       out.data_ptr(), other.data_ptr(), *q0.shape, n_iters,
-                       first.levels, first.seg, last.seg, stream)
+                       code.data_ptr(), c2e.data_ptr(), out.data_ptr(),
+                       other.data_ptr(), *q0.shape, n_iters, first.levels,
+                       first.seg, last.seg, stream)
     jacobi_sweeps_cuda.launches += 1
     return out
 
@@ -176,7 +243,7 @@ def jacobi_pass_cuda(q: torch.Tensor, code: torch.Tensor, c2e: torch.Tensor,
         for p in plan.passes:
             rows = nx - 2 * h if p.out_x0 else nx
             dst = torch.empty((rows, gy, gz), dtype=q.dtype, device=q.device)
-            _march(p, src, code, c2e, None, dst)
+            _march(p, src, code, c2e, dst)
             src = dst
     jacobi_pass_cuda.launches += 1
     return src
@@ -185,10 +252,10 @@ def jacobi_pass_cuda(q: torch.Tensor, code: torch.Tensor, c2e: torch.Tensor,
 jacobi_pass_cuda.launches = 0
 
 
-def _sweeps_sharded(one_pass, q0, code, c2, n_iters, mesh, k):
+def _sweeps_sharded(one_pass, q0, code, c2e, n_iters, mesh, k):
     k = min(SHARDED_K if k is None else k, q0.shape[0])
     code_e = halo_extend(code, k, mesh)
-    c2e_e = halo_extend(fold_c2e(q0, code, c2), k, mesh)
+    c2e_e = halo_extend(c2e, k, mesh)
     q = q0
     for done in range(0, n_iters, k):
         q = one_pass(halo_extend(q, k, mesh), code_e, c2e_e, k,
@@ -197,16 +264,18 @@ def _sweeps_sharded(one_pass, q0, code, c2, n_iters, mesh, k):
 
 
 def jacobi_sweeps_sharded_plain(q0: torch.Tensor, code: torch.Tensor,
-                                c2: torch.Tensor, n_iters: int, mesh,
+                                c2e: torch.Tensor, n_iters: int, mesh,
                                 k: int | None = None) -> torch.Tensor:
     """n_iters sweeps on this shard's (lx, Y, Z) slab of the folded inputs,
     k planes exchanged a pass (at most lx; `SHARDED_K` by default)."""
-    return _sweeps_sharded(jacobi_pass_plain, q0, code, c2, n_iters, mesh, k)
+    return _sweeps_sharded(jacobi_pass_plain, q0, code, c2e, n_iters, mesh,
+                           k)
 
 
 def jacobi_sweeps_sharded_cuda(q0: torch.Tensor, code: torch.Tensor,
-                               c2: torch.Tensor, n_iters: int, mesh,
+                               c2e: torch.Tensor, n_iters: int, mesh,
                                k: int | None = None) -> torch.Tensor:
     """`jacobi_sweeps_sharded_plain` with each pass in `jacobi_pass_cuda`
     (the kernel for CUDA tensors)."""
-    return _sweeps_sharded(jacobi_pass_cuda, q0, code, c2, n_iters, mesh, k)
+    return _sweeps_sharded(jacobi_pass_cuda, q0, code, c2e, n_iters, mesh,
+                           k)

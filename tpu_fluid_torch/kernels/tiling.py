@@ -45,8 +45,7 @@ class Pass:
     (rows, Y, Z) that lose `halo` rings in all; writes the output rows
     [xs, xe) (input row numbers) to an output whose row 0 is input row
     `out_x0`; and cuts those rows into segments of `seg` rows, one block
-    per segment and tile.  `fold` marks K2's first pass, which reads c2 and
-    writes the folded c2e."""
+    per segment and tile."""
     levels: int
     halo: int
     shape: tuple
@@ -54,7 +53,6 @@ class Pass:
     xe: int
     seg: int
     out_x0: int = 0
-    fold: bool = False
     tile_z: int = TILE
     tile_y: int = TILE
 
@@ -118,14 +116,14 @@ def segment_rows(rows: int, halo: int, tiles: int,
     return best[1]
 
 
-def _pass(levels, halo, shape, xs, xe, sms, out_x0=0, fold=False,
+def _pass(levels, halo, shape, xs, xe, sms, out_x0=0,
           tile_z=TILE) -> Pass:
     if TILE - 2 * halo < 1:
         raise ValueError(f"a halo of {halo} leaves no inner tile")
     probe = Pass(levels, halo, tuple(shape), xs, xe, 1, tile_z=tile_z)
     tz, ty = probe.tiles
     seg = segment_rows(xe - xs, halo, tz * ty, sms)
-    return dataclasses.replace(probe, seg=seg, out_x0=out_x0, fold=fold)
+    return dataclasses.replace(probe, seg=seg, out_x0=out_x0)
 
 
 # ------------------------------------------------------------------ K2
@@ -144,9 +142,8 @@ WHOLE_MAX_CHUNK = 12
 SHARED_BYTES = 232448
 
 
-def _k2_pass(levels, shape, xs, xe, sms, out_x0=0, fold=False) -> Pass:
-    return _pass(levels, levels, shape, xs, xe, sms, out_x0, fold,
-                 PAIR_TILE_Z)
+def _k2_pass(levels, shape, xs, xe, sms, out_x0=0) -> Pass:
+    return _pass(levels, levels, shape, xs, xe, sms, out_x0, PAIR_TILE_Z)
 
 
 def whole_grid_parts(shape) -> int | None:
@@ -168,7 +165,7 @@ def jacobi_plan(shape, n_iters: int, *, halo: int = 0,
 
     Single device (halo = 0): none for 0 sweeps; the one-block route where
     the grid fits it; else passes of `BLOCKED_K` sweeps over all rows and a
-    remainder pass, the first folding c2e.  Sharded pass (halo = h > 0,
+    remainder pass.  Sharded pass (halo = h > 0,
     `jacobi_pass_cuda`): n_iters = kk <= h sweeps on a slab of h + lx + h
     rows whose interior is written; passes of at most BLOCKED_K sweeps over
     shrinking row ranges.  Plans are cached: the solve asks for the same
@@ -187,9 +184,8 @@ def _jacobi_plan(shape, n_iters, halo, sms) -> Plan:
             return Plan("whole", parts=parts)
         k = BLOCKED_K
         counts = [k] * (n_iters // k) + ([n_iters % k] if n_iters % k else [])
-        return Plan("blocked", tuple(
-            _k2_pass(c, shape, 0, nx, sms, fold=i == 0)
-            for i, c in enumerate(counts)))
+        return Plan("blocked", tuple(_k2_pass(c, shape, 0, nx, sms)
+                                     for c in counts))
     if not 1 <= n_iters <= halo or nx <= 2 * halo:
         raise ValueError(f"{n_iters} sweeps on a slab of {nx} rows with "
                          f"{halo}-plane halos")

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from tpu_fluid_torch.core.types import CellType
 from tpu_fluid_torch.parallel.mesh import Mesh
 
 
@@ -133,11 +134,12 @@ def jacobi_solve_halo(mesh: Mesh, types: torch.Tensor, div: torch.Tensor,
     pressure.  Same folded formulation, and the same bits, as
     `stages/pressure.jacobi_solve` on the full grid: the plain reference
     for the K-sweep passes of `kernels/jacobi.jacobi_sweeps_sharded_cuda`."""
-    from tpu_fluid_torch.kernels.jacobi import jacobi_sweeps_sharded_plain
-    from tpu_fluid_torch.stages.pressure import jacobi_fold
-    b = div.to(torch.float32) * (cfg.fluid_density * cfg.cell_width / cfg.dt)
+    from tpu_fluid_torch.kernels.jacobi import (jacobi_fold_plain,
+                                                jacobi_sweeps_sharded_plain)
+    from tpu_fluid_torch.stages.pressure import fold_slab
     iters = cfg.jacobi_iters - (1 if cfg.reference_pressure_parity else 0)
-    water, q0, code, c2 = jacobi_fold(types, b, cfg, cfg.air_pressure,
-                                      mesh=mesh)
-    q = jacobi_sweeps_sharded_plain(q0, code, c2, iters, mesh, k=1)
-    return torch.where(water, q, cfg.air_pressure)
+    q0, code, c2e = fold_slab(
+        jacobi_fold_plain, types, div.to(torch.float32),
+        cfg.fluid_density * cfg.cell_width / cfg.dt, cfg.air_pressure, mesh)
+    q = jacobi_sweeps_sharded_plain(q0, code, c2e, iters, mesh, k=1)
+    return torch.where(types == CellType.WATER, q, cfg.air_pressure)

@@ -2,18 +2,20 @@
 (`tpu_fluid.stages.pressure`).
 
 The Jacobi solve always takes the JAX package's kernel formulation: the
-per-cell constants fold into (rd code, c2, q0) and the sweeps run in the K2
-kernel, or in its plain version where `kernel_choice` does not pick the
-kernel.  The red-black Gauss-Seidel solve (`pressure_solver="redblack"`)
-runs only as XLA in the JAX package, so here it is plain torch in JAX's
-unfolded form, added in the same order.
+per-cell constants fold into (q0, rd code, c2e), in one K2f launch on a
+single device, and the sweeps run in the K2 kernel; both run their plain
+versions where `kernel_choice` does not pick the kernels.  The red-black
+Gauss-Seidel solve (`pressure_solver="redblack"`) runs only as XLA in the
+JAX package, so here it is plain torch in JAX's unfolded form, added in
+the same order.
 
 With `mesh` (the x-slab multi-device step; JAX passes `axis_name`) the
-inputs and the result are this shard's slabs: the neighbour counts read one
-halo plane of the types, and the sweeps exchange planes with the
-neighbours (`kernels/jacobi.jacobi_sweeps_sharded_cuda`, or its plain
-version, which adds in the kernel's order too; JAX's XLA route adds in
-`MOVES` order).  Every result equals the single-device one bitwise.
+inputs and the result are this shard's slabs: the same fold runs on the
+slab extended by one halo plane of the types (`fold_slab`), and the sweeps
+exchange planes with the neighbours
+(`kernels/jacobi.jacobi_sweeps_sharded_cuda`, or its plain version, which
+adds in the kernel's order too; JAX's XLA route adds in `MOVES` order).
+Every result equals the single-device one bitwise.
 """
 
 from __future__ import annotations
@@ -23,7 +25,9 @@ import torch
 from tpu_fluid_torch.core.config import FluidConfig
 from tpu_fluid_torch.core.types import CellType
 from tpu_fluid_torch.kernels import kernel_choice
-from tpu_fluid_torch.kernels.jacobi import (jacobi_sweeps_cuda,
+from tpu_fluid_torch.kernels.jacobi import (jacobi_fold_cuda,
+                                            jacobi_fold_plain,
+                                            jacobi_sweeps_cuda,
                                             jacobi_sweeps_plain,
                                             jacobi_sweeps_sharded_cuda,
                                             jacobi_sweeps_sharded_plain)
@@ -61,56 +65,54 @@ def jacobi_solve(types: torch.Tensor, div: torch.Tensor,
     b = div * rho * dx / dt.  With `cfg.reference_pressure_parity` it runs
     jacobi_iters - 1 sweeps: the reference's projection reads the 199th of
     its 200 alternating iterates."""
-    b = div.to(torch.float32) * (cfg.fluid_density * cfg.cell_width / cfg.dt)
     iters = cfg.jacobi_iters - (1 if cfg.reference_pressure_parity else 0)
-    return poisson_solve(types, b, cfg, iters=iters,
-                         boundary_value=cfg.air_pressure, mesh=mesh)
+    return poisson_solve(types, div.to(torch.float32), cfg, iters=iters,
+                         boundary_value=cfg.air_pressure,
+                         scale=cfg.fluid_density * cfg.cell_width / cfg.dt,
+                         mesh=mesh)
 
 
-def jacobi_fold(types: torch.Tensor, rhs: torch.Tensor, cfg: FluidConfig,
-                boundary_value: float, mesh=None):
-    """The K2 kernel's inputs: (water, q0, code, c2) with q0 the
-    water-masked start pressure, code the u8 aii where the cell updates
-    (WATER, aii > 0) and 0 elsewhere, and c2 = (n_air * boundary_value -
-    rhs) / max(aii, 1).  With `mesh` the neighbour counts read the
-    neighbour shards' boundary planes of the types."""
-    if mesh is not None:
-        from tpu_fluid_torch.parallel.halo import halo_extend, halo_inner
-        water, aii, n_air = (halo_inner(a) for a in jacobi_stats(
-            halo_extend(types, 1, mesh), cfg))
-    else:
-        water, aii, n_air = jacobi_stats(types, cfg)
-    const = n_air * boundary_value - rhs.to(torch.float32)
-    denom = torch.clamp(aii, min=1.0)
-    code = torch.where(water & (aii > 0), aii, 0.0).to(torch.uint8)
-    q0 = torch.where(water, boundary_value, 0.0).to(torch.float32)
-    return water, q0, code, const / denom
+def fold_slab(fold, types: torch.Tensor, div: torch.Tensor, scale: float,
+              boundary_value: float, mesh) -> tuple:
+    """(q0, code, c2e) of this shard's x-slab by `fold` (K2f or
+    `jacobi_fold_plain`): the fold of the slab extended by one plane of
+    the neighbour shards' types, with those planes stripped again.  Past
+    the domain ends the plane is zeros, INACTIVE, as the fold's own pad,
+    so the result is the single-device fold's rows bitwise."""
+    from tpu_fluid_torch.parallel.halo import halo_extend, halo_inner
+    div = torch.nn.functional.pad(div, (0, 0, 0, 0, 1, 1))
+    return tuple(halo_inner(a) for a in fold(
+        halo_extend(types, 1, mesh), div, scale, boundary_value))
 
 
-def poisson_solve(types: torch.Tensor, rhs: torch.Tensor, cfg: FluidConfig,
-                  iters: int, boundary_value: float,
+def poisson_solve(types: torch.Tensor, div: torch.Tensor, cfg: FluidConfig,
+                  iters: int, boundary_value: float, scale: float = 1.0,
                   mesh=None) -> torch.Tensor:
     """On WATER cells with aii > 0, iterate
         p = (sum_{water nbrs} p + n_air * boundary_value - rhs) / aii
-    `iters` times from p0 = boundary_value, in the folded form
+    `iters` times from p0 = boundary_value, with rhs = div * scale (a
+    scale of 1.0 is exact), in the folded form
         q' = rd * sum_6(q) + c2e,  q = where(water, p, 0)
     with rd shipped as the u8 aii code; non-water cells read back as
     boundary_value."""
-    if cfg.pressure_solver == "redblack":
-        return redblack_solve(types, rhs, cfg, iters, boundary_value, mesh)
-    if cfg.pressure_solver != "jacobi":
+    if cfg.pressure_solver not in ("jacobi", "redblack"):
         raise ValueError(f"unknown pressure_solver {cfg.pressure_solver!r}")
-    water, q0, code, c2 = jacobi_fold(types, rhs, cfg, boundary_value, mesh)
+    if cfg.pressure_solver == "redblack":
+        return redblack_solve(types, div * scale, cfg, iters, boundary_value,
+                              mesh)
     kernel = kernel_choice(cfg, types.device)
-    if mesh is not None:
+    fold = jacobi_fold_cuda if kernel else jacobi_fold_plain
+    if mesh is None:
+        q0, code, c2e = fold(types, div, scale, boundary_value)
+        sweeps = jacobi_sweeps_cuda if kernel else jacobi_sweeps_plain
+        q = sweeps(q0, code, c2e, iters)
+    else:
+        q0, code, c2e = fold_slab(fold, types, div, scale, boundary_value,
+                                  mesh)
         sweeps = (jacobi_sweeps_sharded_cuda if kernel
                   else jacobi_sweeps_sharded_plain)
-        q = sweeps(q0, code, c2, iters, mesh)
-    elif kernel:
-        q = jacobi_sweeps_cuda(q0, code, c2, iters)
-    else:
-        q = jacobi_sweeps_plain(q0, code, c2, iters)
-    return torch.where(water, q, boundary_value)
+        q = sweeps(q0, code, c2e, iters, mesh)
+    return torch.where(types == CellType.WATER, q, boundary_value)
 
 
 def redblack_solve(types: torch.Tensor, rhs: torch.Tensor, cfg: FluidConfig,

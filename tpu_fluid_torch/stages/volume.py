@@ -6,7 +6,8 @@ Per corrected step, with per-cell particle counts d and target density d0:
 
     err  = (d - d0) / d0                    on WATER cells
     lap(phi) = err,  phi = 0 off water      (`pressure.poisson_solve`,
-                                             boundary 0: K2 on the card)
+                                             boundary 0: K2f and K2 on
+                                             the card)
     drift_c(i) = clamp(k * (phi(i) - phi(i - e_c)), -m, m)
                                             on the faces stage 13 projects
 

@@ -386,7 +386,7 @@ def stage_breakdown(cfg: FluidConfig, n: int = 10, warm_steps: int = 3,
       07 advect                  ->    "07 advect" (K1)
       08-10 forces/solids        ->    "08-10 forces/solids"
       11 divergence              ->    "11 divergence"
-      12 jacobi xN               ->    "12 jacobi xN" (the fold and K2)
+      12 jacobi xN               ->    "12 jacobi xN" (K2f and K2)
       13 project                 ->    "13 project"
       14 move particles          ->    "14+15 move and scatter" (K3+K4)
       16-18 surface fields       ->    "16-18 surface fields" (K5 and its
