@@ -149,7 +149,8 @@ def test_fuse_grid_gate_raises_where_jax_would_fuse():
     """The fused grid gate never raises now that K6 is ported: for every
     case of tests/test_grid_fused.py:120-139 and every pallas mode it
     answers as JAX's `fuse_grid_choice` does ("auto" on CUDA tensors where
-    JAX asks for a TPU)."""
+    JAX asks for a TPU), except that the CUDA kernels ("on" and "auto" on
+    CUDA tensors) take planes above JAX's VMEM limit."""
     from tpu_fluid.kernels import fuse_grid_choice as jax_fuse_grid_choice
 
     class Scene:
@@ -168,16 +169,42 @@ def test_fuse_grid_gate_raises_where_jax_would_fuse():
             jcfg = JaxConfig(**dict(kw, pallas_mode=mode))
             cfg = FluidConfig(**dict(kw, pallas_mode=mode))
             want = jax_fuse_grid_choice(jcfg, scene)
+            gate = (cfg.grid_fused and cfg.reference_diffuse_noop
+                    and scene is None)
+            small = cfg.grid_size[1] * cfg.grid_size[2] <= 98304
             for device in ("cpu", "cuda"):
+                card = device == "cuda" and mode == "on"
+                expect = gate if card else want
+                if small:
+                    assert expect is want
                 assert fuse_grid_choice(cfg, torch.device(device),
-                                        scene) is want, (kw, mode, device)
+                                        scene) is expect, (kw, mode, device)
             answers.append(want)
         auto = FluidConfig(**dict(kw, pallas_mode="auto"))
+        on = FluidConfig(**dict(kw, pallas_mode="on"))
         assert fuse_grid_choice(auto, torch.device("cpu"), scene) is False
         assert (fuse_grid_choice(auto, torch.device("cuda"), scene)
-                is jax_fuse_grid_choice(JaxConfig(**dict(kw,
-                                                         pallas_mode="on")),
-                                        scene))
+                is fuse_grid_choice(on, torch.device("cuda"), scene))
     assert True in answers and False in answers
     assert fuse_grid_choice(FluidConfig.scaled_scene(256),
                             torch.device("cuda"))
+
+
+@pytest.mark.parametrize("n", [512, 768])
+def test_fuse_grid_gate_has_no_plane_limit_on_the_card(n):
+    """Above JAX's plane limit (y*z > 98,304) the CUDA K6 kernels still run
+    on the card, single-device and domain-sharded alike, while the plain
+    versions, which stand in for JAX's route, keep JAX's answer."""
+    from tpu_fluid.kernels import fuse_grid_choice as jax_fuse_grid_choice
+    cfg = FluidConfig.scaled_scene(n, particle_count=20000)
+    jcfg = JaxConfig(**dataclasses.asdict(cfg.replace(
+        pallas_mode="interpret")))
+    assert not jax_fuse_grid_choice(jcfg)
+    for c in (cfg, cfg.replace(particle_sharding="domain")):
+        assert fuse_grid_choice(c, torch.device("cuda"))
+        assert fuse_grid_choice(c.replace(pallas_mode="on"),
+                                torch.device("cuda"))
+        assert not fuse_grid_choice(c, torch.device("cpu"))
+        for device in ("cpu", "cuda"):
+            assert not fuse_grid_choice(c.replace(pallas_mode="interpret"),
+                                        torch.device(device))

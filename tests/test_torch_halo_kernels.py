@@ -8,7 +8,7 @@ domain-sharded particles run, is held against JAX's table and
 `sample_and_move` on a numpy-built edge-replicated slab, stragglers
 included.  On a CUDA card only (marked `cuda`), each halo-form CUDA kernel
 against its plain version, bitwise (K6a, K6b and K6c also at every shard
-of an odd grid).  K6c's halo form reads no right halo plane and no
+of an odd grid, and on 192-row slabs of 768^2 planes, the 768^3 cell's).  K6c's halo form reads no right halo plane and no
 velocity plane: NaN there leaves its result as it was, on the CPU and on
 the card.
 
@@ -541,6 +541,68 @@ def test_cuda_halo_kernel_matches_plain_bitwise(cuda_device, case):
     assert wrapper.launches == before + 1
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert g.device == cuda_device and torch.equal(g, w)
+
+
+def big_slab_call(device, kind, shard, n=768):
+    """(wrapper, plain, args, kwargs) of one K6 halo form on rank `shard`'s
+    slab of the 768^3 cell over 4 ranks: 192 rows of 768^2 planes, their
+    halo planes zeros past the domain, so that flat offsets reach 3 x 196 x
+    768^2 (about 347M).  Fields are drawn on the card."""
+    ranks = 4
+    lx = n // ranks
+    x0 = shard * lx
+    h = 2 if kind == "classify" else 1
+    rows = lx + 2 * h
+    shape = (rows, n, n)
+    g = torch.Generator(device=device).manual_seed(110 + shard)
+    rand = lambda: torch.rand(shape, generator=g, device=device)  # noqa: E731
+    gx = torch.arange(x0 - h, x0 + lx + h, device=device)
+    inside = ((gx >= 0) & (gx < n)).view(-1, 1, 1)
+    types = torch.where(rand() < 0.4, 2, 0).to(torch.uint8)
+    types[(gx == 0) | (gx == n - 1)] = 3
+    types[:, 0], types[:, -1], types[:, :, 0], types[:, :, -1] = (3,) * 4
+    types[(types == 0) & (rand() < 0.3)] = 1
+    occ = (rand() < 0.35).to(torch.uint8)
+    old = torch.randint(0, 4, shape, generator=g, device=device,
+                        dtype=torch.uint8)
+    vel = 3.0 * torch.randn((3,) + shape, generator=g, device=device)
+    p = 50.0 * torch.randn(shape, generator=g, device=device)
+    occ, old, types, p = (a * inside for a in (occ, old, types, p))
+    vel = vel * inside
+    cfg = FluidConfig.scaled_scene(n)
+    wrapper, plain, arrays = {
+        "classify": (classify_extrap_halo_cuda, classify_extrap_halo_plain,
+                     (occ, old, vel)),
+        "forces": (forces_solids_div_halo_cuda, forces_solids_div_halo_plain,
+                   (types, vel)),
+        "project": (project_halo_cuda, project_halo_plain,
+                    (types, p, vel))}[kind]
+    cut = lambda a, lo, hi: a[..., lo:hi, :, :].contiguous()  # noqa: E731
+    return (wrapper, plain,
+            tuple(cut(a, h, h + lx) for a in arrays) + (cfg,),
+            dict(halos=tuple((cut(a, 0, h), cut(a, h + lx, rows))
+                             for a in arrays),
+                 x0=x0, global_gx=n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shard", [0, 2, 3])
+@pytest.mark.parametrize("kind", ["classify", "forces", "project"])
+def test_cuda_grid_halo_kernels_at_768_planes_match_plain_bitwise(
+        cuda_device, kind, shard):
+    """K6a-c's halo forms at the 768^3 cell's slab shape, where the gate
+    runs them although JAX's plane limit would not: bitwise their plain
+    versions, the fountain (rank 2) and both domain ends included."""
+    wrapper, plain, args, kw = big_slab_call(cuda_device, kind, shard)
+    before = wrapper.launches
+    got = wrapper(*args, **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    want = plain(*args, **kw)
+    want = want if isinstance(want, tuple) else (want,)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
     for g, w in zip(got, want):
         assert g.device == cuda_device and torch.equal(g, w)
 

@@ -224,6 +224,124 @@ def test_tracing_is_part_of_the_graph_key():
     assert off[:-1] == on[:-1] and (off[-1], on[-1]) == (False, True)
 
 
+# ------------------------------------------------- the x-slab step's spans
+# a domain-sharded scene whose force cells beside the slab borders of 2
+# ranks push particles across them (tests/test_torch_particles_domain.py)
+DOMAIN = FluidConfig(grid_size=(32, 16, 16), particle_count=4096,
+                     particle_init_cube_resolution=(16, 16, 16),
+                     particle_init_cube_offset=(5.0, 2.0, 2.0),
+                     particle_init_cube_size=(20.0, 9.0, 5.0),
+                     surface_render_resolution=2, jacobi_iters=40,
+                     advect_max_displacement=1, fountain_force=-2000.0,
+                     fountain_position=(16, 14, 8),
+                     particle_sharding="domain",
+                     extra_forces=tuple(((x, 6, 4), (20000.0, 0.0, 0.0))
+                                        for x in (7, 15, 23)))
+DOMAIN_STEPS = 3
+EXCHANGES = ["exchange.halo", "exchange.solve", "exchange.migrate"]
+
+
+def _domain_rank(rank, n, init_method, cfg, traced):
+    """DOMAIN_STEPS eager steps of this rank's part: the registry's report,
+    the bytes the step's sends carried, and the particles that left the
+    slab toward a neighbour (at most a buffer a direction), counted from
+    the positions `migrate` was given."""
+    import torch.distributed as dist
+
+    from tpu_fluid_torch.ops.indexing import float_to_index
+    from tpu_fluid_torch.parallel import spmd_step as spmd
+    from tpu_fluid_torch.parallel.mesh import make_mesh
+    from tpu_fluid_torch.parallel.particles_domain import layout_state
+    torch.set_num_threads(1)
+    mesh = make_mesh(n, rank, init_method, device="cpu", backend="gloo")
+    state = layout_state(initial_state(cfg, device="cpu"), rank, n, cfg)
+    sent = {"bytes": 0, "leavers": 0}
+    batch, migrate = dist.batch_isend_irecv, spmd.migrate
+
+    def counting_batch(ops):
+        sent["bytes"] += sum(op.tensor.nbytes for op in ops
+                             if op.op is dist.isend)
+        return batch(ops)
+
+    def counting_migrate(pos, active, x0, lx, m, mesh_, out=None):
+        cx = float_to_index(torch.floor(pos[:, 0]), torch.int32)
+        if mesh_.rank > 0:
+            sent["leavers"] += min(int((active & (cx < x0)).sum()), m)
+        if mesh_.rank < mesh_.size - 1:
+            sent["leavers"] += min(int((active & (cx >= x0 + lx)).sum()), m)
+        return migrate(pos, active, x0, lx, m, mesh_, out=out)
+
+    dist.batch_isend_irecv = counting_batch
+    spmd.migrate = counting_migrate
+    if not traced:
+        def refused(*args, **kwargs):
+            raise AssertionError("a span or an event was made")
+        profiling._Span = profiling._Open = refused
+        profiling.torch.cuda.Event = refused
+    profiling.tracing(traced)
+    step_fn = spmd.spmd_step(cfg, mesh)
+    for _ in range(DOMAIN_STEPS):
+        state = step_fn(state)
+    rep = profiling.report()
+    # numbers only: a tensor would cross the pipe as shared memory, which
+    # a rank that exits at once takes with it
+    return rep, sent, [key[0] for key in profiling._DEVICE_COUNTS]
+
+
+@pytest.fixture(scope="module")
+def domain_ranks():
+    from tpu_fluid_torch.parallel.launch import run_ranks
+    return {traced: run_ranks(_domain_rank, 2, DOMAIN, traced,
+                              timeout=240.0)
+            for traced in (True, False)}
+
+
+def test_the_x_slab_step_records_its_stages_and_exchanges(domain_ranks):
+    """With tracing on, an eager 2-rank domain step records the stage
+    groups of the single-device step, each once a step, and the exchanges
+    inside them: the halo exchanges, the solve's and the migration's."""
+    for rep, _, _ in domain_ranks[True]:
+        groups = [name for name in rep if name[0].isdigit()]
+        assert groups == UNFUSED[:5] + ["12 jacobi x40"] + UNFUSED[6:]
+        assert all(rep[g]["calls"] == DOMAIN_STEPS for g in groups)
+        for name in EXCHANGES:
+            assert rep[name]["calls"] >= DOMAIN_STEPS, name
+        assert rep["exchange.solve"]["parent"] == "12 jacobi x40"
+        assert rep["exchange.migrate"]["parent"] == "14+15 move and scatter"
+        # every exchange of the solve and of the migration is a halo
+        # exchange inside it, as are those of the stages
+        parents = {rep[n]["parent"] for n in rep if n == "exchange.halo"}
+        assert parents <= set(groups) | set(EXCHANGES)
+
+
+def test_the_halo_bytes_are_those_sent(domain_ranks):
+    """The halo-bytes counter equals the bytes of the step's sends: every
+    send goes through the neighbour exchange."""
+    for rep, sent, _ in domain_ranks[True]:
+        assert sent["bytes"] > 0
+        assert rep["exchange.halo_bytes"]["count"] == sent["bytes"]
+
+
+def test_the_migrate_counter_is_the_leavers_sent(domain_ranks):
+    """The device counter of particles sent equals the leavers counted
+    from the positions `migrate` was given, and some left."""
+    total = 0
+    for rep, sent, _ in domain_ranks[True]:
+        assert rep["exchange.migrate_sent"]["count"] == sent["leavers"]
+        assert rep["exchange.migrate_sent"]["calls"] == DOMAIN_STEPS
+        total += sent["leavers"]
+    assert total > 0
+
+
+def test_tracing_off_makes_no_span_and_no_event(domain_ranks):
+    """With tracing off the same steps make no span, no event and no
+    counter: the registry stays empty."""
+    for (rep, sent, counters), (_, traced, _) in zip(domain_ranks[False],
+                                                     domain_ranks[True]):
+        assert rep == {} and counters == []
+        assert sent == traced
+
+
 # ------------------------------------------------------------------ on card
 @pytest.mark.cuda
 def test_traced_graph_steps_equal_untraced_and_time_the_stages():

@@ -12,7 +12,9 @@ from __future__ import annotations
 import torch
 
 # y*z plane above which the JAX package's fused grid kernels stay off
-# (`tpu_fluid.kernels._FUSE_GRID_MAX_PLANE`).
+# (`tpu_fluid.kernels._FUSE_GRID_MAX_PLANE`): the TPU kernels hold whole
+# planes in VMEM.  The CUDA kernels march 32x32 tiles and have no such
+# limit, so it holds only where the plain versions stand in for JAX's.
 _FUSE_GRID_MAX_PLANE = 98304
 
 
@@ -90,16 +92,21 @@ def fuse_grid_choice(cfg, device: torch.device, scene=None) -> bool:
     08-11 and 13), answer for answer: the kernels are in use ("on" and
     "interpret" always, "auto" for CUDA tensors where JAX's "auto" asks for
     a TPU), the config opts in, stage 09 is the no-op, no scene fields,
-    and the y*z plane is at most `_FUSE_GRID_MAX_PLANE`.  Where it is True
-    the step runs K6 (`kernels/grid_fused.py`): the CUDA kernels where
-    `kernel_choice` picks them, else their plain versions."""
+    and the y*z plane is at most `_FUSE_GRID_MAX_PLANE`, except where the
+    CUDA kernels run ("on" and "auto" for CUDA tensors), which take any
+    plane.  Where it is True the step runs K6 (`kernels/grid_fused.py`):
+    the CUDA kernels where `kernel_choice` picks them, else their plain
+    versions."""
     mode = getattr(cfg, "pallas_mode", "auto")
+    on_card = torch.device(device).type == "cuda"
     if mode == "off":
         use = False
     elif mode in ("on", "interpret"):
         use = True
     else:
-        use = torch.device(device).type == "cuda"
+        use = on_card
+    cuda_kernels = on_card and mode in ("on", "auto")
     return (use and cfg.grid_fused and cfg.reference_diffuse_noop
             and scene is None
-            and cfg.grid_size[1] * cfg.grid_size[2] <= _FUSE_GRID_MAX_PLANE)
+            and (cuda_kernels or cfg.grid_size[1] * cfg.grid_size[2]
+                 <= _FUSE_GRID_MAX_PLANE))

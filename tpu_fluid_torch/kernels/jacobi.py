@@ -46,7 +46,8 @@ independent of k, so k trades exchanges against ghost rows: `SHARDED_K` =
 8 gives 25 exchanges for the 199 sweeps of a solve.  `jacobi_pass_plain`
 and `jacobi_sweeps_sharded_plain` are the plain versions; with k = 1 the
 latter exchanges one plane a sweep, as JAX's XLA-path sharded solve does
-(`tpu_fluid/parallel/halo.py:jacobi_solve_halo`).
+(`tpu_fluid/parallel/halo.py:jacobi_solve_halo`).  With tracing on
+(`utils/profiling`) each of its exchanges is a span, `exchange.solve`.
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ from tpu_fluid_torch.core.types import CellType
 from tpu_fluid_torch.kernels import build, on_cuda, require, tiling
 from tpu_fluid_torch.ops.stencil import AXIS_MOVES, neighbor_sum
 from tpu_fluid_torch.parallel.halo import halo_extend
+from tpu_fluid_torch.utils import profiling
 
 _FOLD_ARGTYPES = ((build.POINTER,) * 2 + (build.FLOAT,) * 2
                   + (build.POINTER,) * 3 + (build.INT,) * 3
@@ -254,12 +256,14 @@ jacobi_pass_cuda.launches = 0
 
 def _sweeps_sharded(one_pass, q0, code, c2e, n_iters, mesh, k):
     k = min(SHARDED_K if k is None else k, q0.shape[0])
-    code_e = halo_extend(code, k, mesh)
-    c2e_e = halo_extend(c2e, k, mesh)
+    with profiling.span("exchange.solve"):
+        code_e = halo_extend(code, k, mesh)
+        c2e_e = halo_extend(c2e, k, mesh)
     q = q0
     for done in range(0, n_iters, k):
-        q = one_pass(halo_extend(q, k, mesh), code_e, c2e_e, k,
-                     min(k, n_iters - done))
+        with profiling.span("exchange.solve"):
+            q_e = halo_extend(q, k, mesh)
+        q = one_pass(q_e, code_e, c2e_e, k, min(k, n_iters - done))
     return q
 
 

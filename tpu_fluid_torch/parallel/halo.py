@@ -15,6 +15,11 @@ collectives of the particle stages are thin helpers here, so that
 Every helper sends device tensors on an nccl group and stages them
 through the host on a gloo group (`Mesh.host_staged`).  Bool tensors
 travel as uint8.
+
+With tracing on (`utils/profiling`) each exchange between neighbours is
+a span, `exchange.halo`, and adds the bytes this shard sends to the
+counter `exchange.halo_bytes` (from the shapes: once a capture, then once
+a replay).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch.distributed as dist
 
 from tpu_fluid_torch.core.types import CellType
 from tpu_fluid_torch.parallel.mesh import Mesh
+from tpu_fluid_torch.utils import profiling
 
 
 def _to_wire(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -47,20 +53,24 @@ def ppermute_neighbours(to_left: torch.Tensor, to_right: torch.Tensor,
     shard, receive zeros."""
     if mesh.size == 1:
         return torch.zeros_like(to_right), torch.zeros_like(to_left)
-    left = _to_wire(torch.zeros_like(to_right), mesh)
-    right = _to_wire(torch.zeros_like(to_left), mesh)
-    ops = []
-    if mesh.rank > 0:
-        ops += [dist.P2POp(dist.isend, _to_wire(to_left, mesh),
-                           mesh.rank - 1, mesh.group),
-                dist.P2POp(dist.irecv, left, mesh.rank - 1, mesh.group)]
-    if mesh.rank < mesh.size - 1:
-        ops += [dist.P2POp(dist.isend, _to_wire(to_right, mesh),
-                           mesh.rank + 1, mesh.group),
-                dist.P2POp(dist.irecv, right, mesh.rank + 1, mesh.group)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return _from_wire(left, to_right), _from_wire(right, to_left)
+    with profiling.span("exchange.halo"):
+        left = _to_wire(torch.zeros_like(to_right), mesh)
+        right = _to_wire(torch.zeros_like(to_left), mesh)
+        ops, sent = [], 0
+        if mesh.rank > 0:
+            ops += [dist.P2POp(dist.isend, _to_wire(to_left, mesh),
+                               mesh.rank - 1, mesh.group),
+                    dist.P2POp(dist.irecv, left, mesh.rank - 1, mesh.group)]
+            sent += right.nbytes
+        if mesh.rank < mesh.size - 1:
+            ops += [dist.P2POp(dist.isend, _to_wire(to_right, mesh),
+                               mesh.rank + 1, mesh.group),
+                    dist.P2POp(dist.irecv, right, mesh.rank + 1, mesh.group)]
+            sent += left.nbytes
+        profiling.count("exchange.halo_bytes", sent)
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return _from_wire(left, to_right), _from_wire(right, to_left)
 
 
 def halo_planes(a: torch.Tensor, h: int, mesh: Mesh):

@@ -38,6 +38,11 @@ the graphed step passes its donated set.  Coordinates convert to
 cells as XLA converts them (`ops/indexing.float_to_index`), so a NaN or
 infinite position goes where JAX sends it; `domain_shard_state` takes
 its census with JAX's numpy code on the host.
+
+With tracing on (`utils/profiling`), `migrate` adds the particles this
+shard sends a step (the leavers that fit a buffer toward an existing
+neighbour) to the device counter `exchange.migrate_sent`, with no host
+sync; the x-slab step runs it inside the span `exchange.migrate`.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ from tpu_fluid_torch.kernels.particle_move import (particle_move_local_cuda,
 from tpu_fluid_torch.ops.indexing import float_to_index
 from tpu_fluid_torch.parallel.halo import halo_planes, ppermute_neighbours
 from tpu_fluid_torch.parallel.mesh import Mesh, shard_state
+from tpu_fluid_torch.utils import profiling
 
 
 def domain_slots(cfg: FluidConfig, n: int, census=None) -> int:
@@ -189,6 +195,13 @@ def migrate(positions: torch.Tensor, active: torch.Tensor, x0: int, lx: int,
 
     snd_l, val_l = pack(0, n_l)
     snd_r, val_r = pack(n_l, n_r)
+    if profiling.enabled():
+        sent = torch.zeros((), dtype=torch.int64, device=dev)
+        if mesh.rank > 0:
+            sent = sent + torch.clamp(n_l, max=m)
+        if mesh.rank < mesh.size - 1:
+            sent = sent + torch.clamp(n_r, max=m)
+        profiling.count_on_device("exchange.migrate_sent", sent)
     in_l_pos, in_r_pos = ppermute_neighbours(snd_l, snd_r, mesh)
     in_l_val, in_r_val = ppermute_neighbours(val_l, val_r, mesh)
     in_pos = torch.cat([in_l_pos, in_r_pos])

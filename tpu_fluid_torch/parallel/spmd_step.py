@@ -80,6 +80,7 @@ from tpu_fluid_torch.stages import surface_fields
 from tpu_fluid_torch.stages import velocity as vstages
 from tpu_fluid_torch.stages.volume import density_drift, volume_due
 from tpu_fluid_torch.surface.levelset import levelset_field
+from tpu_fluid_torch.utils import profiling
 
 
 # --------------------------------------------------------------- cell types
@@ -260,7 +261,8 @@ def _local_step(state: FluidState, cfg: FluidConfig, mesh: Mesh,
     `state.step` for the volume cadence, and `into` the tensors the new
     fields are written into, as in `simulation_step` (the CUDA graphs
     pass both); without `volume_step` the step reads `state.step` on the
-    host."""
+    host.  With tracing on (`utils/profiling`), the stage groups of
+    `simulation_step`, by the same names, tile the step, each a span."""
     put = into if into is not None else NOWHERE
     device = state.velocity.device
     use_kernels = kernel_choice(cfg, device)
@@ -281,7 +283,12 @@ def _local_step(state: FluidState, cfg: FluidConfig, mesh: Mesh,
 
     old_types = state.cell_types
     vel = state.velocity
+    stage = profiling.stages()
 
+    if fuse_grid:
+        stage("01-06 classify and extrapolate (K6a)")
+    else:
+        stage("01-03 pool and cell typing")
     # 01
     occ_sim = particles.occupancy_to_sim_grid(state.detailed_occ, cfg)
 
@@ -297,6 +304,7 @@ def _local_step(state: FluidState, cfg: FluidConfig, mesh: Mesh,
         new_types = _update_air_spmd(new_types, cfg, x0, mesh,
                                      extra_solid=scene_solid,
                                      out=put.cell_types)
+        stage("04+05 extrapolate")
         # 04-05 on 1-plane halo blocks, interior kept
         ot_e = halo_extend(old_types, 1, mesh)
         nt_e = halo_extend(new_types, 1, mesh)
@@ -306,15 +314,17 @@ def _local_step(state: FluidState, cfg: FluidConfig, mesh: Mesh,
             ot_e, nt_e, vel_e, extr_e))
         types = celltypes.commit_cell_types(new_types)
 
-    # 07
+    stage("07 advect")
     vel = _advect_spmd(types, vel, cfg, x0, mesh, use_kernels)
 
     if fuse_grid:
+        stage("08-11 forces, solids, divergence (K6b)")
         # 08-11 (K6b) with 1-plane halos
         halos = (halo_planes(types, 1, mesh), halo_planes(vel, 1, mesh))
         vel, div = forces_solids_div(types, vel, cfg, halos=halos, x0=x0,
                                      global_gx=gx)
     else:
+        stage("08-10 forces/solids")
         vel = _forces_spmd(types, vel, cfg, x0, mesh,
                            force_field=scene_force)
         if not cfg.reference_diffuse_noop:
@@ -322,19 +332,22 @@ def _local_step(state: FluidState, cfg: FluidConfig, mesh: Mesh,
                                              halo_extend(vel, 1, mesh), cfg))
         vel = halo_inner(vstages.apply_solids(halo_extend(types, 1, mesh),
                                               halo_extend(vel, 1, mesh), cfg))
+        stage("11 divergence")
         # 11: the out-of-domain halo rows read 0, as the single-device
         # zero fill does; the i_c != 0 row they spoil is a halo row
         div = halo_inner(pressure.compute_divergence(
             halo_extend(vel, 1, mesh)))
 
-    # 12-13
+    stage(f"12 jacobi x{cfg.jacobi_iters}")
     p = pressure.jacobi_solve(types, div, cfg, mesh=mesh)
     if fuse_grid:
+        stage("13 project (K6c)")
         halos = (halo_planes(types, 1, mesh), halo_planes(p, 1, mesh),
                  halo_planes(vel, 1, mesh))
         vel = project(types, p, vel, cfg, halos=halos, x0=x0, global_gx=gx,
                       out=put.velocity)
     else:
+        stage("13 project")
         vel = torch.stack([halo_inner(c) for c in pressure.project_components(
             halo_extend(types, 1, mesh), halo_extend(p, 1, mesh),
             halo_extend(vel, 1, mesh), cfg)], out=put.velocity)
@@ -343,6 +356,7 @@ def _local_step(state: FluidState, cfg: FluidConfig, mesh: Mesh,
     # step.  Every shard holds the same step, so all take the same branch
     # and run the same collectives.  The drift is added to the slab before
     # any gather.
+    stage("14+15 move and scatter")
     move_vel = vel
     if cfg.volume_correction > 0.0:
         if volume_step is None and cfg.volume_correction_every > 1:
@@ -355,9 +369,11 @@ def _local_step(state: FluidState, cfg: FluidConfig, mesh: Mesh,
         # its detailed slab; one shard passes the active flags through
         pos = move_particles_local(move_vel, state.positions, state.active,
                                    cfg, x0, mesh, out=put.positions)
-        pos, active, ndrop = migrate(
-            pos, state.active, x0, lx, migrate_capacity(pos.shape[0], cfg),
-            mesh, out=(pos, put.active if mesh.size > 1 else None))
+        with profiling.span("exchange.migrate"):
+            pos, active, ndrop = migrate(
+                pos, state.active, x0, lx,
+                migrate_capacity(pos.shape[0], cfg), mesh,
+                out=(pos, put.active if mesh.size > 1 else None))
         dropped = torch.add(state.dropped, psum(ndrop, mesh),
                             out=put.dropped)
         r = cfg.surface_render_resolution
@@ -381,7 +397,7 @@ def _local_step(state: FluidState, cfg: FluidConfig, mesh: Mesh,
             occ = put.detailed_occ
             torch.gt(summed, 0, out=occ.view(torch.bool))
 
-    # 16-18
+    stage("16-18 surface fields")
     if cfg.surface_enabled and cfg.surface_method == "levelset":
         inertia = state.inertia
         f = _levelset_spmd(types, occ, cfg, x0, mesh)
@@ -410,6 +426,9 @@ def _local_step(state: FluidState, cfg: FluidConfig, mesh: Mesh,
         inertia, f1, f2 = (state.inertia, state.float_dens_1,
                            state.float_dens_2)
 
+    counter = torch.add(state.step, 1, out=put.step)
+    stage()
+
     return FluidState(
         velocity=vel,
         cell_types=types,
@@ -419,7 +438,7 @@ def _local_step(state: FluidState, cfg: FluidConfig, mesh: Mesh,
         positions=pos,
         active=active,
         detailed_occ=occ,
-        step=torch.add(state.step, 1, out=put.step),
+        step=counter,
         dropped=dropped,
     )
 

@@ -32,6 +32,7 @@ from tpu_fluid_torch.kernels.jacobi import (jacobi_fold_cuda,
                                             jacobi_sweeps_sharded_cuda,
                                             jacobi_sweeps_sharded_plain)
 from tpu_fluid_torch.ops.stencil import MOVES, axis_nonzero, shifted
+from tpu_fluid_torch.utils import profiling
 
 
 def compute_divergence(vel: torch.Tensor) -> torch.Tensor:
@@ -78,11 +79,14 @@ def fold_slab(fold, types: torch.Tensor, div: torch.Tensor, scale: float,
     `jacobi_fold_plain`): the fold of the slab extended by one plane of
     the neighbour shards' types, with those planes stripped again.  Past
     the domain ends the plane is zeros, INACTIVE, as the fold's own pad,
-    so the result is the single-device fold's rows bitwise."""
+    so the result is the single-device fold's rows bitwise.  The exchange
+    is an `exchange.solve` span under tracing."""
     from tpu_fluid_torch.parallel.halo import halo_extend, halo_inner
     div = torch.nn.functional.pad(div, (0, 0, 0, 0, 1, 1))
+    with profiling.span("exchange.solve"):
+        types_e = halo_extend(types, 1, mesh)
     return tuple(halo_inner(a) for a in fold(
-        halo_extend(types, 1, mesh), div, scale, boundary_value))
+        types_e, div, scale, boundary_value))
 
 
 def poisson_solve(types: torch.Tensor, div: torch.Tensor, cfg: FluidConfig,

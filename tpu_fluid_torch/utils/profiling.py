@@ -26,6 +26,15 @@ dispatcher call.  With tracing on:
 boundaries: one event a boundary, shared by the group that ends and the
 one that begins.
 
+Counters.  `count(name, n)` adds a host number (say the bytes of an
+exchange, from its shapes) and `count_on_device(name, n)` a device scalar
+(say the particles a migration sent), with no host sync: into an int64
+accumulator on the device, which `report()` reads and clears.  Each is a
+record under the innermost open span: `count` its total, `calls` its
+additions.  Under a collected capture an addition belongs to the graph:
+each replay read adds `n` again (the device one adds on the device, so the
+replay itself counts).  With tracing off both return at once.
+
 Timers.  Every timer chains its iterations, x_{k+1} = f(x_k).  On the card
 the n iterations are captured into one CUDA graph, the counterpart of JAX's
 `lax.fori_loop` inside one program, and a replay is timed by CUDA events
@@ -66,6 +75,7 @@ class _Record:
     device_ms: float = 0.0
     device_calls: int = 0
     syncs: int = 0
+    count: int | float = 0
 
 
 _ON = False
@@ -74,7 +84,9 @@ _RECORDS: Dict[str, _Record] = {}
 _STACK: list = []                    # the open spans, innermost last
 _EAGER: collections.deque = collections.deque()   # events not yet read
 _PENDING: set = set()                # Marks replayed and not yet read
-_CAPTURE: list | None = None         # the spans of the graph in capture
+_CAPTURE = None                      # the Marks of the graph in capture
+# (counter name, parent, device) -> its int64 accumulator on the device
+_DEVICE_COUNTS: dict = {}
 _SAVED: tuple | None = None          # what tracing(False) puts back
 
 
@@ -137,6 +149,9 @@ def reset() -> None:
     _PENDING.clear()
     _EAGER.clear()
     _RECORDS.clear()
+    # kept, since captured graphs add into them
+    for acc in _DEVICE_COUNTS.values():
+        acc.zero_()
 
 
 def span(name: str):
@@ -157,6 +172,46 @@ def stages():
     if not _ON:
         return _no_stage
     return _Stages()
+
+
+def _parent() -> str | None:
+    return _STACK[-1].name if _STACK else None
+
+
+def count(name: str, n) -> None:
+    """Add the host number `n` to counter `name` (module docstring)."""
+    if not _ON:
+        return
+    if _capturing():
+        if _CAPTURE is not None:
+            _CAPTURE.counts.append((name, _parent(), n))
+        return
+    rec = _record(name, _parent())
+    rec.calls += 1
+    rec.count += n
+
+
+def count_on_device(name: str, n: torch.Tensor) -> None:
+    """Add the device scalar `n` to counter `name`, with no host sync
+    (module docstring)."""
+    if not _ON:
+        return
+    parent = _parent()
+    captured = _capturing()
+    if captured and _CAPTURE is None:
+        return
+    key = (name, parent, n.device)
+    acc = _DEVICE_COUNTS.get(key)
+    if acc is None:
+        # made at the eager warm-up before a traced capture, outside any
+        # graph's pool
+        acc = _DEVICE_COUNTS[key] = torch.zeros((), dtype=torch.int64,
+                                                device=n.device)
+    acc.add_(n)
+    if captured:
+        _CAPTURE.counts.append((name, parent, None))
+    else:
+        _record(name, parent).calls += 1
 
 
 class _Span:
@@ -192,7 +247,7 @@ class _Open:
 
     def __init__(self, name: str, start, captured: bool):
         self.name = name
-        self.parent = _STACK[-1].name if _STACK else None
+        self.parent = _parent()
         self.captured = captured
         self.start = start
         self.child_s = 0.0
@@ -208,7 +263,7 @@ class _Open:
             # spans a raised exception left open inside it end with it
             del _STACK[_STACK.index(self):]
         if self.captured:
-            _CAPTURE.append((self.name, self.parent, self.start, end))
+            _CAPTURE.spans.append((self.name, self.parent, self.start, end))
             return
         self.range.__exit__(None, None, None)
         rec = _record(self.name, self.parent)
@@ -268,22 +323,29 @@ def _book(name: str, parent: str | None, start, end) -> None:
 
 
 def flush() -> None:
-    """Read every event still pending: each graph's last replay, and the
-    eager spans'."""
+    """Read every event still pending: each graph's last replay, the
+    eager spans', and the device counters (a sync each)."""
     for marks in list(_PENDING):
         marks.read()
     while _EAGER:
         name, parent, start, end = _EAGER.popleft()
         end.synchronize()
         _book(name, parent, start, end)
+    for (name, parent, _), acc in _DEVICE_COUNTS.items():
+        n = int(acc.item())
+        if n:
+            _record(name, parent).count += n
+            acc.zero_()
 
 
 class Marks:
     """The spans captured into one CUDA graph, (name, parent, start event,
-    end event) in the order they closed."""
+    end event) in the order they closed, and its counters' additions,
+    (name, parent, host number or None for a device counter)."""
 
     def __init__(self):
         self.spans = []
+        self.counts = []
         self.replayed = False
 
     def replay(self, graph) -> None:
@@ -291,18 +353,25 @@ class Marks:
         replay records its events anew."""
         self.read()
         graph.replay()
-        if self.spans:
+        if self.spans or self.counts:
             self.replayed = True
             _PENDING.add(self)
 
     def read(self) -> None:
-        """Book the last replay's times, once its last event is done."""
+        """Book the last replay's times and counts, once its last event is
+        done."""
         if not self.replayed:
             return
-        self.spans[-1][3].synchronize()
+        if self.spans:
+            self.spans[-1][3].synchronize()
         for name, parent, start, end in self.spans:
             _book(name, parent, start, end)
             _record(name, parent).calls += 1
+        for name, parent, n in self.counts:
+            rec = _record(name, parent)
+            rec.calls += 1
+            if n is not None:
+                rec.count += n
         self.replayed = False
         _PENDING.discard(self)
 
@@ -313,7 +382,7 @@ def capture():
     their `Marks`."""
     global _CAPTURE
     marks = Marks()
-    _CAPTURE = marks.spans
+    _CAPTURE = marks
     try:
         yield marks
     finally:
