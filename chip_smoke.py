@@ -34,7 +34,8 @@ Phases, one line each (more for the parity and scene phases):
               for each K2f call (its own counter), for K2's one-block route
               (20^3), for K5 up to 8 blur passes (12 take two) and for
               each K6 call, one a pass of k >= 2 sweeps on K2's blocked
-              route
+              route and, on a single device, the two that list its live
+              boxes
   4 reference FluidConfig.reference_scene() (20^3, 1M particles), 20 steps,
               invariants; then 3 steps with the kernels and 3 with
               pallas_mode="off" from the same state must agree
@@ -201,7 +202,15 @@ without CUDA it exits 2.
 
 `python3 chip_smoke.py --multi-card`, on a machine with several cards,
 runs the build and phase 13d alone; `python3 chip_smoke.py --splat` the
-build and phase 14.
+build and phase 14; `python3 chip_smoke.py --live` the build and phase 15:
+K2's listed solve at 256^3 against the dense march it replaces (every box,
+one block a box: the dense plan's passes through `tf_jacobi_march`), both
+bitwise against the plain version, timed in turns (dense, listed, listed,
+dense; 10 solves in a CUDA graph a reading) on the solve inputs of
+scaled_scene(256, 2M particles)'s seeded step and of an all-WATER grid,
+with the live share of each; then the live boxes' trajectory: that scene
+graphed for LIVE_STEPS steps with tracing on, the mean of
+`jacobi.live_boxes` over each LIVE_EVERY steps.
 """
 
 from __future__ import annotations
@@ -215,6 +224,8 @@ import numpy as np
 import torch
 
 SEED = 0
+LIVE_STEPS = 6000
+LIVE_EVERY = 500
 REF_STEPS = 20
 BENCH_STEPS = 10
 COMPARE_STEPS = 3
@@ -788,7 +799,8 @@ def expected_device_launches(kernel, args, kw) -> tuple:
         return 1, "one pass"
     if kernel.__name__ == "jacobi_sweeps_cuda":
         plan = tiling.jacobi_plan(args[0].shape, args[3], sms=sms)
-        return (1 if plan.route == "whole" else len(plan.passes)), \
+        lists = tiling.LIVE_LIST_LAUNCHES if plan.listed else 0
+        return (1 if plan.route == "whole" else len(plan.passes) + lists), \
             f"{plan.route} k={max((p.levels for p in plan.passes), default=0)}"
     if kernel.__name__ == "jacobi_pass_cuda":
         plan = tiling.jacobi_plan(args[0].shape, args[4], halo=args[3],
@@ -2952,6 +2964,8 @@ def main(argv) -> int:
         return multi_card_main(smi, card)
     if argv == ["--splat"]:
         return splat_main(smi, card, device)
+    if argv == ["--live"]:
+        return live_main(smi, card, device)
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -3220,6 +3234,132 @@ def splat_main(smi: str, card: str, device) -> int:
     splat = phase_splat(device, FluidConfig.reference_scene(), card)
     print(smi)
     print(json.dumps({"splat": splat}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def dense_solve(q0, code, c2e, n_iters: int, sms: int):
+    """The single-device solve as it ran before the listed route: every
+    box, one block a box, each pass of BLOCKED_K sweeps (and the
+    remainder) one `tf_jacobi_march` launch of `segment_rows`' segments
+    and its own ring."""
+    from tpu_fluid_torch.kernels import jacobi, tiling
+    k = tiling.BLOCKED_K
+    src = q0
+    for c in [k] * (n_iters // k) + ([n_iters % k] if n_iters % k else []):
+        p = tiling._k2_pass(c, q0.shape, 0, q0.shape[0], sms)
+        dst = torch.empty_like(q0)
+        jacobi._march(p, src, code, c2e, dst)
+        src = dst
+    return src
+
+
+def fountain_solve_inputs(cfg, device):
+    """(q0, code, c2e) of the solve of `cfg`'s first step from the seeded
+    state, recorded from an eager step."""
+    from tpu_fluid_torch import initial_state, step
+    from tpu_fluid_torch.kernels import jacobi
+    from tpu_fluid_torch.stages import pressure
+    seen = []
+
+    def record(q0, code, c2e, n_iters):
+        seen.append((q0.clone(), code.clone(), c2e.clone()))
+        return jacobi.jacobi_sweeps_cuda(q0, code, c2e, n_iters)
+
+    pressure.jacobi_sweeps_cuda = record
+    try:
+        step(initial_state(cfg, device), cfg)
+    finally:
+        pressure.jacobi_sweeps_cuda = jacobi.jacobi_sweeps_cuda
+    return seen[0]
+
+
+def all_water_inputs(n: int, device):
+    """(q0, code, c2e) of an n^3 grid of WATER inside SOLID walls, with a
+    seeded divergence: every box live."""
+    from tpu_fluid_torch.kernels.jacobi import jacobi_fold_plain
+    types = np.full((n,) * 3, 2, dtype=np.uint8)
+    types[0], types[-1], types[:, 0], types[:, -1] = 3, 3, 3, 3
+    types[:, :, 0], types[:, :, -1] = 3, 3
+    div = np.random.default_rng(SEED).standard_normal(
+        (n,) * 3).astype(np.float32)
+    return jacobi_fold_plain(torch.from_numpy(types).to(device),
+                             torch.from_numpy(div).to(device), 1.0, 1.0)
+
+
+def phase_live(device, cfg, card: str) -> dict:
+    """Phase 15 (module docstring)."""
+    from tpu_fluid_torch import initial_state, jit_step
+    from tpu_fluid_torch.kernels import build, tiling
+    from tpu_fluid_torch.kernels.jacobi import (jacobi_sweeps_cuda,
+                                                jacobi_sweeps_plain,
+                                                live_boxes_cuda)
+    from tpu_fluid_torch.utils import profiling
+    n_iters = cfg.jacobi_iters - 1
+    sms = build.sm_count(device.index or 0)
+    plan = tiling.jacobi_plan(cfg.grid_size, n_iters, sms=sms)
+    total = plan.passes[0].n_blocks
+    out = {"boxes": total, "seg": plan.passes[0].seg}
+    cases = (("seeded", fountain_solve_inputs(cfg, device)),
+             ("all_water", all_water_inputs(cfg.grid_size[0], device)))
+    for name, (q0, code, c2e) in cases:
+        want = jacobi_sweeps_plain(q0, code, c2e, n_iters)
+        dense = dense_solve(q0, code, c2e, n_iters, sms)
+        listed = jacobi_sweeps_cuda(q0, code, c2e, n_iters)
+        live = len(live_boxes_cuda(q0, code, c2e, n_iters))
+        torch.cuda.synchronize()
+        ok = same_bits(dense, want) and same_bits(listed, want)
+        ms = {"dense": [], "listed": []}
+        for which in ("dense", "listed", "listed", "dense"):
+            fn = ((lambda: dense_solve(q0, code, c2e, n_iters, sms))
+                  if which == "dense"
+                  else (lambda: jacobi_sweeps_cuda(q0, code, c2e, n_iters)))
+            ms[which].append(graphed_ms(fn))
+        print(f"[15 live] {name}: {live} of {total} boxes live "
+              f"({100.0 * live / total!r}%); ms a solve of {n_iters} "
+              f"sweeps, dense {ms['dense']!r}, listed {ms['listed']!r} "
+              f"(turns D L L D); dense and listed bitwise equal to the "
+              f"plain version: {ok}; {card}", flush=True)
+        check(ok, f"K2's {name} solve differs from its plain version")
+        out[name] = {"live": live, "ms": ms}
+    profiling.tracing(True)
+    trajectory = []
+    try:
+        state = initial_state(cfg, device)
+        t0 = time.perf_counter()
+        for done in range(LIVE_EVERY, LIVE_STEPS + 1, LIVE_EVERY):
+            profiling.reset()
+            for _ in range(LIVE_EVERY):
+                state = jit_step(state, cfg)
+            rec = profiling.report()["jacobi.live_boxes"]
+            mean = rec["count"] / rec["calls"]
+            trajectory.append((done, mean))
+            print(f"[15 live] steps {done - LIVE_EVERY + 1}-{done}: "
+                  f"{mean!r} of {total} boxes live a solve "
+                  f"({rec['calls']} solves read; "
+                  f"{time.perf_counter() - t0:.1f} s in)", flush=True)
+    finally:
+        profiling.tracing(False)
+        profiling.reset()
+    out["trajectory"] = trajectory
+    return out
+
+
+def live_main(smi: str, card: str, device) -> int:
+    """`python3 chip_smoke.py --live`: the build and phase 15 alone."""
+    from tpu_fluid_torch import FluidConfig
+    from tpu_fluid_torch.kernels import build
+    t0 = time.perf_counter()
+    build.build()
+    build.library()
+    print(f"[2 build] {len(build.sources())} sources -> {build.LIBRARY.name} "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    live = phase_live(device, FluidConfig.scaled_scene(
+        256, particle_count=2_000_000), card)
+    print(smi)
+    print(json.dumps({"live": live}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

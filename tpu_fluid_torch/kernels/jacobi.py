@@ -26,9 +26,24 @@ the TPU kernels, both routes keep the sweeps of a launch on chip
 - "blocked": passes of `tiling.BLOCKED_K` sweeps (and a remainder pass),
   each one launch that marches 32 x 64-cell y-z tiles (32 x 32 threads,
   two z cells each) with K-cell halos along x, so a pass moves q, c2e and
-  the code once for K sweeps; the whole solve is one C call.
-tests/test_torch_tiling.py holds the plans against the plain version on
-the CPU; on the card both routes match `jacobi_sweeps_plain` bitwise.
+  the code once for K sweeps; the whole solve is one C call.  It marches
+  only the live boxes (`tiling.live_boxes`): a sweep leaves a cell with
+  code 0 at c2e, bit for bit, so a box with no cell of code > 0 never
+  changes.  Two launches a solve list the boxes on the device, with no
+  host sync, and write c2e into the output and the other ping-pong buffer,
+  from which the live boxes read their dead neighbours; each pass then
+  runs one block an SM over the list.  What bounds it is the live boxes:
+  in a scene of compact water a pass is one round of short boxes, and
+  with every box live it costs no more rounds of planes than one block a
+  box did.  A c2e, or a q0 where the code is > 0, past 2^100 or not
+  finite, a -0.0 c2e where the code is 0, or 2^20 sweeps make every box
+  live: the dense march (exact for K2f's inputs, whose q0 is c2e where
+  the code is 0).  With
+  tracing on (`utils/profiling`) a solve counts its live boxes on the
+  device, `jacobi.live_boxes`, and all its boxes, `jacobi.boxes`.
+tests/test_torch_tiling.py and tests/test_torch_live_boxes.py hold the
+plans and the live list against the plain version on the CPU; on the card
+both routes match `jacobi_sweeps_plain` bitwise.
 
 `jacobi_sweeps_plain` is the same function in plain PyTorch.  Each
 wrapper's launches are counted by its own C counter:
@@ -66,8 +81,9 @@ _FOLD_ARGTYPES = ((build.POINTER,) * 2 + (build.FLOAT,) * 2
 _WHOLE_ARGTYPES = (build.POINTER,) * 4 + (build.INT,) * 5 + (build.POINTER,)
 _MARCH_ARGTYPES = ((build.POINTER,) * 4 + (build.INT,) * 8
                    + (build.POINTER,))
-_BLOCKED_ARGTYPES = ((build.POINTER,) * 5 + (build.INT,) * 7
+_BLOCKED_ARGTYPES = ((build.POINTER,) * 6 + (build.INT,) * 7
                      + (build.POINTER,))
+_LIVE_ARGTYPES = (build.POINTER,) * 6 + (build.INT,) * 5 + (build.POINTER,)
 
 # Sweeps per pass (and planes per exchange) of the sharded solve.
 SHARDED_K = 8
@@ -196,19 +212,56 @@ def jacobi_sweeps_cuda(q0: torch.Tensor, code: torch.Tensor,
                        code.data_ptr(), c2e.data_ptr(), out.data_ptr(),
                        *q0.shape, plan.parts, n_iters, stream)
         else:
-            # the passes of the plan in one C call: k sweeps each, then the
-            # remainder
-            first, last = plan.passes[0], plan.passes[-1]
+            # the live list, then the passes of the plan over it, in one C
+            # call: k sweeps each, then the remainder
+            first = plan.passes[0]
             other = torch.empty_like(q0) if len(plan.passes) > 1 else out
+            boxes = first.n_blocks
+            scratch = _live_scratch(boxes, q0.device)
             build.call("tf_jacobi_blocked", _BLOCKED_ARGTYPES, q0.data_ptr(),
                        code.data_ptr(), c2e.data_ptr(), out.data_ptr(),
-                       other.data_ptr(), *q0.shape, n_iters, first.levels,
-                       first.seg, last.seg, stream)
+                       other.data_ptr(), scratch.data_ptr(), *q0.shape,
+                       n_iters, first.levels, first.seg,
+                       build.sm_count(q0.device.index), stream)
+            if profiling.enabled():
+                profiling.count_on_device("jacobi.live_boxes",
+                                          scratch[boxes])
+                profiling.count("jacobi.boxes", boxes)
     jacobi_sweeps_cuda.launches += 1
     return out
 
 
 jacobi_sweeps_cuda.launches = 0
+
+
+def _live_scratch(boxes: int, device) -> torch.Tensor:
+    """The list kernels' scratch: the list, its count, the boxes' flags."""
+    return torch.empty(2 * boxes + 1, dtype=torch.int32, device=device)
+
+
+def live_boxes_cuda(q0: torch.Tensor, code: torch.Tensor, c2e: torch.Tensor,
+                    n_iters: int) -> torch.Tensor:
+    """The boxes that `jacobi_sweeps_cuda`'s listed passes march for these
+    CUDA inputs, as the list kernels build them: an int32 tensor of box
+    indices into the plan's `passes[0].blocks()`, in order
+    (`tiling.live_boxes` is the plain rule)."""
+    require(q0, "q0", torch.float32)
+    require(code, "code", torch.uint8, q0.shape, q0.device)
+    require(c2e, "c2e", torch.float32, q0.shape, q0.device)
+    with torch.cuda.device(q0.device):
+        plan = tiling.jacobi_plan(q0.shape, n_iters,
+                                  sms=build.sm_count(q0.device.index))
+        if not plan.listed:
+            raise ValueError(f"{tuple(q0.shape)} with {n_iters} sweeps is "
+                             f"not on the listed route")
+        first = plan.passes[0]
+        boxes = first.n_blocks
+        scratch = _live_scratch(boxes, q0.device)
+        stream = torch.cuda.current_stream(q0.device).cuda_stream
+        build.call("tf_jacobi_live", _LIVE_ARGTYPES, q0.data_ptr(),
+                   code.data_ptr(), c2e.data_ptr(), None, None,
+                   scratch.data_ptr(), *q0.shape, first.seg, n_iters, stream)
+        return scratch[:int(scratch[boxes])].clone()
 
 
 # ------------------------------------------------------------------ sharded

@@ -20,7 +20,9 @@ The CUDA launchers take a `Pass` as it is planned here, and
 tests/test_torch_tiling.py computes every block of a plan independently
 from its own window with the plain PyTorch versions and stitches the inner
 tiles, which must equal the plain versions on the whole grid bitwise.
-Nothing here needs CUDA.
+K2's single-device solve marches only the boxes that `live_boxes` lists
+(tests/test_torch_live_boxes.py holds that against the plain version the
+same way).  Nothing here needs CUDA.
 """
 
 from __future__ import annotations
@@ -74,6 +76,11 @@ class Pass:
     def segments(self) -> int:
         return -(-(self.xe - self.xs) // self.seg)
 
+    @property
+    def n_blocks(self) -> int:
+        tz, ty = self.tiles
+        return tz * ty * self.segments
+
     def blocks(self):
         """Each block's output box ((x0, x1), (y0, y1), (z0, z1)), as the
         kernel derives it from its block index."""
@@ -93,24 +100,32 @@ class Pass:
 class Plan:
     """`route` is "copy" (no level to apply), "whole" (K2's one-block
     route, `parts` threads a column) or "blocked" (the `passes`, launched
-    in order, each reading the output of the one before)."""
+    in order, each reading the output of the one before).  `listed`: the
+    passes share one box geometry and march only its live boxes
+    (`live_boxes`), after `LIVE_LIST_LAUNCHES` launches that list them."""
     route: str
     passes: tuple = ()
     parts: int = 0
+    listed: bool = False
+
+
+def _segment_cost(rows: int, halo: int, tiles: int, sms: int,
+                  seg: int) -> int:
+    """Planes a launch of one block a tile and segment of seg rows takes:
+    one 1024-thread block fills an SM, so b blocks take ceil(b / sms)
+    waves, and a block marches seg + 2 * halo planes."""
+    return -(-(tiles * -(-rows // seg)) // sms) * (seg + 2 * halo)
 
 
 @functools.lru_cache(maxsize=None)
 def segment_rows(rows: int, halo: int, tiles: int,
                  sms: int = DEFAULT_SMS) -> int:
-    """Output rows per block along x.  One 1024-thread block fills an SM,
-    so a launch of b blocks takes ceil(b / sms) waves, and a block of s
-    rows marches s + 2 * halo planes: pick the s that minimises their
-    product (the fewest segments among equals)."""
+    """Output rows per block along x: the s that minimises
+    `_segment_cost` (the fewest segments among equals)."""
     best = None
     for nseg in range(1, rows + 1):
         seg = -(-rows // nseg)
-        waves = -(-(tiles * -(-rows // seg)) // sms)
-        cost = waves * (seg + 2 * halo)
+        cost = _segment_cost(rows, halo, tiles, sms, seg)
         if best is None or cost < best[0]:
             best = (cost, seg)
     return best[1]
@@ -142,8 +157,56 @@ WHOLE_MAX_CHUNK = 12
 SHARED_BYTES = 232448
 
 
+# The single-device solve's listed march (csrc/jacobi.cu's note has the
+# argument).  A box, an inner tile of the BLOCKED_K-ring geometry times a
+# segment of `live_segment_rows` rows, is live if one of its cells has
+# code > 0: the others hold c2e after any sweep.  Every pass, the remainder
+# pass too, marches the live boxes.  The guard makes every box live where
+# a c2e, or a q0 where the code is > 0, exceeds LIVE_LIMIT in magnitude or
+# is not finite, a cell with code 0 has c2e = -0.0, or a solve has
+# LIVE_MAX_SWEEPS sweeps or more: below those, the iterates of K2f's
+# inputs (whose q0 is c2e where the code is 0) keep every sum finite.
+LIVE_LIMIT = 2.0 ** 100
+LIVE_MAX_SWEEPS = 2 ** 20
+# The list kernels: one scans each box (and fills), one compacts the list.
+LIVE_LIST_LAUNCHES = 2
+
+
 def _k2_pass(levels, shape, xs, xe, sms, out_x0=0) -> Pass:
     return _pass(levels, levels, shape, xs, xe, sms, out_x0, PAIR_TILE_Z)
+
+
+@functools.lru_cache(maxsize=None)
+def live_segment_rows(rows: int, halo: int, tiles: int,
+                      sms: int = DEFAULT_SMS) -> int:
+    """Output rows per box of the listed march.  It launches one block an
+    SM, each taking the listed boxes in turn, so with every box live a
+    pass takes the dense launch's `_segment_cost` in rounds.  The fewest
+    rows whose cost is no more than the dense launch's (`segment_rows`,
+    which takes the most among equals): a solve with every box live costs
+    no more than the dense march, and one with few live boxes marches
+    short boxes."""
+    dense = segment_rows(rows, halo, tiles, sms)
+    limit = _segment_cost(rows, halo, tiles, sms, dense)
+    return min(seg for seg in range(1, dense + 1)
+               if _segment_cost(rows, halo, tiles, sms, seg) <= limit)
+
+
+def live_boxes(p: Pass, q0, code, c2e, n_iters: int) -> list:
+    """The boxes of a listed pass `p` (indices into `p.blocks()`) that the
+    list kernels list for these (X,Y,Z) inputs, by the rule above: those
+    that hold a cell with code > 0, or every box where the guard fails.
+    Takes torch tensors (or anything with their methods)."""
+    boxes = list(p.blocks())
+    dry = code == 0
+    exact = (n_iters < LIVE_MAX_SWEEPS
+             and bool((dry | (q0.abs() <= LIVE_LIMIT)).all())
+             and bool((c2e.abs() <= LIVE_LIMIT).all())
+             and not bool((dry & (c2e == 0) & c2e.signbit()).any()))
+    if not exact:
+        return list(range(len(boxes)))
+    return [i for i, box in enumerate(boxes)
+            if bool(code[tuple(slice(lo, hi) for lo, hi in box)].any())]
 
 
 def whole_grid_parts(shape) -> int | None:
@@ -165,7 +228,8 @@ def jacobi_plan(shape, n_iters: int, *, halo: int = 0,
 
     Single device (halo = 0): none for 0 sweeps; the one-block route where
     the grid fits it; else passes of `BLOCKED_K` sweeps over all rows and a
-    remainder pass.  Sharded pass (halo = h > 0,
+    remainder pass, listed: all on the boxes of the BLOCKED_K-ring
+    geometry, `live_segment_rows` rows long.  Sharded pass (halo = h > 0,
     `jacobi_pass_cuda`): n_iters = kk <= h sweeps on a slab of h + lx + h
     rows whose interior is written; passes of at most BLOCKED_K sweeps over
     shrinking row ranges.  Plans are cached: the solve asks for the same
@@ -184,8 +248,12 @@ def _jacobi_plan(shape, n_iters, halo, sms) -> Plan:
             return Plan("whole", parts=parts)
         k = BLOCKED_K
         counts = [k] * (n_iters // k) + ([n_iters % k] if n_iters % k else [])
-        return Plan("blocked", tuple(_k2_pass(c, shape, 0, nx, sms)
-                                     for c in counts))
+        probe = _k2_pass(k, shape, 0, nx, sms)
+        tz, ty = probe.tiles
+        seg = live_segment_rows(nx, k, tz * ty, sms)
+        return Plan("blocked", tuple(
+            dataclasses.replace(probe, levels=c, seg=seg) for c in counts),
+            listed=True)
     if not 1 <= n_iters <= halo or nx <= 2 * halo:
         raise ValueError(f"{n_iters} sweeps on a slab of {nx} rows with "
                          f"{halo}-plane halos")
