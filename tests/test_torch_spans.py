@@ -1,8 +1,9 @@
 """The port's spans (`tpu_fluid_torch/utils/profiling.py`): the switch and
 the registry on the CPU (the off path, self time, the stage groups of the
-step on both paths, the facade's spans, the sync count and what tracing
-puts back, a graph's marks read before it replays again), and on the card
-(the `cuda` test, which skips here) traced and untraced graphed steps."""
+step on both paths, the facade's spans, the level set's spans and
+counters, the sync count and what tracing puts back, a graph's marks read
+before it replays again), and on the card (the `cuda` test, which skips
+here) traced and untraced graphed steps."""
 
 import types
 import warnings
@@ -10,9 +11,11 @@ import warnings
 import pytest
 import torch
 
+from fluid_bench.reference import step_levelset as ref_levelset
 from tpu_fluid_torch import FluidConfig, Simulation, initial_state, step
 from tpu_fluid_torch.render.export import to_host
 from tpu_fluid_torch.solver import graph
+from tpu_fluid_torch.surface import levelset
 from tpu_fluid_torch.utils import profiling
 
 torch.set_num_threads(2)
@@ -135,6 +138,57 @@ def test_facade_spans(tmp_path):
     for name in ("step", "render_frame", "to_host"):
         assert rep[name]["parent"] is None
     assert all(r["calls"] == 1 for r in rep.values())
+
+
+# the level-set surface, with a solid box whose detailed cells the
+# smoothing keeps
+LEVELSET = CFG.replace(surface_method="levelset",
+                       solid_boxes=(((4, 6, 1), (7, 11, 4)),))
+
+
+@pytest.mark.parametrize("cfg,groups", PATHS, ids=["unfused", "fused"])
+def test_the_level_set_spans_and_counters(cfg, groups):
+    """With tracing on, the level set is the span `levelset` inside the
+    stage group `16-18 surface fields`, with `levelset.chamfer` and
+    `levelset.smooth` inside it; it counts the detailed cells and the
+    cells its distance reaches, which a plain count of the reference's
+    distance gives."""
+    cfg = cfg.replace(surface_method=LEVELSET.surface_method,
+                      solid_boxes=LEVELSET.solid_boxes)
+    state = step(initial_state(cfg, device="cpu"), cfg)
+    profiling.tracing(True)
+    out = step(state, cfg)
+    rep = profiling.report()
+    assert [n for n in rep if n[0].isdigit()] == groups
+    assert rep["levelset"]["parent"] == "16-18 surface fields"
+    for name in ("levelset.chamfer", "levelset.smooth", "levelset.cells",
+                 "levelset.band_cells"):
+        assert rep[name]["parent"] == "levelset", name
+        assert rep[name]["calls"] == 1, name
+    assert rep["levelset"]["host_s"] >= (rep["levelset.chamfer"]["host_s"]
+                                         + rep["levelset.smooth"]["host_s"])
+    cells = out.detailed_occ.numel()
+    assert rep["levelset.cells"]["count"] == cells == \
+        cfg.detailed_size[0] * cfg.detailed_size[1] * cfg.detailed_size[2]
+    sweeps = cfg.levelset_sweeps_value
+    phi = ref_levelset.chamfer(out.detailed_occ, sweeps, torch.float32)
+    band = int((phi <= sweeps).sum())
+    assert rep["levelset.band_cells"]["count"] == band
+    assert int(out.detailed_occ.sum()) < band < cells
+
+
+def test_the_level_set_records_and_counts_nothing_with_tracing_off(
+        monkeypatch):
+    """With tracing off the level set makes no record, and its band is
+    never counted."""
+    def refused(*args, **kwargs):
+        raise AssertionError("the band was counted")
+    monkeypatch.setattr(levelset, "band_cells", refused)
+    state = initial_state(LEVELSET, device="cpu")
+    for _ in range(2):
+        state = step(state, LEVELSET)
+    assert profiling.report() == {}
+    assert all(int(acc) == 0 for acc in profiling._DEVICE_COUNTS.values())
 
 
 def test_syncs_count_under_the_innermost_span_and_are_not_shown():

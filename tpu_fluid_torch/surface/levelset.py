@@ -14,6 +14,13 @@ The field is rebuilt from the particles every frame, on the detailed grid:
 The JAX package computes this in XLA, with no Pallas kernel, so here it is
 plain torch, each min taken in `_CHAMFER26` order and each sum in MOVES
 order as JAX takes them.
+
+With tracing on (`utils/profiling`) the field is the span `levelset`, with
+the spans `levelset.chamfer` and `levelset.smooth` inside it, and counts
+the detailed cells it is given (`levelset.cells`; on the x-slab step the
+extended slab) and, on the device, those whose distance ends at most
+`sweeps` (`levelset.band_cells`, the band the sweeps reach); with tracing
+off it launches nothing more.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from tpu_fluid_torch.core.config import FluidConfig
 from tpu_fluid_torch.kernels import store
 from tpu_fluid_torch.ops.stencil import MOVES, div_const, shifted
 from tpu_fluid_torch.stages.surface_fields import solid_parent_mask
+from tpu_fluid_torch.utils import profiling
 
 _BIG = 1e6
 
@@ -61,6 +69,12 @@ def chamfer_distance(occ: torch.Tensor, sweeps: int,
     return phi
 
 
+def band_cells(phi: torch.Tensor, sweeps: int) -> torch.Tensor:
+    """The cells whose chamfer distance is at most `sweeps`, as a device
+    scalar: the occupied cells and the band the sweeps reached."""
+    return (phi <= sweeps).sum()
+
+
 def levelset_field(types: torch.Tensor, occ: torch.Tensor,
                    cfg: FluidConfig, out: torch.Tensor | None = None
                    ) -> torch.Tensor:
@@ -69,16 +83,23 @@ def levelset_field(types: torch.Tensor, occ: torch.Tensor,
     the particles; written into `out` where given (by the last smoothing
     pass, where there is one)."""
     sweeps = cfg.levelset_sweeps_value
-    phi = chamfer_distance(occ, sweeps)
-    f = cfg.levelset_iso_value - torch.clamp(phi, max=sweeps + 1.0)
-    if not cfg.levelset_smooth:
-        return store(f, out)
-    skip = solid_parent_mask(types, cfg)
-    for k in range(cfg.levelset_smooth):
-        nsum = torch.zeros_like(f)
-        for mv in MOVES:
-            nsum.add_(shifted(f, mv, fill=0.0))
-        last = k == cfg.levelset_smooth - 1
-        f = torch.where(skip, f, div_const(f + nsum, 7.0),
-                        out=out if last else None)
-    return f
+    with profiling.span("levelset"):
+        profiling.count("levelset.cells", occ.numel())
+        with profiling.span("levelset.chamfer"):
+            phi = chamfer_distance(occ, sweeps)
+        if profiling.enabled():
+            profiling.count_on_device("levelset.band_cells",
+                                      band_cells(phi, sweeps))
+        f = cfg.levelset_iso_value - torch.clamp(phi, max=sweeps + 1.0)
+        if not cfg.levelset_smooth:
+            return store(f, out)
+        with profiling.span("levelset.smooth"):
+            skip = solid_parent_mask(types, cfg)
+            for k in range(cfg.levelset_smooth):
+                nsum = torch.zeros_like(f)
+                for mv in MOVES:
+                    nsum.add_(shifted(f, mv, fill=0.0))
+                last = k == cfg.levelset_smooth - 1
+                f = torch.where(skip, f, div_const(f + nsum, 7.0),
+                                out=out if last else None)
+        return f
