@@ -118,14 +118,16 @@ Phases, one line each (more for the parity and scene phases):
               3 against 3 eager steps, every field bitwise, from the state
               after 2 steps (for (a) from the steps at phases 0 and 1 of
               the cadence); every kernel of the path launched and no other
-              (the level set skips K5, the red-black solver K2); eager,
+              (the level set skips K5 and alone launches the level-set
+              kernel, the red-black solver skips K2); eager,
               jit_step and jit_multi_step ms a step (medians of 8, CUDA
               events; for (a) corrected and uncorrected steps apart) and
               each capture's pool and residual hand-over (fields,
               bytes).  At (a) K2f and K2 on the volume solve's
               inputs and K3+K4 on vel + drift against their plain
               versions bitwise, and the correction's parts timed; at (b)
-              the plain level set against K5's stage.  Then
+              the level set (the kernel, and its plain chamfer) against
+              K5's stage.  Then
               scaled_scene(64) with 250,000 particles on 4 ranks sharing
               the card over gloo for 2 steps: (a)+(b)+(c) with (d)'s scene
               fields under index sharding, and (a) under domain sharding;
@@ -211,6 +213,19 @@ scaled_scene(256, 2M particles)'s seeded step and of an all-WATER grid,
 with the live share of each; then the live boxes' trajectory: that scene
 graphed for LIVE_STEPS steps with tracing on, the mean of
 `jacobi.live_boxes` over each LIVE_EVERY steps.
+`python3 chip_smoke.py --levelset` runs the build and phase 16: the level
+set's kernel (`kernels/levelset.py`) against its plain passes
+(`surface/levelset.levelset_plain`), bitwise in f1 and f2 (both written
+over sentinels), at the 512^3 detailed grid of fountain-256-levelset's
+state after LEVELSET_STEPS eager steps of the main path (each one
+wrapper call and 3 kernels by the C counter, from 0), at odd shapes with 0-6 sweeps
+and 0-3 smoothing passes, a solid box, and an empty, a full and a
+face-touching occupancy; the band's cells of its counting form against
+the plain count; the live boxes its flag kernels flag against the plain
+rule (`kernels/levelset.live_boxes`); the wrapper's and the C counter's
+launches a call (1 and 3); and CUDA-event times of the kernel and the
+plain passes, each writing f1 and f2, beside the bound (the occupancy and
+types read, f1 and f2 written, once each).
 """
 
 from __future__ import annotations
@@ -226,6 +241,19 @@ import torch
 SEED = 0
 LIVE_STEPS = 6000
 LIVE_EVERY = 500
+# phase 16: eager steps of the level-set scene before its fields are read
+LEVELSET_STEPS = 3
+# phase 16: (shape, r, sweeps, smooth, occupancy) of the odd cases
+LEVELSET_ODD = (((13, 20, 37), 1, 4, 2, "sparse"),
+                ((26, 40, 74), 2, 1, 0, "sparse"),
+                ((26, 40, 74), 2, 6, 2, "sparse"),
+                ((24, 36, 48), 2, 2, 3, "sparse"),
+                ((30, 30, 30), 3, 0, 2, "sparse"),
+                ((42, 40, 74), 2, 3, 1, "sparse"),
+                ((100, 96, 96), 2, 4, 2, "blob"),
+                ((13, 20, 37), 1, 4, 2, "empty"),
+                ((13, 20, 37), 1, 4, 2, "full"),
+                ((13, 20, 37), 1, 5, 3, "faces"))
 REF_STEPS = 20
 BENCH_STEPS = 10
 COMPARE_STEPS = 3
@@ -1797,9 +1825,13 @@ VOLUME = dict(volume_correction=1.0, volume_correction_every=PHYSICS_EVERY,
 PHYSICS_SHARDED_GRID = 64
 PHYSICS_SHARDED_PARTICLES = 250_000
 # the kernels each configuration's single-device path must launch and
-# must not: the level set skips K5, the red-black solver K2f and K2
-PHYSICS_SKIPS = {"levelset": ("surface_fused_cuda",),
-                 "redblack": ("jacobi_fold_cuda", "jacobi_sweeps_cuda")}
+# must not: the level set skips K5 and alone launches the level-set
+# kernel, the red-black solver skips K2f and K2
+PHYSICS_SKIPS = {"volume": ("levelset_cuda",),
+                 "levelset": ("surface_fused_cuda",),
+                 "redblack": ("jacobi_fold_cuda", "jacobi_sweeps_cuda",
+                              "levelset_cuda"),
+                 "scene": ("levelset_cuda",)}
 
 
 def physics_configs(bench_cfg):
@@ -1923,18 +1955,19 @@ def physics_parity(device, cfg, state, label: str) -> dict:
 
 
 def levelset_parts(device, cfg, state, label: str) -> dict:
-    """(b)'s plain level set against K5's surface stage on the same types
-    and occupancy, ms a call."""
+    """(b)'s level set (the kernel route of `levelset_fields`) and its
+    plain chamfer against K5's surface stage on the same types and
+    occupancy, ms a call."""
     from tpu_fluid_torch.stages import surface_fields
     from tpu_fluid_torch.surface.levelset import (chamfer_distance,
-                                                  levelset_field)
+                                                  levelset_fields)
     inertia_cfg = cfg.replace(surface_method="inertia")
     types, occ = state.cell_types, state.detailed_occ
     parts = {
         "chamfer_distance": graphed_ms(lambda: chamfer_distance(
             occ, cfg.levelset_sweeps_value), reps=3),
-        "levelset_field": graphed_ms(lambda: levelset_field(types, occ, cfg),
-                                     reps=3),
+        "levelset_fields": graphed_ms(
+            lambda: levelset_fields(types, occ, cfg), reps=3),
         "K5 stage (update_surface_fields)": graphed_ms(
             lambda: surface_fields.update_surface_fields(
                 types, occ, state.inertia, state.float_dens_2,
@@ -2966,6 +2999,8 @@ def main(argv) -> int:
         return splat_main(smi, card, device)
     if argv == ["--live"]:
         return live_main(smi, card, device)
+    if argv == ["--levelset"]:
+        return levelset_main(smi, card, device)
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -2979,6 +3014,7 @@ def main(argv) -> int:
     from tpu_fluid_torch.kernels import jacobi
     from tpu_fluid_torch.kernels.jacobi import (jacobi_fold_cuda,
                                                 jacobi_sweeps_cuda)
+    from tpu_fluid_torch.kernels.levelset import levelset_cuda
     from tpu_fluid_torch.kernels.particle_move import particle_move_cuda
     from tpu_fluid_torch.kernels.surface_fused import surface_fused_cuda
     wrappers = (advect_all_cuda, jacobi_fold_cuda, jacobi_sweeps_cuda,
@@ -3157,8 +3193,11 @@ def main(argv) -> int:
 
     # 11: volume correction, the level set, the red-black solver and
     # scene fields at the bench scene's width, then sharded
-    physics = phase_physics(device, bench_cfg, wrappers, card)
+    physics = phase_physics(device, bench_cfg,
+                            wrappers + (levelset_cuda,), card)
     for name, count in physics["launches"].items():
+        if name == "levelset_cuda":
+            continue
         if name in launches:
             launches[name] += count
         elif name == "particle_move_local_cuda":
@@ -3360,6 +3399,148 @@ def live_main(smi: str, card: str, device) -> int:
         256, particle_count=2_000_000), card)
     print(smi)
     print(json.dumps({"live": live}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def levelset_inputs(shape, r: int, occupancy: str, seed: int):
+    """(types, occ) numpy arrays of a detailed grid of `shape`: seeded
+    cell types with SOLID walls and a solid box, and an occupancy that is
+    sparse, a blob in one corner, empty, full, or a few cells on every
+    face."""
+    rng = np.random.default_rng(seed)
+    sim = tuple(s // r for s in shape)
+    types = rng.integers(0, 3, sim).astype(np.uint8)
+    types[0], types[-1], types[:, 0], types[:, -1] = 3, 3, 3, 3
+    types[:, :, 0], types[:, :, -1] = 3, 3
+    types[1:3, 2:4, 1:3] = 3
+    occ = np.zeros(shape, np.uint8)
+    if occupancy == "sparse":
+        occ = ((rng.random(shape) < 0.004)
+               * rng.integers(1, 4, shape)).astype(np.uint8)
+    elif occupancy == "blob":
+        occ[40:50, 40:52, 40:47] = rng.random((10, 12, 7)) < 0.3
+    elif occupancy == "full":
+        occ[:] = 1
+    elif occupancy == "faces":
+        for at in ((0, 3, 4), (-1, 1, 2), (2, 0, 1), (1, -1, 3), (3, 2, 0),
+                   (4, 1, -1)):
+            occ[at] = 5
+    return types, occ
+
+
+def levelset_case(label: str, types, occ, cfg, card: str,
+                  reps: int) -> dict:
+    """The kernel against the plain passes on one input (phase 16)."""
+    from tpu_fluid_torch.kernels import levelset as kernel
+    from tpu_fluid_torch.surface.levelset import (band_cells,
+                                                  chamfer_distance,
+                                                  levelset_plain)
+    from tpu_fluid_torch.utils import profiling
+    sweeps, smooth = cfg.levelset_sweeps_value, cfg.levelset_smooth
+    want = levelset_plain(types, occ, cfg)
+    band_want = int(band_cells(chamfer_distance(occ, sweeps), sweeps))
+    given = (sentinel(want), sentinel(want))
+    before = (kernel.levelset_cuda.launches, kernel.device_launches())
+    profiling.tracing(True)
+    try:
+        got = kernel.levelset_cuda(types, occ, cfg, out=given)
+        torch.cuda.synchronize()
+        rep = profiling.report()
+    finally:
+        profiling.tracing(False)
+        profiling.reset()
+    launches = (kernel.levelset_cuda.launches - before[0],
+                kernel.device_launches() - before[1])
+    same = [g is o and same_bits(g, want) for g, o in zip(got, given)]
+    band = rep["levelset.band_cells"]["count"]
+    live = rep["levelset.live_boxes"]["count"]
+    p = kernel.plan(tuple(occ.shape), sweeps, smooth,
+                    cfg.surface_render_resolution)
+    flagged = kernel.live_boxes_cuda(types, occ, cfg).tolist()
+    rule = kernel.live_boxes(p, occ)
+    one = kernel.levelset_cuda(types, occ, cfg)
+    torch.cuda.synchronize()
+    ok = (all(same) and band == band_want and flagged == rule
+          and live == len(rule) and launches == (1, kernel.FLAG_LAUNCHES + 1)
+          and one[0] is one[1] and same_bits(one[0], want))
+
+    def plain():  # the plain route of levelset_fields: f1, then its copy
+        given[1].copy_(levelset_plain(types, occ, cfg, out=given[0]))
+
+    kernel_ms = graphed_ms(
+        lambda: kernel.levelset_cuda(types, occ, cfg, out=given), reps=reps)
+    plain_ms = graphed_ms(plain, reps=max(1, reps // 10))
+    cells = occ.numel()
+    bound = (9 * cells + types.numel()) / HBM_BYTES_PER_S * 1e3
+    print(f"[16 levelset] {label}: shape {tuple(occ.shape)}, {sweeps} "
+          f"sweeps, {smooth} smoothing passes: f1, f2 written over "
+          f"sentinels and bitwise equal to the plain passes {same}; one "
+          f"tensor for both without out {one[0] is one[1]}; band "
+          f"{band} (plain {band_want}); live boxes {live} of {p.total} "
+          f"({100.0 * live / p.total!r}%), flagged as the plain rule "
+          f"{flagged == rule}; launches {launches}; kernel {kernel_ms!r} ms, "
+          f"plain {plain_ms!r} ms, bound {bound!r} ms (bytes), "
+          f"{100.0 * bound / kernel_ms!r}% of it; {card}", flush=True)
+    check(ok, f"the level-set kernel differs from its plain passes at "
+              f"{label}")
+    return {"shape": list(occ.shape), "sweeps": sweeps, "smooth": smooth,
+            "band": band, "live": live, "boxes": p.total,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound}
+
+
+def phase_levelset(device, cfg, card: str) -> dict:
+    """Phase 16 (module docstring)."""
+    from tpu_fluid_torch import initial_state, step
+    from tpu_fluid_torch.kernels import levelset as kernel
+    state = initial_state(cfg, device)
+    kernel.levelset_cuda.launches = 0
+    per_step = []
+    for _ in range(LEVELSET_STEPS):
+        before = kernel.device_launches()
+        state = step(state, cfg)
+        per_step.append((kernel.levelset_cuda.launches,
+                         kernel.device_launches() - before))
+        kernel.levelset_cuda.launches = 0
+    torch.cuda.synchronize()
+    print(f"[16 levelset] the main path's launches a step over "
+          f"{LEVELSET_STEPS} steps of the fountain at detailed grid "
+          f"{cfg.detailed_size} (wrapper calls, C counter): {per_step}",
+          flush=True)
+    check(per_step == [(1, kernel.FLAG_LAUNCHES + 1)] * LEVELSET_STEPS,
+          f"the level set's launches a step {per_step}, expected one "
+          f"wrapper call and {kernel.FLAG_LAUNCHES + 1} kernels")
+    out = {"per_step_launches": per_step, "scene": levelset_case(
+        f"fountain after {LEVELSET_STEPS} steps", state.cell_types.clone(),
+        state.detailed_occ.clone(), cfg, card, reps=20)}
+    for n, (shape, r, sweeps, smooth, occupancy) in enumerate(LEVELSET_ODD):
+        types, occ = levelset_inputs(shape, r, occupancy, SEED + n)
+        odd = cfg.replace(grid_size=tuple(s // r for s in shape),
+                          surface_render_resolution=r,
+                          levelset_sweeps=sweeps, levelset_smooth=smooth,
+                          levelset_iso=1.3)
+        out[f"{occupancy} {shape}"] = levelset_case(
+            f"{occupancy} {shape} r={r}", torch.from_numpy(types).to(device),
+            torch.from_numpy(occ).to(device), odd, card, reps=10)
+    return out
+
+
+def levelset_main(smi: str, card: str, device) -> int:
+    """`python3 chip_smoke.py --levelset`: the build and phase 16 alone."""
+    from tpu_fluid_torch import FluidConfig
+    from tpu_fluid_torch.kernels import build
+    t0 = time.perf_counter()
+    build.build()
+    build.library()
+    print(f"[2 build] {len(build.sources())} sources -> {build.LIBRARY.name} "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    levelset = phase_levelset(device, FluidConfig.scaled_scene(
+        256, particle_count=2_000_000).replace(surface_method="levelset"),
+        card)
+    print(smi)
+    print(json.dumps({"levelset": levelset}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

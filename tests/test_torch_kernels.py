@@ -488,7 +488,7 @@ def test_build_flags_and_sources():
     assert not any("fast_math" in f or "fast-math" in f for f in flags)
     names = [p.name for p in build.sources()]
     assert names == sorted(["advect.cu", "errors.cu", "grid_fused.cu",
-                            "jacobi.cu", "jacobi_fold.cu",
+                            "jacobi.cu", "jacobi_fold.cu", "levelset.cu",
                             "particle_move.cu", "splat.cu",
                             "surface_fused.cu"])
     assert build.LIBRARY.parent == build.BUILD_DIR

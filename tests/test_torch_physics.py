@@ -164,7 +164,7 @@ def test_levelset_field(change):
     r = np.random.default_rng(5)
     types = random_types(r)
     occ = random_occupancy(r, tcfg.detailed_size)
-    same(tlevelset.levelset_field(T(types), T(occ), tcfg),
+    same(tlevelset.levelset_fields(T(types), T(occ), tcfg)[0],
          jax.jit(jlevelset.levelset_field, static_argnums=2)(
              J(types), J(occ), jcfg))
 

@@ -79,7 +79,7 @@ from tpu_fluid_torch.stages import celltypes, particles, pressure
 from tpu_fluid_torch.stages import surface_fields
 from tpu_fluid_torch.stages import velocity as vstages
 from tpu_fluid_torch.stages.volume import density_drift, volume_due
-from tpu_fluid_torch.surface.levelset import levelset_field
+from tpu_fluid_torch.surface.levelset import levelset_fields
 from tpu_fluid_torch.utils import profiling
 
 
@@ -228,11 +228,11 @@ def _levelset_spmd(types: torch.Tensor, occ: torch.Tensor, cfg: FluidConfig,
     lx = types.shape[0]
     ht = -(-(cfg.levelset_sweeps_value + cfg.levelset_smooth) // r)
     if ht <= lx:
-        f = levelset_field(halo_extend(types, ht, mesh),
-                           halo_extend(occ, ht * r, mesh), cfg)
+        f, _ = levelset_fields(halo_extend(types, ht, mesh),
+                               halo_extend(occ, ht * r, mesh), cfg)
         return halo_inner(f, ht * r)
-    f = levelset_field(all_gather_x(types, mesh, axis=0),
-                       all_gather_x(occ, mesh, axis=0), cfg)
+    f, _ = levelset_fields(all_gather_x(types, mesh, axis=0),
+                           all_gather_x(occ, mesh, axis=0), cfg)
     return f[x0 * r:(x0 + lx) * r]
 
 

@@ -7,7 +7,7 @@ import torch
 
 from tpu_fluid_torch.core.config import FluidConfig
 from tpu_fluid_torch.core.types import CellType
-from tpu_fluid_torch.kernels import kernel_choice, store
+from tpu_fluid_torch.kernels import kernel_choice
 from tpu_fluid_torch.kernels.surface_fused import (surface_fused_cuda,
                                                    surface_fused_plain)
 from tpu_fluid_torch.ops.stencil import MOVES, div_scalar, shifted
@@ -82,13 +82,14 @@ def update_surface_fields(types: torch.Tensor, occ: torch.Tensor,
     picks them, else their plain version; written into `out`'s three
     tensors where given.  With `surface_method = "levelset"` the field is
     the rebuilt level set instead (`surface/levelset.py`), the same tensor
-    for f1 and f2 (with `out`, written into f1's and copied into f2's),
-    and the inertia is carried through."""
+    for f1 and f2 (with `out`, written into f1's and f2's: by the kernel
+    at once, or into f1's and copied into f2's), and the inertia is
+    carried through."""
     if cfg.surface_method == "levelset":
-        from tpu_fluid_torch.surface.levelset import levelset_field
+        from tpu_fluid_torch.surface.levelset import levelset_fields
         _, f1_to, f2_to = (None, None, None) if out is None else out
-        f = levelset_field(types, occ, cfg, out=f1_to)
-        return inertia, f, store(f, f2_to)
+        return (inertia,) + levelset_fields(types, occ, cfg,
+                                            out=(f1_to, f2_to))
     if cfg.surface_method != "inertia":
         raise ValueError(f"unknown surface_method {cfg.surface_method!r}")
     skip = solid_parent_mask(types, cfg).to(torch.uint8)

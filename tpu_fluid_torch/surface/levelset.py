@@ -15,12 +15,20 @@ The JAX package computes this in XLA, with no Pallas kernel, so here it is
 plain torch, each min taken in `_CHAMFER26` order and each sum in MOVES
 order as JAX takes them.
 
-With tracing on (`utils/profiling`) the field is the span `levelset`, with
-the spans `levelset.chamfer` and `levelset.smooth` inside it, and counts
-the detailed cells it is given (`levelset.cells`; on the x-slab step the
-extended slab) and, on the device, those whose distance ends at most
-`sweeps` (`levelset.band_cells`, the band the sweeps reach); with tracing
-off it launches nothing more.
+Where `kernel_choice` picks it, the field is one hand-written march over
+the boxes that water reaches (`kernels/levelset.py`, bitwise this
+function), which writes f1 and f2 at once and raises for a configuration
+it cannot take.  Elsewhere it runs as the plain passes of
+`levelset_plain`.
+
+With tracing on (`utils/profiling`) the field is the span `levelset` and
+counts the detailed cells it is given (`levelset.cells`; on the x-slab
+step the extended slab) and, on the device, those whose distance ends at
+most `sweeps` (`levelset.band_cells`, the band the sweeps reach).  Inside
+it, the plain passes are the spans `levelset.chamfer` and
+`levelset.smooth`; the kernel's launches the spans `levelset.scan` and
+`levelset.march`, with the counters `levelset.live_boxes` (on the device)
+and `levelset.boxes`.  With tracing off it launches nothing more.
 """
 
 from __future__ import annotations
@@ -28,7 +36,8 @@ from __future__ import annotations
 import torch
 
 from tpu_fluid_torch.core.config import FluidConfig
-from tpu_fluid_torch.kernels import store
+from tpu_fluid_torch.kernels import kernel_choice, store
+from tpu_fluid_torch.kernels import levelset as kernel
 from tpu_fluid_torch.ops.stencil import MOVES, div_const, shifted
 from tpu_fluid_torch.stages.surface_fields import solid_parent_mask
 from tpu_fluid_torch.utils import profiling
@@ -75,31 +84,43 @@ def band_cells(phi: torch.Tensor, sweeps: int) -> torch.Tensor:
     return (phi <= sweeps).sum()
 
 
-def levelset_field(types: torch.Tensor, occ: torch.Tensor,
-                   cfg: FluidConfig, out: torch.Tensor | None = None
-                   ) -> torch.Tensor:
-    """(sim types, detailed occupancy) -> the signed field on the detailed
-    grid: positive inside, its 0-isosurface `levelset_iso` cells outside
-    the particles; written into `out` where given (by the last smoothing
-    pass, where there is one)."""
-    sweeps = cfg.levelset_sweeps_value
+def levelset_fields(types: torch.Tensor, occ: torch.Tensor,
+                    cfg: FluidConfig, out=(None, None)) -> tuple:
+    """(sim types, detailed occupancy) -> (f1, f2), the signed field on
+    the detailed grid: positive inside, its 0-isosurface `levelset_iso`
+    cells outside the particles; written into `out`'s two tensors where
+    given, else one tensor for both.  The kernel writes both tensors; the
+    plain passes write f1 and copy it into f2, after the span."""
+    f1_to, f2_to = out
     with profiling.span("levelset"):
         profiling.count("levelset.cells", occ.numel())
-        with profiling.span("levelset.chamfer"):
-            phi = chamfer_distance(occ, sweeps)
-        if profiling.enabled():
-            profiling.count_on_device("levelset.band_cells",
-                                      band_cells(phi, sweeps))
-        f = cfg.levelset_iso_value - torch.clamp(phi, max=sweeps + 1.0)
-        if not cfg.levelset_smooth:
-            return store(f, out)
-        with profiling.span("levelset.smooth"):
-            skip = solid_parent_mask(types, cfg)
-            for k in range(cfg.levelset_smooth):
-                nsum = torch.zeros_like(f)
-                for mv in MOVES:
-                    nsum.add_(shifted(f, mv, fill=0.0))
-                last = k == cfg.levelset_smooth - 1
-                f = torch.where(skip, f, div_const(f + nsum, 7.0),
-                                out=out if last else None)
-        return f
+        if kernel_choice(cfg, occ.device):
+            return kernel.levelset_cuda(types, occ, cfg, out=out)
+        f = levelset_plain(types, occ, cfg, out=f1_to)
+    return f, store(f, f2_to)
+
+
+def levelset_plain(types: torch.Tensor, occ: torch.Tensor,
+                   cfg: FluidConfig, out: torch.Tensor | None = None
+                   ) -> torch.Tensor:
+    """The field as plain passes, written into `out` where given (by the
+    last smoothing pass, where there is one)."""
+    sweeps = cfg.levelset_sweeps_value
+    with profiling.span("levelset.chamfer"):
+        phi = chamfer_distance(occ, sweeps)
+    if profiling.enabled():
+        profiling.count_on_device("levelset.band_cells",
+                                  band_cells(phi, sweeps))
+    f = cfg.levelset_iso_value - torch.clamp(phi, max=sweeps + 1.0)
+    if not cfg.levelset_smooth:
+        return store(f, out)
+    with profiling.span("levelset.smooth"):
+        skip = solid_parent_mask(types, cfg)
+        for k in range(cfg.levelset_smooth):
+            nsum = torch.zeros_like(f)
+            for mv in MOVES:
+                nsum.add_(shifted(f, mv, fill=0.0))
+            last = k == cfg.levelset_smooth - 1
+            f = torch.where(skip, f, div_const(f + nsum, 7.0),
+                            out=out if last else None)
+    return f
